@@ -69,3 +69,5 @@ def _seed_numpy():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running multi-node integration tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")

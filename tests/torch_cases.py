@@ -1,0 +1,145 @@
+"""Seeded numpy inputs shared by the PyTorch port's parity tests.
+
+Everything is built with numpy from a seed, so the JAX reference and the
+port see byte-identical inputs. Impacts and weights come from small value
+sets so that equal scores (and with them the tie order) are common; some
+query slots are empty runs, and the postings tables carry the ``n_pad``
+sentinel padding the sorted-merge kernels rely on.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """Round f32 to bf16 (nearest even) and return the int16 bit pattern."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    r = (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+    return r.astype(np.uint16).view(np.int16)
+
+
+def sparse_case(seed: int, *, S: int, B: int, Q: int, L: int,
+                n_pad: int = 4096, n_runs: int = 24) -> dict:
+    """Postings tables i32/f32[S, P] and per-query run slots."""
+    rng = np.random.RandomState(seed)
+    imp_set = np.array([0.5, 0.75, 1.0, 1.25, 1.5], np.float32)
+    tables_d, tables_i, run_st, run_ln = [], [], [], []
+    for _ in range(S):
+        docs, imps, st, ln = [], [], [], []
+        pos = 0
+        for r in range(n_runs):
+            n = 0 if r % 7 == 3 else int(rng.randint(1, L + 1))
+            d = np.sort(rng.choice(n_pad - 5, size=n, replace=False))
+            docs.append(d.astype(np.int32))
+            imps.append(rng.choice(imp_set, size=n))
+            st.append(pos)
+            ln.append(n)
+            pos += n
+        P = -(-(pos + L) // 256) * 256
+        td = np.full(P, n_pad, np.int32)
+        ti = np.zeros(P, np.float32)
+        td[:pos] = np.concatenate(docs)
+        ti[:pos] = np.concatenate(imps)
+        tables_d.append(td)
+        tables_i.append(ti)
+        run_st.append(np.array(st))
+        run_ln.append(np.array(ln))
+    P = max(t.shape[0] for t in tables_d)
+    docs = np.full((S, P), n_pad, np.int32)
+    imps = np.zeros((S, P), np.float32)
+    for s in range(S):
+        docs[s, :tables_d[s].shape[0]] = tables_d[s]
+        imps[s, :tables_i[s].shape[0]] = tables_i[s]
+    pick = rng.randint(0, n_runs, size=(B, S, Q))
+    starts = np.zeros((B, S, Q), np.int32)
+    lengths = np.zeros((B, S, Q), np.int32)
+    for s in range(S):
+        starts[:, s] = run_st[s][pick[:, s]]
+        lengths[:, s] = run_ln[s][pick[:, s]]
+    lengths[rng.rand(B, S, Q) < 0.15] = 0          # empty slots
+    idfw = rng.choice(np.array([0.5, 1.0, 2.0], np.float32), size=(B, Q))
+    return dict(docs=docs, imps=imps, starts=starts, lengths=lengths,
+                idfw=idfw.astype(np.float32), n_pad=n_pad, L=L)
+
+
+def dense_case(seed: int, *, S: int, B: int, Q: int, T: int,
+               n_pad: int = 4096, C: int = 1024, U=None,
+               density: float = 0.3) -> dict:
+    """Dense rows (bf16 bits [S, n_blk, T, C]) and the slot inputs the
+    tiered step takes: rid/w [B, S, Q] and W [B, S, U or T]."""
+    rng = np.random.RandomState(seed)
+    n_blk = n_pad // C
+    vals = rng.choice(np.array([0.3, 0.6, 0.9, 1.2], np.float32),
+                      size=(S, n_blk, T, C))
+    vals[rng.rand(S, n_blk, T, C) > density] = 0.0
+    bits = bf16_bits(vals)
+    width = T if U is None else U
+    u_ids = None
+    if U is not None:
+        u_ids = np.stack([np.sort(rng.choice(T, size=U, replace=False))
+                          for _ in range(S)]).astype(np.int32)
+    rid = rng.randint(0, width, size=(B, S, Q)).astype(np.int32)
+    w = rng.choice(np.array([0.0, 0.5, 1.0, 2.0], np.float32),
+                   size=(B, S, Q))
+    W = np.zeros((B, S, width), np.float32)
+    bi, si, qi = np.nonzero(w)
+    np.add.at(W, (bi, si, rid[bi, si, qi]), w[bi, si, qi])
+    return dict(bits=bits, rid=rid, w=w.astype(np.float32), W=W,
+                u_ids=u_ids, n_pad=n_pad, C=C, T=T)
+
+
+def topk_lists_case(seed: int, *, R: int, m: int, n_pad: int = 4096,
+                    dup: bool = True) -> dict:
+    """Two [R, m] (score desc, doc asc) lists sharing some docs, with ties
+    and -inf tails."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name in ("a", "b"):
+        v = rng.choice(np.array([1.0, 1.5, 2.0, 3.0], np.float32),
+                       size=(R, m))
+        d = rng.choice(n_pad, size=(R, m)).astype(np.int32)
+        if dup and name == "b":
+            share = rng.rand(R, m) < 0.4
+            d = np.where(share, out["a_docs"], d)
+        v[rng.rand(R, m) < 0.2] = -np.inf
+        order = np.lexsort((d, -v), axis=-1)
+        v = np.take_along_axis(v, order, -1)
+        d = np.take_along_axis(d, order, -1)
+        # one copy per doc within a list, as a top-k list holds
+        for r in range(R):
+            _, first = np.unique(d[r], return_index=True)
+            keep = np.zeros(m, bool)
+            keep[first] = True
+            v[r, ~keep] = -np.inf
+        d = np.where(v > -np.inf, d, n_pad).astype(np.int32)
+        order = np.lexsort((d, -v), axis=-1)
+        out[f"{name}_vals"] = np.take_along_axis(v, order, -1)
+        out[f"{name}_docs"] = np.take_along_axis(d, order, -1)
+    return out
+
+
+def assert_topk_close(v1, d1, v2, d2, *, rtol: float, atol: float,
+                      v_next=None):
+    """Two [R, k] top-k lists agree: values within tolerance slot by slot,
+    and docs equal wherever the reference's neighbouring values (``v2``,
+    and ``v_next`` [R] = its (k+1)-th value) differ by more than the
+    tolerance. Slots at -inf carry no doc."""
+    v1, v2 = np.asarray(v1, np.float64), np.asarray(v2, np.float64)
+    fin1, fin2 = np.isfinite(v1), np.isfinite(v2)
+    assert np.array_equal(fin1, fin2), "finite slots differ"
+    np.testing.assert_allclose(np.where(fin1, v1, 0), np.where(fin2, v2, 0),
+                               rtol=rtol, atol=atol)
+    R, k = v2.shape
+    nxt = np.full(R, -np.inf) if v_next is None else \
+        np.asarray(v_next, np.float64)
+    ext = np.concatenate([np.full((R, 1), np.inf), v2, nxt[:, None]], 1)
+    tol = atol + rtol * np.abs(v2)
+    with np.errstate(invalid="ignore"):
+        sep = (np.abs(ext[:, :-2] - v2) > tol) & \
+            (np.abs(v2 - ext[:, 2:]) > tol)
+    sep &= fin2
+    d1, d2 = np.asarray(d1), np.asarray(d2)
+    bad = sep & (d1 != d2)
+    assert not bad.any(), \
+        f"docs differ at separated slots {np.argwhere(bad)[:5]}"
