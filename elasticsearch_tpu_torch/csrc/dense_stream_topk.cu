@@ -6,7 +6,10 @@
 // (parallel/dist_search.py:build_tiered_bm25_step, jnp.take over u_ids):
 // rows are read in place through u_ids, never copied.
 //
-// Grid: (batch tile of BT queries, doc tile, shard). Each thread owns 4
+// Grid: (batch tile of bt <= 16 queries, doc tile, shard); the launcher
+// takes the largest bt whose tables fit the card's shared memory, and keeps
+// the running top-k lists there too when they fit, else in the block's own
+// slice of the partial output in device memory. Each thread owns 4
 // consecutive docs per 1024-doc chunk and reads their bf16 values of a row
 // as one 8-byte load, coalesced along C. The reference's product is f32 over
 // all T rows; a query's weight row W[b, :] has at most Q non-zeros, so the
@@ -30,35 +33,46 @@
 #define K2_THREADS 256
 #define K2_DPT 4
 #define K2_CHUNK (K2_THREADS * K2_DPT)
-#define K2_BT 16
+#define K2_BT_MAX 16
 
+// kTopShared: the running top-k lists sit in shared memory (a template
+// argument, so the compiler addresses them as shared)
+template <bool kTopShared>
 __global__ void __launch_bounds__(K2_THREADS)
 dense_stream_topk_kernel(
     const float* __restrict__ W, const __nv_bfloat16* __restrict__ dense,
     const int* __restrict__ u_ids, int B, int S, int U, int n_blk, int T,
     int C, int n_pad, int k, int msm, int docs_per_tile, int n_tiles,
-    float* __restrict__ part_vals, int* __restrict__ part_docs,
-    int* __restrict__ n_matched) {
+    int bt, float* __restrict__ part_vals,
+    int* __restrict__ part_docs, int* __restrict__ n_matched) {
   extern __shared__ unsigned char smem[];
-  int* nz_row = reinterpret_cast<int*>(smem);                 // [BT][U]
-  float* nz_w = reinterpret_cast<float*>(nz_row + K2_BT * U);  // [BT][U]
-  float* top_s = nz_w + K2_BT * U;                             // [BT][k]
-  int* top_d = reinterpret_cast<int*>(top_s + K2_BT * k);      // [BT][k]
-  float* buf_s = reinterpret_cast<float*>(top_d + K2_BT * k);  // [CHUNK]
+  float* buf_s = reinterpret_cast<float*>(smem);               // [CHUNK]
   int* buf_d = reinterpret_cast<int*>(buf_s + K2_CHUNK);       // [CHUNK]
+  int* nz_row = buf_d + K2_CHUNK;                              // [bt][U]
+  float* nz_w = reinterpret_cast<float*>(nz_row + bt * U);     // [bt][U]
+  float* top_sh = nz_w + bt * U;                               // [bt][k]
+  int* top_dh = reinterpret_cast<int*>(top_sh + bt * k);       // [bt][k]
 
-  __shared__ int nz_n[K2_BT], filled[K2_BT], match[K2_BT], ncand[3];
+  __shared__ int nz_n[K2_BT_MAX], filled[K2_BT_MAX], match[K2_BT_MAX],
+      ncand[3];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int b0 = blockIdx.x * K2_BT;
+  const int b0 = blockIdx.x * bt;
   const int tile = blockIdx.y;
   const int s = blockIdx.z;
-  const int nb = min(K2_BT, B - b0);
+  const int nb = min(bt, B - b0);
+  // query bi's running top-k: in shared memory, or in its partial output
+  auto top_of = [&](int bi) {
+    const size_t o = (((size_t)(b0 + bi) * S + s) * n_tiles + tile) * k;
+    return kTopShared
+               ? RunningTopK{top_sh + bi * k, top_dh + bi * k, &filled[bi], k}
+               : RunningTopK{part_vals + o, part_docs + o, &filled[bi], k};
+  };
 
   // compact each query's non-zero weights: warp w takes queries w, w+8
-  for (int bi = warp; bi < K2_BT; bi += K2_THREADS / 32) {
+  for (int bi = warp; bi < bt; bi += K2_THREADS / 32) {
     int n = 0;
     if (bi < nb) {
       const float* wrow = W + ((size_t)(b0 + bi) * S + s) * U;
@@ -119,7 +133,7 @@ dense_stream_topk_kernel(
         }
       }
       int nm = 0;
-      RunningTopK top{top_s + bi * k, top_d + bi * k, &filled[bi], k};
+      RunningTopK top = top_of(bi);
 #pragma unroll
       for (int j = 0; j < K2_DPT; ++j) {
         float sc = acc[j];
@@ -137,9 +151,8 @@ dense_stream_topk_kernel(
   }
   __syncthreads();
   for (int bi = 0; bi < nb; ++bi) {
-    RunningTopK top{top_s + bi * k, top_d + bi * k, &filled[bi], k};
     const size_t o = (((size_t)(b0 + bi) * S + s) * n_tiles + tile) * k;
-    top.write(part_vals + o, part_docs + o, n_pad);
+    top_of(bi).write(part_vals + o, part_docs + o, n_pad);
     if (tid == 0 && match[bi])
       atomicAdd(&n_matched[(size_t)(b0 + bi) * S + s], match[bi]);
   }
@@ -150,15 +163,20 @@ extern "C" int es_dense_stream_topk(
     int U, int n_blk, int T, int C, int n_pad, int k, int msm,
     int docs_per_tile, int n_tiles, float* part_vals, int* part_docs,
     int* n_matched, void* stream) {
-  size_t shm = (size_t)K2_BT * U * 8 + (size_t)K2_BT * k * 8 +
-               (size_t)K2_CHUNK * 8;
-  cudaError_t e = cudaFuncSetAttribute(
-      dense_stream_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((B + K2_BT - 1) / K2_BT, n_tiles, S);
-  dense_stream_topk_kernel<<<grid, K2_THREADS, shm, (cudaStream_t)stream>>>(
+  const size_t max_shm = (size_t)es_max_shared_bytes();
+  const size_t base = (size_t)K2_CHUNK * 8;
+  int bt = K2_BT_MAX;
+  while (bt > 1 && base + (size_t)bt * U * 8 > max_shm) bt >>= 1;
+  size_t shm = base + (size_t)bt * U * 8;
+  const bool top_shared = shm + (size_t)bt * k * 8 <= max_shm;
+  if (top_shared) shm += (size_t)bt * k * 8;
+  auto kernel = top_shared ? dense_stream_topk_kernel<true>
+                           : dense_stream_topk_kernel<false>;
+  int e = es_set_shared(kernel, shm);
+  if (e != 0) return e;
+  dim3 grid((B + bt - 1) / bt, n_tiles, S);
+  kernel<<<grid, K2_THREADS, shm, (cudaStream_t)stream>>>(
       W, (const __nv_bfloat16*)dense, u_ids, B, S, U, n_blk, T, C, n_pad, k,
-      msm, docs_per_tile, n_tiles, part_vals, part_docs, n_matched);
+      msm, docs_per_tile, n_tiles, bt, part_vals, part_docs, n_matched);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,6 @@
 #include "topk_common.cuh"
 
 #define K1_THREADS 1024
-#define K1_MAX_Q 256
 
 __device__ __forceinline__ int lower_bound_run(const int* run, int n,
                                                int doc) {
@@ -42,6 +41,9 @@ __device__ __forceinline__ int lower_bound_run(const int* run, int n,
   return lo;
 }
 
+// kTopShared: the running top-k sits in shared memory (a template argument,
+// so the compiler addresses it as shared)
+template <bool kTopShared>
 __global__ void __launch_bounds__(K1_THREADS)
 sparse_candidates_topk_kernel(
     const int* __restrict__ docs, const float* __restrict__ imps, int P,
@@ -52,37 +54,43 @@ sparse_candidates_topk_kernel(
     int k, int msm, int n_blk, int T, int C, int U,
     float* __restrict__ out_vals, int* __restrict__ out_docs,
     int* __restrict__ out_count) {
+  // dynamic shared memory: the candidate buffer, the per-slot run table,
+  // then the running top-k when it fits (else it lives in the output)
   extern __shared__ unsigned char smem[];
-  float* top_s = reinterpret_cast<float*>(smem);
-  int* top_d = reinterpret_cast<int*>(top_s + k);
-  float* buf_s = reinterpret_cast<float*>(top_d + k);
-  int* buf_d = reinterpret_cast<int*>(buf_s + K1_THREADS);
-
-  __shared__ int st_q[K1_MAX_Q], ln_q[K1_MAX_Q], pre_q[K1_MAX_Q + 1];
-  __shared__ float w_q[K1_MAX_Q], dw_q[K1_MAX_Q];
-  __shared__ int row_q[K1_MAX_Q];
+  float* buf_s = reinterpret_cast<float*>(smem);            // [THREADS]
+  int* buf_d = reinterpret_cast<int*>(buf_s + K1_THREADS);   // [THREADS]
+  int* st_q = buf_d + K1_THREADS;                            // [Q]
+  int* ln_q = st_q + Q;                                      // [Q]
+  int* row_q = ln_q + Q;                                     // [Q]
+  int* pre_q = row_q + Q;                                    // [Q + 1]
+  float* w_q = reinterpret_cast<float*>(pre_q + Q + 1);      // [Q]
+  float* dw_q = w_q + Q;                                     // [Q]
   __shared__ int filled, ncand[3], n_match, n_overlap;
 
   const int b = blockIdx.x / S;
   const int s = blockIdx.x % S;
+  const size_t o_bs = (size_t)b * S + s;
+  float* top_s = kTopShared ? dw_q + Q : out_vals + o_bs * k;
+  int* top_d = kTopShared ? reinterpret_cast<int*>(dw_q + Q + k)
+                             : out_docs + o_bs * k;
   const int tid = threadIdx.x;
   const int* docs_s = docs + (size_t)s * P;
   const float* imps_s = imps + (size_t)s * P;
 
-  if (tid < Q) {
-    size_t o = ((size_t)b * S + s) * Q + tid;
+  for (int q = tid; q < Q; q += K1_THREADS) {
+    size_t o = o_bs * Q + q;
     // dynamic_slice clamps the start so that start + L stays in the table
     int st = starts[o];
     st = st < 0 ? 0 : (st > P - L ? P - L : st);
     int ln = lengths[o];
     ln = ln < 0 ? 0 : (ln > L ? L : ln);
-    st_q[tid] = st;
-    ln_q[tid] = ln;
-    w_q[tid] = idfw[(size_t)b * Q + tid];
+    st_q[q] = st;
+    ln_q[q] = ln;
+    w_q[q] = idfw[(size_t)b * Q + q];
     if (dense != nullptr) {
       int r = rid[o];
-      row_q[tid] = u_ids != nullptr ? u_ids[(size_t)s * U + r] : r;
-      dw_q[tid] = dw[o];
+      row_q[q] = u_ids != nullptr ? u_ids[(size_t)s * U + r] : r;
+      dw_q[q] = dw[o];
     }
   }
   if (tid == 0) {
@@ -165,9 +173,8 @@ sparse_candidates_topk_kernel(
     cand.flush(round, top);
   }
   __syncthreads();
-  const size_t o = (size_t)b * S + s;
-  top.write(out_vals + o * k, out_docs + o * k, n_pad);
-  if (tid == 0) out_count[o] = n_match - n_overlap;
+  top.write(out_vals + o_bs * k, out_docs + o_bs * k, n_pad);
+  if (tid == 0) out_count[o_bs] = n_match - n_overlap;
 }
 
 extern "C" int es_sparse_candidates_topk(
@@ -176,14 +183,15 @@ extern "C" int es_sparse_candidates_topk(
     const int* rid, const float* dw, const int* u_ids, int B, int S, int Q,
     int L, int n_pad, int k, int msm, int n_blk, int T, int C, int U,
     float* out_vals, int* out_docs, int* out_count, void* stream) {
-  if (Q > K1_MAX_Q) return (int)cudaErrorInvalidValue;
-  size_t shm = (size_t)k * 8 + (size_t)K1_THREADS * 8;
-  cudaError_t e = cudaFuncSetAttribute(
-      sparse_candidates_topk_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (e != cudaSuccess) return (int)e;
-  sparse_candidates_topk_kernel<<<B * S, K1_THREADS, shm,
-                                  (cudaStream_t)stream>>>(
+  size_t shm = (size_t)K1_THREADS * 8 + (size_t)Q * 24 + 4;
+  const bool top_shared =
+      shm + (size_t)k * 8 <= (size_t)es_max_shared_bytes();
+  if (top_shared) shm += (size_t)k * 8;
+  auto kernel = top_shared ? sparse_candidates_topk_kernel<true>
+                           : sparse_candidates_topk_kernel<false>;
+  int e = es_set_shared(kernel, shm);
+  if (e != 0) return e;
+  kernel<<<B * S, K1_THREADS, shm, (cudaStream_t)stream>>>(
       docs, imps, P, starts, lengths, idfw,
       (const __nv_bfloat16*)dense, rid, dw, u_ids, B, S, Q, L, n_pad, k,
       msm, n_blk, T, C, U, out_vals, out_docs, out_count);

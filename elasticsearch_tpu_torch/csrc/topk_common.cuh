@@ -11,13 +11,45 @@
 // rotating counters let a round reset the next round's counter without a
 // third barrier: the counter reset at the start of round r was last read in
 // round r-2, which every thread has left once thread 0 passed round r-1's
-// barrier.
+// barrier. The list lives in shared memory when it fits, else in the
+// block's own slice of its output in device memory (the code is the same).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+// Returned by a C entry when the sizes it was given need more shared memory
+// than the card lets one block have (no cudaError_t takes this value).
+#define ES_ERR_SHARED (-1)
+
+// Bytes of shared memory one block may opt in to on the current card.
+static int es_max_shared_bytes() {
+  static int bytes = -1;
+  if (bytes < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+  }
+  return bytes;
+}
+
+// Sets a kernel's dynamic shared memory, or returns ES_ERR_SHARED.
+template <typename Kernel>
+static int es_set_shared(Kernel kernel, size_t bytes) {
+  if (bytes > (size_t)es_max_shared_bytes()) return ES_ERR_SHARED;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The text of a code a C entry returned.
+extern "C" const char* es_error_string(int code) {
+  if (code == ES_ERR_SHARED)
+    return "the sizes need more shared memory than the card gives a block";
+  return cudaGetErrorString((cudaError_t)code);
+}
 
 __device__ __forceinline__ bool key_better(float s1, int d1, float s2,
                                            int d2) {

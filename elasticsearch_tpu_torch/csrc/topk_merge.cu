@@ -8,7 +8,9 @@
 // ops/tiered_bm25.py:dense_stream_topk (here: the reduce of K2's per-tile
 // partial lists).
 //
-// One block per row. A row is the concatenation [a | b] of two lists
+// One block per row, held in shared memory when it fits, else in the
+// row's slice of a device-memory workspace (the code is the same). A row is
+// the concatenation [a | b] of two lists
 // (b may be empty). Column c's id is id + (c / seg_len) * seg_stride (the
 // shard globalisation; seg_stride 0 leaves ids as they are). Entries whose
 // value is -inf, or whose id is >= fill_id, take no part. With dedup, an
@@ -52,17 +54,18 @@ topk_merge_kernel(const float* __restrict__ a_vals,
                   const float* __restrict__ b_vals,
                   const int* __restrict__ b_ids, int mb, int k, int dedup,
                   int seg_len, int seg_stride, int fill_id,
-                  float* __restrict__ out_vals, int* __restrict__ out_ids) {
+                  float* __restrict__ out_vals, int* __restrict__ out_ids,
+                  float* workspace) {
   extern __shared__ unsigned char smem[];
-  float* sv = reinterpret_cast<float*>(smem);      // [m]
-  int* sid = reinterpret_cast<int*>(sv + ma + mb);  // [m]
-
   __shared__ Key warp_best[K3_THREADS / 32];
   __shared__ Key best;
 
   const int r = blockIdx.x;
   const int m = ma + mb;
   const int tid = threadIdx.x;
+  float* sv = workspace != nullptr ? workspace + (size_t)r * 2 * m
+                                   : reinterpret_cast<float*>(smem);  // [m]
+  int* sid = reinterpret_cast<int*>(sv + m);                          // [m]
 
   for (int c = tid; c < m; c += K3_THREADS) {
     float v;
@@ -81,25 +84,24 @@ topk_merge_kernel(const float* __restrict__ a_vals,
   }
   __syncthreads();
   if (dedup) {
-    // drop dominated duplicates: flags first, applied after a barrier so
-    // every comparison sees the original values
-    int* sdrop = sid + m;                             // [m]
+    // drop dominated duplicates in place. An id's best entry (highest
+    // value, then lowest column) is never dropped, so every other entry
+    // of the id still finds it; a value another thread has already set to
+    // -inf can neither drop an entry nor keep one.
+    volatile float* vv = sv;
     for (int c = tid; c < m; c += K3_THREADS) {
-      float v = sv[c];
+      float v = vv[c];
       int id = sid[c];
-      int drop = 0;
-      if (v > -CUDART_INF_F) {
-        for (int c2 = 0; c2 < m && !drop; ++c2) {
-          if (c2 == c || sid[c2] != id) continue;
-          float v2 = sv[c2];
-          if (v2 > v || (v2 == v && c2 < c)) drop = 1;
+      if (!(v > -CUDART_INF_F)) continue;
+      for (int c2 = 0; c2 < m; ++c2) {
+        if (c2 == c || sid[c2] != id) continue;
+        float v2 = vv[c2];
+        if (v2 > v || (v2 == v && c2 < c)) {
+          vv[c] = -CUDART_INF_F;
+          break;
         }
       }
-      sdrop[c] = drop;
     }
-    __syncthreads();
-    for (int c = tid; c < m; c += K3_THREADS)
-      if (sdrop[c]) sv[c] = -CUDART_INF_F;
     __syncthreads();
   }
 
@@ -141,18 +143,23 @@ topk_merge_kernel(const float* __restrict__ a_vals,
   }
 }
 
+// Bytes of device-memory workspace K3 needs for R rows of m entries: 0 when
+// a row fits the card's shared memory.
+extern "C" long long es_topk_merge_workspace_bytes(int m, int R) {
+  size_t row = (size_t)m * 8;
+  return row <= (size_t)es_max_shared_bytes() ? 0 : (long long)(row * R);
+}
+
 extern "C" int es_topk_merge(const float* a_vals, const int* a_ids, int ma,
                              const float* b_vals, const int* b_ids, int mb,
                              int R, int k, int dedup, int seg_len,
                              int seg_stride, int fill_id, float* out_vals,
-                             int* out_ids, void* stream) {
-  size_t shm = (size_t)(ma + mb) * (dedup ? 12 : 8);
-  cudaError_t e = cudaFuncSetAttribute(
-      topk_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)shm);
-  if (e != cudaSuccess) return (int)e;
+                             int* out_ids, void* workspace, void* stream) {
+  size_t shm = workspace != nullptr ? 0 : (size_t)(ma + mb) * 8;
+  int e = es_set_shared(topk_merge_kernel, shm);
+  if (e != 0) return e;
   topk_merge_kernel<<<R, K3_THREADS, shm, (cudaStream_t)stream>>>(
       a_vals, a_ids, ma, b_vals, b_ids, mb, k, dedup, seg_len, seg_stride,
-      fill_id, out_vals, out_ids);
+      fill_id, out_vals, out_ids, (float*)workspace);
   return (int)cudaGetLastError();
 }

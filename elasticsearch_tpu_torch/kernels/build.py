@@ -9,7 +9,10 @@ never served from a stale library.
 
 Every kernel wrapper counts its launches in :data:`launches`; a run that
 wants to show the main path went through the kernels zeroes the counts
-with :func:`reset_launches` and reads them afterwards.
+with :func:`reset_launches` and reads them afterwards. Each library also
+exports ``es_error_string``, which names the code a refused launch returned
+(for one, sizes that need more shared memory than the card gives a block),
+so the kernels' limits live in their sources alone.
 """
 
 from __future__ import annotations
@@ -61,10 +64,18 @@ _SIGNATURES = {
         "es_dense_stream_topk",
         [_P] * 3 + [_I] * 11 + [_P] * 4),
     # a_vals, a_ids, ma, b_vals, b_ids, mb, R, k, dedup, seg_len,
-    # seg_stride, fill_id, out_vals, out_ids, stream
+    # seg_stride, fill_id, out_vals, out_ids, workspace, stream
     "topk_merge": (
         "es_topk_merge",
-        [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 3),
+        [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 4),
+}
+
+#: other C functions of a library: name -> (argtypes, restype)
+_QUERIES = {
+    "topk_merge": {
+        # (m, R) -> workspace bytes, 0 when a row fits shared memory
+        "es_topk_merge_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+    },
 }
 
 
@@ -120,11 +131,12 @@ def build_all() -> float:
         return time.perf_counter() - t0
 
 
-def library(name: str):
-    """The loaded C entry of kernel ``name`` (built on first use)."""
-    fn = _libs.get(name)
-    if fn is not None:
-        return fn
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built on first use), its C
+    functions typed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     path = _lib_path(name)
     if not path.exists():
         build_all()
@@ -132,11 +144,20 @@ def library(name: str):
         if name not in _libs:
             lib = ctypes.CDLL(str(path))
             sym, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = fn
+            funcs = {sym: (argtypes, ctypes.c_int),
+                     "es_error_string": ([_I], ctypes.c_char_p),
+                     **_QUERIES.get(name, {})}
+            for fname, (argtypes, restype) in funcs.items():
+                fn = getattr(lib, fname)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _libs[name] = lib
     return _libs[name]
+
+
+def query(name: str, fname: str, *args):
+    """Call one of kernel ``name``'s other C functions (``_QUERIES``)."""
+    return getattr(library(name), fname)(*args)
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
@@ -162,9 +183,10 @@ def launch(name: str, device: torch.device, *args) -> None:
     the first card: tensors on another card are refused."""
     if device.index not in (None, 0):
         raise ValueError(f"{name}: the kernels run on cuda:0, got {device}")
-    fn = library(name)
+    lib = library(name)
     stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    err = getattr(lib, _SIGNATURES[name][0])(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+        raise RuntimeError(f"{name}: launch refused: "
+                           f"{lib.es_error_string(err).decode()} ({err})")
     launches[name] += 1

@@ -29,11 +29,6 @@ from .topk import topk_stable
 
 NEG_INF = float("-inf")
 
-#: K1 keeps the running top-k and a 1024-entry candidate buffer in shared
-#: memory, and the per-slot run table in a fixed array
-_K1_SHARED_BYTES = 227 * 1024
-_K1_MAX_Q = 256
-
 
 def make_impacts(tf: np.ndarray, docs: np.ndarray, doc_len: np.ndarray,
                  avgdl: float, k1: float, b: float) -> np.ndarray:
@@ -210,12 +205,8 @@ def sparse_candidates_topk(postings_docs, postings_impact, starts, lengths,
     _kb.check(starts, "starts", torch.int32, (B, S, Q), dev)
     _kb.check(lengths, "lengths", torch.int32, (B, S, Q), dev)
     _kb.check(idfw, "idfw", torch.float32, (B, Q), dev)
-    if Q > _K1_MAX_Q:
-        raise ValueError(f"sparse_candidates_topk: Q={Q} > {_K1_MAX_Q}")
     if L > P:
         raise ValueError(f"sparse_candidates_topk: L={L} > table {P}")
-    if k * 8 + 1024 * 8 > _K1_SHARED_BYTES:
-        raise ValueError(f"sparse_candidates_topk: k={k} too large")
     n_blk = T = C = U = 0
     if dense is not None:
         _, n_blk, T, C = dense.shape

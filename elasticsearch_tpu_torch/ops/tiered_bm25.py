@@ -25,11 +25,8 @@ from .topk import topk_merge, topk_stable
 
 NEG_INF = float("-inf")
 
-#: K2's per-block shared memory: 16 queries' non-zero weights (8 bytes per
-#: row), their running top-k (8 bytes per slot) and a 1024-key buffer
-_K2_BT = 16
-_K2_SHARED_BYTES = 227 * 1024
-#: docs per K2 block; tiles grow when k·tiles would overflow K3's row
+#: docs per K2 block; tiles grow so that K3's reduce row (k·tiles) stays
+#: short enough for shared memory
 _K2_TILE = 1 << 15
 _K2_MAX_PARTIALS = 1 << 14
 
@@ -149,7 +146,8 @@ def dense_stream_topk_plain(W, dense, *, k: int, u_ids=None,
 
 def k2_tiling(n_pad: int, k: int):
     """(docs per K2 block, tiles per shard): tiles of 2^15 docs, grown so
-    that K3's reduce row (tiles · k) stays within its shared memory."""
+    that K3's reduce row (tiles · k) stays near 2^14 entries, short enough
+    for its shared memory."""
     per = max(_K2_TILE, -(-n_pad * k // _K2_MAX_PARTIALS))
     per = -(-per // 1024) * 1024
     return per, -(-n_pad // per)
@@ -177,9 +175,6 @@ def dense_stream_partials(W, dense, *, k: int, u_ids=None,
     if C % 4:
         raise ValueError("dense_stream_topk: block width must be a "
                          "multiple of 4")
-    if _K2_BT * (U * 8 + k * 8) + 1024 * 8 > _K2_SHARED_BYTES:
-        raise ValueError(f"dense_stream_topk: U={U}, k={k} exceed the "
-                         f"kernel's shared memory")
     per, n_tiles = k2_tiling(n_pad, k)
     part_v = torch.empty((B, S, n_tiles, k), dtype=torch.float32,
                          device=dev)

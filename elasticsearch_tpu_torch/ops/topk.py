@@ -20,9 +20,6 @@ NEG_INF = float("-inf")
 
 _BLOCK = 16384          # scores per block in the two-stage path
 
-#: K3 keeps a row in shared memory: 8 bytes per entry (12 with dedup)
-_K3_SHARED_BYTES = 227 * 1024
-
 
 def topk_stable(scores: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -119,16 +116,19 @@ def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
     if mb:
         _kb.check(b_vals, "b_vals", torch.float32, (R, mb), a_vals.device)
         _kb.check(b_ids, "b_ids", torch.int32, (R, mb), a_vals.device)
-    if (ma + mb) * (12 if dedup else 8) > _K3_SHARED_BYTES:
-        raise ValueError(f"topk_merge: row of {ma + mb} entries exceeds "
-                         f"the kernel's shared-memory row")
     out_v = torch.empty((R, k), dtype=torch.float32, device=a_vals.device)
     out_i = torch.empty((R, k), dtype=torch.int32, device=a_vals.device)
     if R == 0 or k == 0:
         return out_v, out_i
+    # rows too long for shared memory are held in device memory
+    ws_bytes = _kb.query("topk_merge", "es_topk_merge_workspace_bytes",
+                         ma + mb, R)
+    ws = torch.empty(ws_bytes // 4, dtype=torch.float32,
+                     device=a_vals.device) if ws_bytes else None
     _kb.launch("topk_merge", a_vals.device, a_vals.data_ptr(),
                a_ids.data_ptr(), ma, b_vals.data_ptr() if mb else None,
                b_ids.data_ptr() if mb else None, mb, R, k, int(dedup),
                seg_len or max(ma + mb, 1), seg_stride, fill_id,
-               out_v.data_ptr(), out_i.data_ptr())
+               out_v.data_ptr(), out_i.data_ptr(),
+               None if ws is None else ws.data_ptr())
     return out_v, out_i

@@ -464,13 +464,17 @@ class DistributedSearchPlane:
         ladder-rung L, Q floored to ``SERVING_Q_MIN`` — so live traffic
         meets a small fixed lattice of launch shapes. (The reference's
         block-max pruned and host-eager routes are not ported yet.)"""
-        L = self.ladder_L(self.max_run_len(queries))
-        needed_q = max(max((len(set(q)) for q in queries), default=1), 1)
-        Q = max(self.SERVING_Q_MIN, round_up_pow2(needed_q))
-        return self.search(queries, k=k, Q=Q, L=L,
-                           tiered=self.T_pad > 0 or None,
+        return self.search(queries, k=k, **self.serving_shape(queries),
                            with_totals=with_totals, stages=stages,
                            extra_docs=extra_docs, extra_df=extra_df)
+
+    def serving_shape(self, queries: Sequence[Sequence[str]]) -> dict:
+        """The ``Q``, ``L`` and ``tiered`` that :meth:`serve` passes to
+        :meth:`search` for this batch."""
+        needed_q = max(max((len(set(q)) for q in queries), default=1), 1)
+        return dict(Q=max(self.SERVING_Q_MIN, round_up_pow2(needed_q)),
+                    L=self.ladder_L(self.max_run_len(queries)),
+                    tiered=self.T_pad > 0 or None)
 
 
 def plane_state_from_numpy(packed: dict, *, device="cpu") -> dict:

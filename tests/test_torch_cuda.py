@@ -45,7 +45,10 @@ def _t(a, dev):
 @pytest.mark.parametrize("Q,k,msm,tiered,use_u", [
     (1, 10, 1, False, False), (3, 10, 2, False, False),
     (8, 100, 1, False, False), (3, 10, 1, True, False),
-    (8, 100, 2, True, True), (3, 200, 1, True, True)])
+    (8, 100, 2, True, True), (3, 200, 1, True, True),
+    # a running top-k too long for shared memory; more slots than a block
+    # has threads' worth of one-per-thread tables
+    (3, 30000, 1, True, True), (300, 10, 1, False, False)])
 def test_k1_bitwise_equals_plain(cuda, Q, k, msm, tiered, use_u):
     S, B, L = 2, 8, 256
     c = sparse_case(11 + Q, S=S, B=B, Q=Q, L=L)
@@ -71,7 +74,9 @@ def test_k1_bitwise_equals_plain(cuda, Q, k, msm, tiered, use_u):
 
 
 @pytest.mark.parametrize("k,msm,use_u", [(10, 1, False), (100, 1, True),
-                                         (10, 2, True)])
+                                         (10, 2, True),
+                                         # top-k lists in device memory
+                                         (2000, 1, True)])
 def test_k2_matches_plain(cuda, k, msm, use_u):
     S, B, Q = 2, 20, 4
     d = dense_case(3 + k, S=S, B=B, Q=Q, T=48, n_pad=8192, C=2048,
@@ -111,7 +116,42 @@ def test_k3_equals_plain(cuda, m, k, dedup, seg):
         assert np.array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-def test_plane_on_card_matches_plane_on_host(cuda):
+@pytest.mark.parametrize("m,k,dedup", [
+    (15000, 10000, True),       # a 30000-entry row: device-memory workspace
+    (40000, 100, False),
+    (10000, 10000, True)])      # a deep page whose row fits shared memory
+def test_k3_long_rows_equal_plain(cuda, m, k, dedup):
+    n_pad = 1 << 20
+    c = topk_lists_case(m, R=4, m=m, n_pad=n_pad)
+    a = (_t(c["a_vals"], cuda), _t(c["a_docs"], cuda))
+    b = (_t(c["b_vals"], cuda), _t(c["b_docs"], cuda)) if dedup else \
+        (None, None)
+    kw = dict(k=k, dedup=dedup, fill_id=n_pad)
+    got = topk_merge(*a, *b, **kw)
+    want = topk_merge_plain(*a, *b, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert np.array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def test_kernels_refuse_sizes_beyond_shared_memory(cuda):
+    """Sizes whose tables cannot fit one block's shared memory are refused
+    with an error that says so, not launched."""
+    Q, L = 10000, 16
+    z = torch.zeros((1, 1, Q), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        sparse_candidates_topk(
+            torch.full((1, L), 64, dtype=torch.int32, device=cuda),
+            torch.ones((1, L), device=cuda), z, z.clone(),
+            torch.ones((1, Q), device=cuda), n_pad=64, L=L, k=10)
+    U = 40000
+    with pytest.raises(RuntimeError, match="shared memory"):
+        dense_stream_topk(torch.ones((1, 1, U), device=cuda),
+                          torch.ones((1, 1, U, 4), dtype=torch.bfloat16,
+                                     device=cuda), k=10)
+
+
+def _card_and_host_planes(cuda):
     corpus = synthetic_csr_corpus_fast(np.random.RandomState(9), 1 << 14,
                                        1 << 10, 24)
     corpus["term_ids"] = {f"t{t}": t for t in range(1 << 10)}
@@ -125,6 +165,21 @@ def test_plane_on_card_matches_plane_on_host(cuda):
     el = np.flatnonzero(df >= 2)
     qs = [[f"t{t}" for t in row]
           for row in rng.choice(el, size=(16, 4), p=df[el] / df[el].sum())]
+    return gpu, cpu, qs
+
+
+def test_plane_serves_deep_pages_on_card(cuda):
+    """k = 10000 (Elasticsearch's largest result window) through serve."""
+    gpu, cpu, qs = _card_and_host_planes(cuda)
+    gv, gh, gt = gpu.serve(qs, k=10000, with_totals=True)
+    cv, ch, ct = cpu.serve(qs, k=10000, with_totals=True)
+    assert gt == ct
+    np.testing.assert_allclose(gv, cv, rtol=RTOL, atol=ATOL)
+    assert [len(h) for h in gh] == [len(h) for h in ch]
+
+
+def test_plane_on_card_matches_plane_on_host(cuda):
+    gpu, cpu, qs = _card_and_host_planes(cuda)
     kb.reset_launches()
     for tiered in (None, True):
         gv, gh, gt = gpu.search(qs, k=10, tiered=tiered, with_totals=True)
