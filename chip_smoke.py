@@ -5,7 +5,11 @@ Drives the port's serving plane (``elasticsearch_tpu_torch``, no JAX) at
 the headline size of the repository's benchmark: a 2^23-document synthetic
 Zipf corpus (vocabulary 2^16, mean length 32, s = 1.2, seed 1234), packed
 into a tiered BM25 plane on the card and served in batches of 64 four-term
-queries at k = 10. Phases, each fatal on failure:
+queries at k = 10; then the block-max pruned route at the repository's
+prune configuration (``lexical_10m_prune``): a 2^22-document corpus
+(mean length 16, seed 1234) with no dense tier and a block-max tier,
+served through ``plane.serve`` in batches of 16 four-term queries.
+Phases, each fatal on failure:
 
 1. the card's name and power limit; build the three CUDA kernels;
 2. each kernel against its plain PyTorch version on the card, on the
@@ -20,7 +24,14 @@ queries at k = 10. Phases, each fatal on failure:
    neighbours differ by more than 1 %, totals exact);
 4. per-kernel times (CUDA events) beside their bounds, plain versions and
    library calls;
-5. the ``kernels`` JSON line, the card line, and the final status line.
+5. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
+   plain versions, and K3 exact, on one batch of each traffic mix; each
+   mix driven through ``serve`` with its launch counts zeroed before and
+   read after (K4, K5 and K3 on every pruned dispatch, K1 iff a query was
+   unsafe); pruned == eager on three batches of the benchmark mix; three
+   queries of each mix against the exact reference; K1 against its plain
+   version at the eager fallback's shape; K4's and K5's times;
+6. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -54,13 +65,27 @@ F32_FLOPS = 67e12
 K2_RTOL, K2_ATOL = 1e-5, 1e-6
 REF_RTOL = 1e-2
 
+#: the pruned route (``bench.py:bench_lexical_prune``): no dense tier,
+#: block-max tier with its defaults, B = 16 four-term queries, k = 10
+PRUNE_DOCS = 1 << 22
+PRUNE_AVG_DL = 16
+PRUNE_BATCH = 16
+PRUNE_BATCHES = 16           # timed batches per mix (one warm-up more)
+SAFETY_BATCHES = 3           # pruned == eager on these batches of mix (a)
+#: queries per plain-K1 call in the fallback-shape check (the plain
+#: version holds Q·L entries a query, 2^25 at L = 2^22)
+FALLBACK_CHUNK = 4
 
-def sample_queries(rng, corpus, n_batches, batch=BATCH):
-    """Term-frequency-weighted query sampling (as the benchmark draws):
-    term t with probability ∝ its posting mass, no df cap."""
+
+def sample_queries(rng, corpus, n_batches, batch=BATCH, weighted=True):
+    """Batches of four-term queries over the terms of df >= 2, as the
+    benchmark draws them: term t with probability ∝ its posting mass, no
+    df cap (the pruned route's mix (a)); ``weighted=False`` draws terms
+    uniformly (mix (b): tail terms, whose top-k the pruned route's
+    survivor window is meant to certify)."""
     df = corpus["df"].astype(np.float64)
     eligible = np.flatnonzero(df >= 2)
-    p = df[eligible] / df[eligible].sum()
+    p = df[eligible] / df[eligible].sum() if weighted else None
     return [[[f"t{t}" for t in row]
              for row in rng.choice(eligible, size=(batch, N_TERMS), p=p)]
             for _ in range(n_batches)]
@@ -136,6 +161,21 @@ def same_bits(a, b):
     return a.shape == b.shape and np.array_equal(a, b)
 
 
+def max_abs_err(pairs):
+    """Largest |kernel - plain| over (kernel, plain) output pairs; equal
+    entries (infinities included) count 0, integer outputs are skipped."""
+    import torch
+    err = 0.0
+    for a, b in pairs:
+        if not a.is_floating_point():
+            continue
+        a, b = a.double(), b.double()
+        d = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+        if d.numel():
+            err = max(err, float(d.max()))
+    return err
+
+
 def check_topk(v1, d1, v2, d2, v_next, rtol, atol, what):
     """Values within tolerance slot by slot; docs equal wherever the
     reference's neighbouring values differ by more than the tolerance."""
@@ -183,6 +223,7 @@ def check_kernels(plane, queries, shape, label):
     if not all(same_bits(x, y) for x, y in zip(k1_out, k1_ref)):
         fail(f"{label}: K1 sparse_candidates_topk differs from its plain "
              f"version")
+    k1_err = max_abs_err(zip(k1_out, k1_ref))
 
     W, dense, u_ids = a["W"], a["dense"], a["u_ids"]
     part_v, part_d, nm = dense_stream_partials(W, dense, k=K, u_ids=u_ids)
@@ -212,48 +253,63 @@ def check_kernels(plane, queries, shape, label):
          dict(k=K, fill_id=S * plane.n_pad, seg_len=K,
               seg_stride=plane.n_pad)),
     ]
+    k3_err = 0.0
     for args, kw in k3_calls:
         got = topk_merge(*args.values(), **kw)
         want = topk_merge_plain(*args.values(), **kw)
         if not all(same_bits(x, y) for x, y in zip(got, want)):
             fail(f"{label}: K3 topk_merge differs from its plain version "
                  f"({kw})")
+        k3_err = max(k3_err, max_abs_err(zip(got, want)))
     print(f"# {label} (Q={prep['Q']}, L={prep['L']}, U={prep['U']}): "
           f"K1 == plain (bitwise), K2 ~= plain (max abs err {k2_err:.3g}),"
           f" K3 == plain (exact, 3 call shapes)", flush=True)
     return dict(prep=prep, k1_in=k1_in, k1_kw=k1_kw, k3_calls=k3_calls,
-                n_tiles=n_tiles, k2_err=k2_err)
+                n_tiles=n_tiles, k2_err=k2_err, k1_err=k1_err, k3_err=k3_err)
 
 
 def check_against_exact(corpus, plane, queries, vals, hits, totals, label):
     """The first ``REF_QUERIES`` queries' hits against the numpy exact
-    reference: scores within REF_RTOL, docs equal where the reference's
-    neighbours are separated, totals exact."""
+    reference: min(k, matching docs) hits, scores within REF_RTOL, docs
+    equal where the reference's neighbours are separated, totals exact
+    (or, from a pruned scan, ``gte`` lower bounds)."""
     for qi in range(REF_QUERIES):
         top, sc, n_match = exact_bm25(corpus, queries[qi], K)
+        n = min(K, n_match)
         got_docs = [s * plane.n_pad + d for s, d in hits[qi]]
-        if len(got_docs) != K:
-            fail(f"{label} query {qi}: {len(got_docs)} hits, expected {K}")
-        check_topk(vals[qi:qi + 1], np.asarray([got_docs]), sc[None, :K],
-                   top[None, :K], sc[K:K + 1], REF_RTOL, 0.0,
+        row = np.asarray(vals[qi], np.float64)
+        if len(got_docs) != n or not np.isneginf(row[n:]).all():
+            fail(f"{label} query {qi}: {len(got_docs)} hits, expected {n}")
+        check_topk(row[None, :n], np.asarray([got_docs]), sc[None, :n],
+                   top[None, :n], sc[n:n + 1], REF_RTOL, 0.0,
                    f"{label} query {qi} against the exact reference")
-        if totals[qi] != n_match:
-            fail(f"{label} query {qi}: total {totals[qi]} != exact "
-                 f"{n_match}")
+        t = totals[qi]
+        if isinstance(t, tuple):        # a pruned scan's lower bound
+            if t[1] != "gte" or t[0] > n_match:
+                fail(f"{label} query {qi}: total {t} is no lower bound of "
+                     f"{n_match}")
+        elif t != n_match:
+            fail(f"{label} query {qi}: total {t} != exact {n_match}")
     print(f"# {label}: {REF_QUERIES} queries agree with the exact reference"
-          f" (scores within {REF_RTOL:.0%}, totals exact)", flush=True)
+          f" (scores within {REF_RTOL:.0%}, totals exact or gte lower "
+          f"bounds)", flush=True)
 
 
-def drive(plane, batches, call, kb):
+EAGER_KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge")
+PRUNED_KERNELS = ("blockmax_scan", "bisect_exact_scores", "topk_merge")
+
+
+def drive(plane, batches, call, kb, required=EAGER_KERNELS,
+          stage_keys=("prep_ms", "dispatch_ms", "fetch_ms")):
     """One path of the main path: launch counts zeroed, a warm-up batch
     and the timed batches through ``call``, counts read. Returns the
-    per-batch seconds, the mean stages, the counts, the dispatches and
-    the first timed batch's (vals, hits)."""
+    per-batch seconds, the summed stages of the timed batches, the
+    counts, the dispatches and the first timed batch's (vals, hits)."""
     kb.reset_launches()
     n0 = plane.n_dispatches
     call(batches[0], {})
     lat, first = [], None
-    stages_sum = {"prep_ms": 0.0, "dispatch_ms": 0.0, "fetch_ms": 0.0}
+    stages_sum = {key: 0.0 for key in stage_keys}
     for qs in batches[1:]:
         st = {}
         t0 = time.perf_counter()
@@ -264,10 +320,9 @@ def drive(plane, batches, call, kb):
         if first is None:
             first = (vals, hits)
     counts = dict(kb.launches)
-    if not all(counts[n] > 0 for n in kb.KERNELS):
+    if not all(counts[n] > 0 for n in required):
         fail(f"a kernel of the main path never launched: {counts}")
-    stages = {key: v / len(lat) for key, v in stages_sum.items()}
-    return (np.asarray(lat), stages, counts, plane.n_dispatches - n0,
+    return (np.asarray(lat), stages_sum, counts, plane.n_dispatches - n0,
             first)
 
 
@@ -331,10 +386,11 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
 
     # ---- phase 2: kernels against plain versions, each path's shapes -----
     main = check_kernels(plane, batches[0], search_shape, "search")
-    k2_err = main["k2_err"]
+    errs = {key: main[key] for key in ("k1_err", "k2_err", "k3_err")}
     for shape, qs in serve_shapes:
-        k2_err = max(k2_err, check_kernels(plane, qs, shape,
-                                           "serve")["k2_err"])
+        ck = check_kernels(plane, qs, shape, "serve")
+        errs = {key: max(v, ck[key]) for key, v in errs.items()}
+    k2_err = errs["k2_err"]
 
     # ---- phase 3: the main path, each of its two paths counted alone -----
     def search_call(qs, st):
@@ -345,6 +401,7 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
 
     lat, stages, counts_search, n_search, (s_vals, s_hits) = drive(
         plane, [warm] + batches, search_call, kb)
+    stages = {key: v / len(lat) for key, v in stages.items()}
     print(f"# search: {len(lat) * BATCH / lat.sum():.1f} q/s, p50 "
           f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
           f"{np.percentile(lat, 99) * 1e3:.3f} ms per {BATCH}-query batch "
@@ -355,6 +412,8 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
           flush=True)
     serve_lat, serve_stages, counts_serve, n_serve, (v_vals, v_hits) = \
         drive(plane, [warm] + serve_set, serve_call, kb)
+    serve_stages = {key: v / len(serve_lat)
+                    for key, v in serve_stages.items()}
     print(f"# serve: {len(serve_lat) * BATCH / serve_lat.sum():.1f} q/s, "
           f"p50 {np.percentile(serve_lat, 50) * 1e3:.3f} ms, p99 "
           f"{np.percentile(serve_lat, 99) * 1e3:.3f} ms over "
@@ -431,7 +490,7 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
         name="sparse_candidates_topk", route="cuda",
         source="elasticsearch_tpu_torch/csrc/sparse_candidates_topk.cu",
         replaces="elasticsearch_tpu/ops/sorted_merge.py:53",
-        **launches("sparse_candidates_topk"), max_abs_err=0.0,
+        **launches("sparse_candidates_topk"), max_abs_err=errs["k1_err"],
         ms=ms, plain_ms=plain, bound_ms=bms, bound_by=bby,
         library_ms=None))
     # K2 (the partial pass alone; its tile reduce is K3's first call)
@@ -465,7 +524,7 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
         name="topk_merge", route="cuda",
         source="elasticsearch_tpu_torch/csrc/topk_merge.cu",
         replaces="elasticsearch_tpu/ops/tiered_bm25.py:200",
-        **launches("topk_merge"), max_abs_err=0.0, ms=ms,
+        **launches("topk_merge"), max_abs_err=errs["k3_err"], ms=ms,
         plain_ms=plain, bound_ms=bms, bound_by=bby, library_ms=lib))
     n_disp = n_search + n_serve
     for kd in kernels:
@@ -479,6 +538,343 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return kernels, card
+
+
+def check_pruned_kernels(plane, queries, label):
+    """K4, K5 and K3's two calls of one pruned dispatch on the inputs
+    ``plane.prepare_pruned`` builds for ``queries``, each held against its
+    plain version (K4 equal in every output, K5 bitwise, K3 exact)."""
+    import torch
+    from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
+                                                      blockmax_scan_plain)
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bisect_exact_scores, bisect_exact_scores_plain)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
+
+    prep = plane.prepare_pruned(queries, K)
+    if prep["step"] != "pruned":
+        fail(f"{label}: the batch does not take the pruned step")
+    a = prep["args"]
+    B, S, R = prep["B"], plane.n_shards, prep["R"]
+    kq = K * prep["Q"]
+    k4_kw = dict(n_pad=plane.n_pad, NB=plane.blockmax.n_blocks,
+                 W=prep["W"], R=R, kq_idx=min(kq, prep["W"]) - 1,
+                 prune_active=kq <= prep["W"])
+    k4_in = [a[n] for n in ("t_docs", "t_codes", "t_scale", "t_off",
+                            "sched", "w", "rho", "slack")]
+    acc = plane.blockmax.scan_workspace(B * S, plane.device)
+    k4_out = blockmax_scan(*k4_in, **k4_kw, acc=acc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k4_ref = blockmax_scan_plain(*k4_in, **k4_kw)
+    torch.cuda.synchronize()
+    k4_plain_ms = (time.perf_counter() - t0) * 1e3
+    names = ("survivors", "partials", "matched", "unsafe", "pruned", "n_sc")
+    for name, x, y in zip(names, k4_out, k4_ref):
+        if not same_bits(x, y):
+            fail(f"{label}: K4 blockmax_scan {name} differ from its plain "
+                 f"version")
+    if acc is not None and bool(acc.any()):
+        fail(f"{label}: K4 left its accumulator workspace dirty")
+    k4_err = max_abs_err(zip(k4_out, k4_ref))
+    ci = k4_out[0]
+    k5_in = (a["postings_docs"], a["postings_impact"], a["starts"],
+             a["lengths"], a["idfw"], ci)
+    k5_out = bisect_exact_scores(*k5_in, n_pad=plane.n_pad)
+    k5_ref = bisect_exact_scores_plain(*k5_in, n_pad=plane.n_pad)
+    if not all(same_bits(x, y) for x, y in zip(k5_out, k5_ref)):
+        fail(f"{label}: K5 bisect_exact_scores differs from its plain "
+             f"version (bitwise)")
+    k5_err = max_abs_err(zip(k5_out, k5_ref))
+    kk = min(K, plane.n_pad)
+    v1, d1 = topk_merge(k5_out[0].reshape(B * S, R), ci.reshape(B * S, R),
+                        k=kk, fill_id=plane.n_pad)
+    k3_calls = [
+        (dict(a_vals=k5_out[0].reshape(B * S, R),
+              a_ids=ci.reshape(B * S, R)), dict(k=kk, fill_id=plane.n_pad)),
+        (dict(a_vals=v1.view(B, S * kk), a_ids=d1.view(B, S * kk)),
+         dict(k=min(K, S * kk), fill_id=S * plane.n_pad, seg_len=kk,
+              seg_stride=plane.n_pad))]
+    k3_err = 0.0
+    for args, kw in k3_calls:
+        got = topk_merge(*args.values(), **kw)
+        want = topk_merge_plain(*args.values(), **kw)
+        if not all(same_bits(x, y) for x, y in zip(got, want)):
+            fail(f"{label}: K3 topk_merge differs from its plain version "
+                 f"({kw})")
+        k3_err = max(k3_err, max_abs_err(zip(got, want)))
+    counts = [x.cpu().numpy() for x in k4_out[2:]]
+    print(f"# {label} (Q={prep['Q']}, P_sched={prep['P_sched']}, "
+          f"W={prep['W']}, R={R}): K4 == plain (every output), K5 == plain "
+          f"(bitwise), K3 == plain (2 call shapes); plain K4 "
+          f"{k4_plain_ms:.1f} ms; matched {counts[0].ravel().tolist()}, "
+          f"unsafe {int(counts[1].sum())}, pruned {int(counts[2].sum())}, "
+          f"blocks scored {int(counts[3].sum())} of "
+          f"{int(prep['sched_lens'].sum())}", flush=True)
+    return dict(prep=prep, k4_in=k4_in, k4_kw=k4_kw, acc=acc, k5_in=k5_in,
+                k3_calls=k3_calls, k4_plain_ms=k4_plain_ms,
+                unsafe=counts[1][:, 0] > 0, pruned=counts[2], n_sc=counts[3],
+                n_real=(ci < plane.n_pad).sum(-1).cpu().numpy(),
+                k3_err=k3_err, k4_err=k4_err, k5_err=k5_err)
+
+
+def k4_work(plane, a, ck, R):
+    """Bytes and f32 operations K4 needs on one checked batch: each input
+    read once and each output written once, of what the scan reaches. The
+    scored blocks are each schedule's first ``n_sc`` steps: 5 bytes a real
+    posting (doc, code) and 8 a block (scale, off); 12 bytes a scored step
+    (sched, w, rho) and 8 for the step that stops a pruned scan; slack;
+    survivors (8 bytes a slot) and 4 counts. The accumulator is the
+    kernel's workspace, so its read-modify-write is left out. Operations:
+    4 a real posting (the FMA counted as 2, the product with w, the add)."""
+    import torch
+    sched = a["sched"]
+    B, S, P = sched.shape
+    dev = sched.device
+    n_sc = torch.from_numpy(ck["n_sc"]).to(dev)
+    scored = torch.arange(P, device=dev) < n_sc[..., None]
+    shard = torch.arange(S, device=dev)[None, :, None].expand(B, S, P)
+    docs = a["t_docs"][shard[scored], sched[scored].long()]
+    real_post = int((docs < plane.n_pad).sum())
+    blocks = int(ck["n_sc"].sum())
+    nbytes = real_post * 5 + blocks * (8 + 12) + int(ck["pruned"].sum()) * 8 \
+        + B * S * 4 + B * S * R * 8 + B * S * 16
+    return nbytes, real_post * 4, real_post
+
+
+def k5_work(plane, a, ck):
+    """Bytes and f32 operations K5 needs on one checked batch: the
+    candidates, starts, lengths and idfw read once; for each real candidate
+    and non-empty slot a bisect of ceil(log2(len + 1)) dependent 4-byte doc
+    reads; 4 bytes for each impact found; scores (4 bytes) and found flags
+    (1 byte) written. Empty slots and ``n_pad`` candidates read no run.
+    Operations: a multiply and an add for each impact found."""
+    import torch
+    ci = ck["k5_in"][5]
+    B, S, R = ci.shape
+    lens = a["lengths"].cpu().numpy()
+    starts = a["starts"].cpu().numpy()
+    Q = lens.shape[2]
+    steps = np.ceil(np.log2(lens + 1.0))                  # [B, S, Q]
+    bisect_reads = int((steps.sum(-1) * ck["n_real"]).sum()) * 4
+    found = 0
+    for b in range(B):
+        for s in range(S):
+            cand = ci[b, s][ci[b, s] < plane.n_pad]
+            for q in range(Q):
+                st, n = int(starts[b, s, q]), int(lens[b, s, q])
+                if n and cand.numel():
+                    run = plane.docs_dev[s, st:st + n]
+                    found += int(torch.isin(cand, run).sum())
+    nbytes = B * S * R * 4 + B * S * Q * 8 + B * Q * 4 + bisect_reads \
+        + found * 4 + B * S * R * 5
+    return nbytes, 2 * found, found, bisect_reads
+
+
+def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
+               reps=20):
+    """The block-max pruned route end to end (phase 5). Returns the K4/K5
+    rows of the ``kernels`` line and each pruned path's launch counts."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bisect_exact_scores, bisect_exact_scores_plain)
+    from elasticsearch_tpu_torch.ops.sorted_merge import (
+        sparse_candidates_topk, sparse_candidates_topk_plain)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedSearchPlane, total_is_lower_bound, total_value)
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, n_docs, VOCAB, PRUNE_AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(VOCAB)}
+    print(f"# prune corpus: {n_docs} docs, {corpus['docs'].shape[0]} "
+          f"postings, largest df {int(corpus['df'].max())} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    plane = DistributedSearchPlane([corpus], "body", device=dev,
+                                   dense_threshold=1 << 30, blockmax={})
+    tier = plane.blockmax
+    tier.device_arrays(dev)
+    torch.cuda.synchronize()
+    if plane.T_pad or tier is None:
+        fail("the prune plane must have a block-max tier and no dense tier")
+    print(f"# prune plane: n_pad {plane.n_pad}, L_cap {plane.L_cap}, "
+          f"{tier.n_blocks} blocks of {tier.block}, tier {tier.nbytes()} B "
+          f"on the host, {plane.device_corpus_bytes() / 2**30:.3f} GiB on "
+          f"{dev} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    mixes = {m: sample_queries(rng, corpus, 1 + n_batches, PRUNE_BATCH,
+                               weighted=m == "a") for m in ("a", "b")}
+
+    # ---- kernels against their plain versions, one batch of each mix ------
+    chk = {m: check_pruned_kernels(plane, qs[1], f"pruned mix ({m})")
+           for m, qs in mixes.items()}
+
+    # ---- the route, each mix counted alone --------------------------------
+    counts, res = {}, {}
+    for m, qs in mixes.items():
+        unsafe_by_batch = []
+
+        def call(batch, st):
+            out = plane.serve(batch, k=K, stages=st)
+            unsafe_by_batch.append(st["unsafe"])
+            return out
+
+        lat, st, c, n_disp, first = drive(
+            plane, qs, call, kb,
+            required=PRUNED_KERNELS,
+            stage_keys=("prep_ms", "dispatch_ms", "fetch_ms",
+                        "lex_blocks_scored", "lex_blocks_total", "unsafe"))
+        n_pruned = len(qs)
+        if c["blockmax_scan"] != n_pruned or \
+                c["bisect_exact_scores"] != n_pruned or \
+                c["topk_merge"] < 2 * n_pruned:
+            fail(f"mix ({m}): K4/K5/K3 did not launch on every pruned "
+                 f"dispatch: {c} over {n_pruned} dispatches")
+        n_unsafe_batches = sum(1 for u in unsafe_by_batch if u)
+        if c["sparse_candidates_topk"] != n_unsafe_batches:
+            fail(f"mix ({m}): K1 launched {c['sparse_candidates_topk']} "
+                 f"times for {n_unsafe_batches} batches with unsafe queries")
+        n_q = len(lat) * PRUNE_BATCH
+        counts[m] = c
+        res[m] = first
+        print(f"# pruned mix ({m}): {n_q / lat.sum():.1f} q/s, p50 "
+              f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.3f} ms per "
+              f"{PRUNE_BATCH}-query batch over {len(lat)} batches [{card}]",
+              flush=True)
+        print(f"# pruned mix ({m}) stages (mean ms): " + ", ".join(
+            f"{key} {st[key] / len(lat):.3f}"
+            for key in ("prep_ms", "dispatch_ms", "fetch_ms")))
+        scored, total = int(st["lex_blocks_scored"]), \
+            int(st["lex_blocks_total"])
+        print(f"# pruned mix ({m}): blocks scored {scored} of {total} in "
+              f"the schedules ({1 - scored / max(total, 1):.4f} skipped); "
+              f"unsafe {int(st['unsafe'])} of {n_q} queries "
+              f"({st['unsafe'] / n_q:.4f}); K1 re-served unsafe queries in "
+              f"{n_unsafe_batches} of {len(qs)} batches (warm-up included)",
+              flush=True)
+        print(f"# pruned mix ({m}) launches over {n_disp} dispatches "
+              f"({n_pruned} pruned): {c}", flush=True)
+
+    # ---- rank safety as the benchmark asserts it, exact reference ---------
+    t_pruned = t_eager = 0.0
+    for qs in mixes["a"][1:1 + SAFETY_BATCHES]:
+        t0 = time.perf_counter()
+        pv, ph, pt = plane.serve(qs, k=K, with_totals=True)
+        t1 = time.perf_counter()
+        ev, eh, et = plane.serve(qs, k=K, with_totals=True, prune=False)
+        t_eager += time.perf_counter() - t1
+        t_pruned += t1 - t0
+        if not (same_bits(torch.from_numpy(np.asarray(pv)),
+                          torch.from_numpy(np.asarray(ev))) and ph == eh):
+            fail("rank safety: pruned != eager on a batch of mix (a)")
+        for p, e in zip(pt, et):
+            if not (total_value(p) == e or (total_is_lower_bound(p)
+                                            and total_value(p) <= e)):
+                fail(f"rank safety: pruned total {p} vs eager {e}")
+    n_q = SAFETY_BATCHES * PRUNE_BATCH
+    print(f"# rank safety: pruned == eager on {SAFETY_BATCHES} batches of "
+          f"mix (a) (values bitwise, hits equal, totals exact or gte lower "
+          f"bounds); on these batches, with totals, pruned "
+          f"{n_q / t_pruned:.1f} q/s, eager (serve(prune=False)) "
+          f"{n_q / t_eager:.1f} q/s [{card}]", flush=True)
+    for m, qs in mixes.items():
+        _, _, totals = plane.serve(qs[1][:REF_QUERIES], k=K,
+                                   with_totals=True)
+        check_against_exact(corpus, plane, qs[1], res[m][0], res[m][1],
+                            totals, f"pruned mix ({m})")
+
+    # ---- K1 at the eager fallback's shape ---------------------------------
+    bad = [q for q, u in zip(mixes["a"][1], chk["a"]["unsafe"]) if u]
+    k1_fallback = None
+    if bad:
+        Qf = chk["a"]["prep"]["Q"]
+        Lf = plane.ladder_L(plane.max_run_len(bad))
+        fprep = plane.prepare(bad, K, Q=Qf, L=Lf, tiered=None)
+        fa = fprep["args"]
+        k1_in = (fa["postings_docs"], fa["postings_impact"], fa["starts"],
+                 fa["lengths"], fa["idfw"])
+        k1_kw = dict(n_pad=plane.n_pad, L=Lf, k=K)
+        got = sparse_candidates_topk(*k1_in, **k1_kw)
+        k1_err = 0.0
+        for j in range(0, len(bad), FALLBACK_CHUNK):
+            part = [x[j:j + FALLBACK_CHUNK].contiguous() for x in k1_in[2:]]
+            want = sparse_candidates_topk_plain(*k1_in[:2], *part, **k1_kw)
+            mine = [x[j:j + FALLBACK_CHUNK] for x in got]
+            if not all(same_bits(x, y) for x, y in zip(mine, want)):
+                fail("K1 differs from its plain version at the fallback "
+                     "shape")
+            k1_err = max(k1_err, max_abs_err(zip(mine, want)))
+        k1_ms = timed(lambda: sparse_candidates_topk(*k1_in, **k1_kw), 3)
+        n_post = int(fa["lengths"].sum())
+        k1_fallback = dict(B=len(bad), Q=Qf, L=Lf, ms=k1_ms, postings=n_post,
+                           err=k1_err)
+        print(f"# K1 at the fallback shape (B={len(bad)} unsafe queries of "
+              f"the checked batch, Q={Qf}, L={Lf}, {n_post} valid "
+              f"postings): {k1_ms:.3f} ms; == plain on all {len(bad)} "
+              f"(bitwise) [{card}]", flush=True)
+
+    # ---- K4 and K5 times, each mix's checked batch -------------------------
+    rows = {"blockmax_scan": {}, "bisect_exact_scores": {}}
+    for m, ck in chk.items():
+        prep, B = ck["prep"], ck["prep"]["B"]
+        S, R, Q = plane.n_shards, ck["prep"]["R"], ck["prep"]["Q"]
+        a = prep["args"]
+        k4_bytes, k4_flops, real_post = k4_work(plane, a, ck, R)
+        k5_bytes, k5_flops, found_pairs, bisect_reads = k5_work(plane, a, ck)
+        blocks_scored = int(ck["n_sc"].sum())
+        blocks_total = int(prep["sched_lens"].sum())
+        k4_ms = timed(lambda: blockmax_scan(*ck["k4_in"], **ck["k4_kw"],
+                                            acc=ck["acc"]), reps)
+        k5_ms = timed(lambda: bisect_exact_scores(*ck["k5_in"],
+                                                  n_pad=plane.n_pad), reps)
+        k5_plain = timed(lambda: bisect_exact_scores_plain(
+            *ck["k5_in"], n_pad=plane.n_pad), 3)
+        k3_ms = timed(lambda: [topk_merge(*x.values(), **kw)
+                               for x, kw in ck["k3_calls"]], reps)
+        for name, ms, plain, nb, nf in (
+                ("blockmax_scan", k4_ms, ck["k4_plain_ms"], k4_bytes,
+                 k4_flops),
+                ("bisect_exact_scores", k5_ms, k5_plain, k5_bytes,
+                 k5_flops)):
+            bms, bby = bound(nb, nf)
+            rows[name][m] = dict(ms=ms, plain_ms=plain, bound_ms=bms,
+                                 bound_by=bby)
+            print(f"# {name} mix ({m}): {ms:.4f} ms (bound {bms:.5f} ms by "
+                  f"{bby}), plain {plain:.3f} ms [{card}]")
+        print(f"# topk_merge, the pruned step's 2 calls, mix ({m}): "
+              f"{k3_ms:.4f} ms [{card}]")
+        print(f"# K4 mix ({m}) inputs: B={B}, P_sched={prep['P_sched']}, "
+              f"{blocks_scored} of {blocks_total} blocks scored, {real_post} "
+              f"real postings in them, {k4_bytes} bytes; K5 inputs: "
+              f"{int(ck['n_real'].sum())} real candidates of {B * S * R}, "
+              f"Q={Q}, {bisect_reads} bisect bytes, {found_pairs} impacts "
+              f"found, {k5_bytes} bytes")
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    out = []
+    for name, err_key, src, repl in (
+            ("blockmax_scan", "k4_err",
+             "elasticsearch_tpu_torch/csrc/blockmax_scan.cu",
+             "elasticsearch_tpu/parallel/dist_search.py:1347"),
+            ("bisect_exact_scores", "k5_err",
+             "elasticsearch_tpu_torch/csrc/bisect_exact_scores.cu",
+             "elasticsearch_tpu/ops/fused_query.py:93")):
+        err = max(ck[err_key] for ck in chk.values())
+        out.append(dict(name=name, route="cuda", source=src, replaces=repl,
+                        max_abs_err=err, **rows[name]["a"],
+                        library_ms=None,
+                        ms_by_mix={m: r["ms"] for m, r in rows[name].items()}))
+    errs = dict(k3_err=max(ck["k3_err"] for ck in chk.values()),
+                k1_err=k1_fallback["err"] if k1_fallback else 0.0)
+    return (out, {f"pruned_{m}": c for m, c in counts.items()}, k1_fallback,
+            errs)
 
 
 def main() -> int:
@@ -497,6 +893,23 @@ def main() -> int:
         return 2
     t0 = time.perf_counter()
     kernels, card = run()
+    torch.cuda.empty_cache()
+    print(f"# eager phases {time.perf_counter() - t0:.1f} s", flush=True)
+    pruned_rows, pruned_counts, k1_fallback, errs = run_pruned(card)
+    kernels += pruned_rows
+    for kd in kernels:
+        if kd["name"] == "topk_merge":
+            kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"])
+        if kd["name"] == "sparse_candidates_topk":
+            kd["max_abs_err"] = max(kd["max_abs_err"], errs["k1_err"])
+        by_path = kd.setdefault("launches_by_path", {})
+        for path, c in pruned_counts.items():
+            by_path[path] = c[kd["name"]]
+        by_path.setdefault("search", 0)
+        by_path.setdefault("serve", 0)
+        kd["launches"] = sum(by_path.values())
+        if kd["name"] == "sparse_candidates_topk" and k1_fallback:
+            kd["fallback_ms"] = k1_fallback["ms"]
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,7 +34,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: one entry per kernel source (csrc/<name>.cu)
-KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge")
+KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
+           "blockmax_scan", "bisect_exact_scores")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -68,6 +69,17 @@ _SIGNATURES = {
     "topk_merge": (
         "es_topk_merge",
         [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 4),
+    # t_docs, t_codes, t_scale, t_off, NB1, BS, sched, w, rho, slack, B, S,
+    # P, n_pad, NB, W, R, kq_idx, prune_active, acc, out_ci, out_cv,
+    # out_counts, stream
+    "blockmax_scan": (
+        "es_blockmax_scan",
+        [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 9 + [_P] * 5),
+    # docs, imps, P, starts, lengths, idfw, cand, B, S, Q, R, n_pad,
+    # out_score, out_found, stream
+    "bisect_exact_scores": (
+        "es_bisect_exact_scores",
+        [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P] * 3),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)

@@ -12,18 +12,25 @@ reference.
 The host side is the reference's: term-dictionary lookups per shard,
 global document-frequency statistics, and batch assembly; everything per
 document runs in the kernels of ``ops/``.
+
+A plane built with ``blockmax=`` also packs the reference's block-max
+tier and serves through its rank-safe pruned route: the quantized scan
+(K4), the exact re-score of its survivors (K5) and K3's top-k, with the
+eager step re-serving any query the scan cannot certify.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.blockmax import blockmax_scan
 from ..ops.bm25 import DEFAULT_B, DEFAULT_K1, idf_weight
+from ..ops.fused_query import bisect_exact_scores
 from ..ops.sorted_merge import make_impacts, sparse_candidates_topk
 from ..ops.tiered_bm25 import (build_dense_rows, split_tiers,
                                tiered_bm25_topk)
@@ -31,6 +38,255 @@ from ..ops.topk import topk_merge
 from ..utils.shapes import round_up_multiple, round_up_pow2
 
 NEG_INF = float("-inf")
+
+#: postings per block-max block: per-block int8 scales stay tight on
+#: impact-ordered runs, and the per-block metadata (12 B) costs under
+#: 0.1 B a posting
+LEX_BLOCK = 128
+
+#: cap on the θ-window width; dispatches whose k·Q exceeds it run with
+#: pruning inert (θ = −inf) and fall back to eager through the verdict
+LEX_THETA_WINDOW = 1024
+
+#: survivor (exact re-score) window factor: the pruned step keeps
+#: ``LEX_RERANK × k`` accumulator survivors
+LEX_RERANK = 8
+
+
+def total_value(t) -> int:
+    """Value of a per-query totals entry: a plain int (exact count) or a
+    ``(value, "gte")`` tuple from a pruned dispatch (a lower bound: the
+    scan skipped blocks whose docs it never saw, Lucene's
+    track_total_hits-under-WAND semantics)."""
+    return int(t[0]) if isinstance(t, tuple) else int(t or 0)
+
+
+def total_is_lower_bound(t) -> bool:
+    return isinstance(t, tuple)
+
+
+# ---------------------------------------------------------------------------
+# block-max tier (pack time, host numpy; device copy made once)
+# ---------------------------------------------------------------------------
+
+
+class BlockMaxTier:
+    """Impact-ordered block-max tier over a plane's full per-shard CSR
+    (sparse and dense-tier terms alike), as the reference packs it."""
+
+    def __init__(self, block: int = LEX_BLOCK):
+        self.block = block
+        self.n_pad = 0
+        #: per shard: docs i32[NB, BS] (``n_pad`` pad), codes int8[NB, BS],
+        #: scale/off/bound f32[NB], blk_offsets i64[V+1] (term → block
+        #: range), qerr f32[V] (the term's largest quantization half-step),
+        #: n_blocks, n_postings
+        self.shards: List[dict] = []
+        self.n_blocks = 1
+        self._dev: Optional[dict] = None
+        self._acc: Optional[torch.Tensor] = None
+        self._acc_stream = None
+
+    @classmethod
+    def build(cls, shards: Sequence[dict], impacts_full: Sequence[np.ndarray],
+              *, n_pad: int, block: int = LEX_BLOCK) -> "BlockMaxTier":
+        """``shards``: the plane constructor's shard dicts (CSR
+        ``offsets``/``docs``); ``impacts_full``: per-shard f32 impacts."""
+        tier = cls(block=block)
+        tier.n_pad = n_pad
+        BS = block
+        for s, imp in zip(shards, impacts_full):
+            offsets = np.asarray(s["offsets"], np.int64)
+            docs = np.asarray(s["docs"], np.int32)
+            imp = np.asarray(imp, np.float32)
+            V = offsets.shape[0] - 1
+            Pn = docs.shape[0]
+            lens = np.diff(offsets)
+            # one stable sort puts every term's postings impact-descending
+            # (equal impacts keep the CSR's doc-ascending order)
+            tids = np.repeat(np.arange(V, dtype=np.int64), lens)
+            order = np.lexsort((-imp, tids))
+            nblk = -(-lens // BS)
+            blk_offsets = np.zeros(V + 1, np.int64)
+            np.cumsum(nblk, out=blk_offsets[1:])
+            NB = int(blk_offsets[-1])
+            bdocs = np.full((NB, BS), n_pad, np.int32)
+            bimp = np.zeros((NB, BS), np.float32)
+            if Pn:
+                rank = np.arange(Pn, dtype=np.int64) - \
+                    np.repeat(offsets[:-1], lens)
+                dst = np.repeat(blk_offsets[:-1], lens) * BS + rank
+                bdocs.reshape(-1)[dst] = docs[order]
+                bimp.reshape(-1)[dst] = imp[order]
+            real = bdocs < n_pad
+            # slot 0 holds the block's largest impact: its score bound per
+            # unit of idf weight
+            bound = bimp[:, 0].copy()
+            lo_v = np.where(real, bimp, np.float32(np.inf)).min(axis=1) \
+                if NB else np.zeros(0, np.float32)
+            lo_v = np.minimum(lo_v, bound)
+            scale = np.maximum((bound - lo_v) / 254.0,
+                               1e-12).astype(np.float32)
+            codes = np.clip(
+                np.rint((bimp - lo_v[:, None]) / scale[:, None]) - 127.0,
+                -127, 127).astype(np.int8)
+            off = (lo_v + 127.0 * scale).astype(np.float32)
+            qerr = np.zeros(max(V, 1), np.float32)
+            if NB:
+                blk_tid = np.repeat(np.arange(V), nblk)
+                np.maximum.at(qerr, blk_tid,
+                              (scale * 0.5).astype(np.float32))
+            tier.shards.append(dict(
+                docs=bdocs, codes=codes, scale=scale, off=off,
+                bound=bound.astype(np.float32), blk_offsets=blk_offsets,
+                qerr=qerr, n_blocks=NB, n_postings=int(Pn)))
+        tier.n_blocks = max(max((sh["n_blocks"] for sh in tier.shards),
+                                default=1), 1)
+        return tier
+
+    # -- byte accounting ------------------------------------------------------
+
+    def impact_bytes_f32(self) -> int:
+        """Bytes of f32 impacts the eager plane holds for these postings."""
+        return sum(sh["n_postings"] * 4 for sh in self.shards)
+
+    def impact_bytes_int8(self) -> int:
+        """Bytes of the quantized payload: int8 codes (with block padding)
+        and per-block scale/off/bound."""
+        return sum(sh["codes"].nbytes + sh["scale"].nbytes
+                   + sh["off"].nbytes + sh["bound"].nbytes
+                   for sh in self.shards)
+
+    def nbytes(self) -> int:
+        return sum(sh["docs"].nbytes + sh["codes"].nbytes
+                   + sh["scale"].nbytes + sh["off"].nbytes
+                   + sh["bound"].nbytes + sh["blk_offsets"].nbytes
+                   + sh["qerr"].nbytes for sh in self.shards)
+
+    def device_bytes(self) -> int:
+        """Bytes of :meth:`device_arrays`: docs i32 + codes int8 per slot,
+        scale/off per block, pad block included."""
+        return len(self.shards) * (self.n_blocks + 1) * (self.block * 5 + 8)
+
+    # -- query-time schedule --------------------------------------------------
+
+    def schedule(self, si: int, term_rows: Sequence[Tuple[int, float]]):
+        """Descending-bound block schedule of one (query, shard):
+        ``term_rows`` = [(tid, idf·weight)]. Returns (blk i32[n], w f32[n],
+        rho f32[n], slack): ``rho[i]`` is the bound mass left before
+        position i (the WAND bound on any unseen doc's score), never rising
+        along the schedule; ``slack`` a bound on the quantization and
+        rounding error of any partial."""
+        tsh = self.shards[si]
+        offs, bound, qerr = tsh["blk_offsets"], tsh["bound"], tsh["qerr"]
+        bl: List[np.ndarray] = []
+        sb: List[np.ndarray] = []
+        wl: List[np.ndarray] = []
+        nx: List[np.ndarray] = []
+        slack = 0.0
+        rho0 = 0.0
+        for tid, w in term_rows:
+            b0, b1 = int(offs[tid]), int(offs[tid + 1])
+            if b1 <= b0:
+                continue
+            s = bound[b0:b1] * np.float32(w)
+            bl.append(np.arange(b0, b1, dtype=np.int32))
+            sb.append(s)
+            wl.append(np.full(b1 - b0, w, np.float32))
+            nx.append(np.concatenate([s[1:], np.zeros(1, np.float32)]))
+            slack += float(qerr[tid]) * float(w)
+            rho0 += float(s[0])
+        if not bl:
+            return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                    np.zeros(0, np.float32), 0.0)
+        blk = np.concatenate(bl)
+        sball = np.concatenate(sb)
+        wall = np.concatenate(wl)
+        nxall = np.concatenate(nx)
+        order = np.argsort(-sball, kind="stable")
+        # consuming block j of a term shrinks its remaining bound from
+        # bound[j] to bound[j+1]: rho is the exclusive cumsum of the drops
+        # off the starting mass
+        delta = (sball - nxall)[order]
+        rho = np.float64(rho0) - (np.cumsum(delta, dtype=np.float64)
+                                  - delta)
+        # the drops are >= 0, so rho falls; the running minimum only undoes
+        # a one-ulp rise the f64 rounding of (cumsum - delta) can make, and
+        # lets the scan stop at its first step that is not live
+        rho = np.minimum.accumulate(rho.astype(np.float32))
+        # the partials sum in another order than the eager scorer: a tiny
+        # relative pad keeps the margin sound
+        slack += 1e-5 * rho0
+        return blk[order], wall[order], rho, float(slack)
+
+    # -- device tier ----------------------------------------------------------
+
+    def device_arrays(self, device) -> dict:
+        """Block-major device tier, made once: docs i32[S, NB+1, BS] (row
+        NB an all-``n_pad`` pad block), codes int8[S, NB+1, BS], scale/off
+        f32[S, NB+1]."""
+        if self._dev is not None:
+            return self._dev
+        S = len(self.shards)
+        BS = self.block
+        nb = self.n_blocks
+        docs = np.full((S, nb + 1, BS), self.n_pad, np.int32)
+        codes = np.zeros((S, nb + 1, BS), np.int8)
+        scale = np.zeros((S, nb + 1), np.float32)
+        off = np.zeros((S, nb + 1), np.float32)
+        for s, sh in enumerate(self.shards):
+            n = sh["n_blocks"]
+            if not n:
+                continue
+            docs[s, :n] = sh["docs"]
+            codes[s, :n] = sh["codes"]
+            scale[s, :n] = sh["scale"]
+            off[s, :n] = sh["off"]
+        self._dev = {name: torch.from_numpy(a).to(device) for name, a in
+                     dict(docs=docs, codes=codes, scale=scale,
+                          off=off).items()}
+        return self._dev
+
+    def scan_workspace(self, rows: int, device) -> Optional[torch.Tensor]:
+        """K4's zeroed accumulator, f32[≥ rows, n_pad], kept across
+        dispatches; None on the CPU. Each launch leaves it zeroed, and
+        launches on one stream run in order, so they share it: a caller
+        on another stream than the one it was made on gets a
+        RuntimeError. :meth:`drop_workspace` discards it."""
+        if torch.device(device).type != "cuda":
+            return None
+        stream = torch.cuda.current_stream(device)
+        if self._acc is not None and stream != self._acc_stream:
+            raise RuntimeError(
+                "BlockMaxTier: the scan workspace belongs to another CUDA "
+                "stream; serve a plane from one stream")
+        if self._acc is None or self._acc.shape[0] < rows:
+            self._acc = None
+            self._acc = torch.zeros((rows, self.n_pad), dtype=torch.float32,
+                                    device=device)
+            self._acc_stream = stream
+        return self._acc
+
+    def drop_workspace(self) -> None:
+        """Discard the scan workspace (after a dispatch that failed part
+        way may have left it dirty); the next dispatch makes a zeroed
+        one."""
+        self._acc = None
+        self._acc_stream = None
+
+    def to_packed(self) -> dict:
+        """The tier as :meth:`DistributedSearchPlane.export_packed` ships
+        it."""
+        return dict(block=int(self.block), n_pad=int(self.n_pad),
+                    n_blocks=int(self.n_blocks), shards=self.shards)
+
+    @classmethod
+    def from_packed(cls, packed: dict) -> "BlockMaxTier":
+        t = cls(block=int(packed["block"]))
+        t.n_pad = int(packed["n_pad"])
+        t.n_blocks = int(packed["n_blocks"])
+        t.shards = [dict(sh) for sh in packed["shards"]]
+        return t
 
 
 # ---------------------------------------------------------------------------
@@ -89,6 +345,42 @@ def tiered_bm25_step(postings_docs, postings_impact, dense, starts, lengths,
     return gvals, gdocs
 
 
+def pruned_bm25_step(postings_docs, postings_impact, t_docs, t_codes,
+                     t_scale, t_off, sched, w, rho, slack, starts, lengths,
+                     idfw, *, n_pad: int, NB: int, Q: int, k: int, W: int,
+                     R: int, acc: Optional[torch.Tensor] = None):
+    """Body of the reference's ``build_pruned_bm25_step`` over S shards:
+    the block-max scan (K4), the exact re-score of its survivors (K5), the
+    per-shard top-k (K3) and the cross-shard reduce (K3).
+
+    ``starts``/``lengths`` i32[B, S, Q] are every slot's whole sparse run
+    (the re-score bisects whole runs). Returns (vals f32[B, k'], gdocs
+    i32[B, k'], matched, unsafe, pruned, n_sc summed over shards [B]).
+
+    The survivors come doc-ascending, so K3's (value desc, id asc) order
+    is ``lax.top_k``'s lowest-position tie rule; a survivor slot left
+    empty holds ``n_pad``, which K3 drops as ``fill_id``, exactly where
+    the reference masks the re-score to −inf.
+    """
+    B, S, _ = sched.shape
+    kk = min(k, n_pad)
+    kq = k * Q
+    ci, _cv, matched, unsafe, pruned, n_sc = blockmax_scan(
+        t_docs, t_codes, t_scale, t_off, sched, w, rho, slack, n_pad=n_pad,
+        NB=NB, W=W, R=R, kq_idx=min(kq, W) - 1, prune_active=kq <= W,
+        acc=acc)
+    score, _found = bisect_exact_scores(postings_docs, postings_impact,
+                                        starts, lengths, idfw, ci,
+                                        n_pad=n_pad)
+    vals, docs = topk_merge(score.reshape(B * S, R), ci.reshape(B * S, R),
+                            k=kk, fill_id=n_pad)
+    gvals, gdocs = _global_topk_reduce(
+        vals.reshape(B, S, kk), docs.reshape(B, S, kk), kk=kk, n_pad=n_pad,
+        out_k=min(k, S * n_pad))
+    return (gvals, gdocs, matched.sum(1), unsafe.sum(1), pruned.sum(1),
+            n_sc.sum(1))
+
+
 # ---------------------------------------------------------------------------
 # the plane
 # ---------------------------------------------------------------------------
@@ -104,6 +396,9 @@ class DistributedSearchPlane:
     ``device``: where the packed plane lives and the kernels run; None
     means ``cuda``, and a process without CUDA raises unless the caller
     passes ``device="cpu"`` (the plain PyTorch versions then serve).
+    ``blockmax``: keyword arguments of :meth:`BlockMaxTier.build` (may be
+    empty) to pack the block-max tier that :meth:`serve`'s pruned route
+    scans; None packs no tier (eager serving only).
     """
 
     #: dense-tier block width (docs per streamed block)
@@ -115,7 +410,8 @@ class DistributedSearchPlane:
 
     def __init__(self, shards: Sequence[dict], field: str, *,
                  device=None, k1: float = DEFAULT_K1, b: float = DEFAULT_B,
-                 dense_threshold: Optional[int] = None):
+                 dense_threshold: Optional[int] = None,
+                 blockmax: Optional[dict] = None):
         self.device = resolve_device(device)
         self.field = field
         self.k1, self.b = k1, b
@@ -146,6 +442,12 @@ class DistributedSearchPlane:
                 s, dense_threshold=dense_threshold,
                 max_dense_terms=self.MAX_DENSE_TERMS))
             self.n_docs_total += int(s["doc_len"].shape[0])
+
+        # block-max tier over the full CSR, at the impacts' frozen avgdl
+        self.blockmax: Optional[BlockMaxTier] = None
+        if blockmax is not None:
+            self.blockmax = BlockMaxTier.build(
+                shards, impacts_full, n_pad=self.n_pad, **blockmax)
 
         self.shards = []
         for s, t in zip(shards, tiers):
@@ -222,7 +524,83 @@ class DistributedSearchPlane:
         total = self.docs_dev.nbytes + self.impacts_dev.nbytes
         if self.dense_dev is not None:
             total += self.dense_dev.nbytes
+        if self.blockmax is not None:
+            total += self.blockmax.device_bytes()
         return int(total)
+
+    # -- packed state (wire-compatible with the reference) -------------------
+
+    def export_packed(self) -> dict:
+        """Every tensor and invariant of the packed plane as a host dict in
+        the reference's ``export_packed`` layout (dense rows as exact f32),
+        which the reference's ``from_packed`` loads. The port has no host
+        CSR tier: ``host_csr`` is None."""
+        dense = None
+        if self.dense_dev is not None:
+            dense = self.dense_dev.float().cpu().numpy()
+        return dict(
+            field=self.field, k1=float(self.k1), b=float(self.b),
+            n_shards=int(self.n_shards), n_pad=int(self.n_pad),
+            p_pad=int(self.p_pad),
+            dense_threshold=int(self.dense_threshold),
+            n_docs_total=int(self.n_docs_total),
+            max_sparse_df=int(self.max_sparse_df),
+            L_cap=int(self.L_cap), n_dense=int(self.n_dense),
+            T_pad=int(self.T_pad), dense_block=int(self.dense_block),
+            docs=self.docs_dev.cpu().numpy(),
+            impacts=self.impacts_dev.cpu().numpy(), dense=dense,
+            shards=[dict(term_ids=dict(sh["term_ids"]), df=sh["df"],
+                         sparse_offsets=sh["sparse_offsets"],
+                         sparse_df=sh["sparse_df"],
+                         dense_row_of=dict(sh["dense_row_of"]),
+                         doc_uids=(list(sh["doc_uids"])
+                                   if sh.get("doc_uids") is not None
+                                   else None))
+                    for sh in self.shards],
+            host_csr=None,
+            blockmax=(self.blockmax.to_packed()
+                      if self.blockmax is not None else None))
+
+    @classmethod
+    def from_packed(cls, packed: dict, device=None
+                    ) -> "DistributedSearchPlane":
+        """A plane from ``export_packed`` state (the reference's or the
+        port's): only the uploads run, no pack work. ``host_csr`` is
+        ignored (the port has no host tier)."""
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.field = str(packed["field"])
+        self.k1, self.b = float(packed["k1"]), float(packed["b"])
+        self.n_shards = int(packed["n_shards"])
+        self.n_dispatches = 0
+        self.n_pad = int(packed["n_pad"])
+        self.p_pad = int(packed["p_pad"])
+        self.dense_threshold = int(packed["dense_threshold"])
+        self.n_docs_total = int(packed["n_docs_total"])
+        self.max_sparse_df = int(packed["max_sparse_df"])
+        self.L_cap = int(packed["L_cap"])
+        self.n_dense = int(packed["n_dense"])
+        self.T_pad = int(packed["T_pad"])
+        self.dense_block = int(packed.get("dense_block") or 0) or \
+            min(self.DENSE_BLOCK, self.n_pad)
+        self.shards = [dict(term_ids=sh["term_ids"], df=sh["df"],
+                            sparse_offsets=sh["sparse_offsets"],
+                            sparse_df=sh["sparse_df"],
+                            dense_row_of={int(k): int(v) for k, v in
+                                          sh["dense_row_of"].items()},
+                            doc_uids=sh.get("doc_uids"))
+                       for sh in packed["shards"]]
+        state = plane_state_from_numpy(
+            dict(docs=packed["docs"], impacts=packed["impacts"],
+                 dense=packed.get("dense") if self.T_pad else None),
+            device=self.device)
+        self.docs_dev = state["docs"]
+        self.impacts_dev = state["impacts"]
+        self.dense_dev = state.get("dense")
+        self.blockmax = None
+        if packed.get("blockmax") is not None:
+            self.blockmax = BlockMaxTier.from_packed(packed["blockmax"])
+        return self
 
     # -- query assembly ------------------------------------------------------
 
@@ -456,14 +834,211 @@ class DistributedSearchPlane:
             return vals, hits, totals
         return vals, hits
 
+    # -- block-max pruned serving -------------------------------------------
+
+    #: survivor window = ``prune_rerank × k`` (pow2-rounded); tests shrink
+    #: it to force the unsafe → eager fallback
+    prune_rerank = LEX_RERANK
+
+    def _query_idfw(self, terms: Sequence[str], extra_docs: int,
+                    extra_df: Optional[Dict[str, int]]):
+        """(term → idf·weight) in first-appearance order, terms of no
+        document left out; the schedule's term rows follow this order."""
+        weights: Dict[str, float] = {}
+        for t in terms:
+            weights[t] = weights.get(t, 0.0) + 1.0
+        idfw_of: Dict[str, float] = {}
+        for t, w in weights.items():
+            gdf = sum(int(s2["df"][s2["term_ids"][t]])
+                      for s2 in self.shards if t in s2["term_ids"])
+            if extra_df:
+                gdf += int(extra_df.get(t, 0))
+            if gdf:
+                idfw_of[t] = float(idf_weight(
+                    self.n_docs_total + extra_docs, np.int64(gdf))) * w
+        return idfw_of
+
+    def prepare_pruned(self, queries: Sequence[Sequence[str]], k: int = 10,
+                       *, extra_docs: int = 0,
+                       extra_df: Optional[Dict[str, int]] = None) -> dict:
+        """Host assembly + upload of one pruned dispatch: each (query,
+        shard)'s block schedule padded to ``P_sched`` (a power of two) with
+        the pad block NB, and the step's keyword arguments as device
+        tensors. A batch that touches a dense-tier term gets
+        ``step="dense"`` and nothing else (:meth:`search_pruned` serves it
+        through the tiered step)."""
+        tier = self.blockmax
+        if tier is None:
+            raise RuntimeError("plane has no block-max tier")
+        B = len(queries)
+        needed_q = max(max((len(set(q)) for q in queries), default=1), 1)
+        Q = max(self.SERVING_Q_MIN, round_up_pow2(needed_q))
+        (starts, lengths, idfw, _rid, _hit, _ml,
+         any_dense) = self._lookup(queries, Q, extra_docs=extra_docs,
+                                   extra_df=extra_df)
+        if any_dense:
+            return dict(step="dense", Q=Q, B=B)
+        S = self.n_shards
+        NB = tier.n_blocks
+        P_need = 1
+        rows = []
+        for terms in queries:
+            idfw_of = self._query_idfw(terms, extra_docs, extra_df)
+            for si, sh in enumerate(self.shards):
+                term_rows = [(int(sh["term_ids"][t]), w)
+                             for t, w in idfw_of.items()
+                             if t in sh["term_ids"]]
+                blk, wblk, rho, slack = tier.schedule(si, term_rows)
+                rows.append((blk, wblk, rho, slack))
+                P_need = max(P_need, blk.shape[0])
+        P_sched = round_up_pow2(P_need)
+        sched = np.full((B, S, P_sched), NB, np.int32)
+        w_arr = np.zeros((B, S, P_sched), np.float32)
+        rho_arr = np.zeros((B, S, P_sched), np.float32)
+        slack_arr = np.zeros((B, S), np.float32)
+        sched_lens = np.zeros((B, S), np.int64)
+        for i, (blk, wblk, rho, slack) in enumerate(rows):
+            bi, si = divmod(i, S)
+            n = blk.shape[0]
+            sched[bi, si, :n] = blk
+            w_arr[bi, si, :n] = wblk
+            rho_arr[bi, si, :n] = rho
+            slack_arr[bi, si] = slack
+            sched_lens[bi, si] = n
+        kk = min(k, self.n_pad)
+        W = min(round_up_pow2(max(k * Q, 1)), LEX_THETA_WINDOW)
+        R = min(round_up_pow2(max(self.prune_rerank * kk, 64)), self.n_pad)
+        dev = self.device
+        tdev = tier.device_arrays(dev)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev, non_blocking=True)
+
+        args = dict(postings_docs=self.docs_dev,
+                    postings_impact=self.impacts_dev, t_docs=tdev["docs"],
+                    t_codes=tdev["codes"], t_scale=tdev["scale"],
+                    t_off=tdev["off"], sched=up(sched), w=up(w_arr),
+                    rho=up(rho_arr), slack=up(slack_arr), starts=up(starts),
+                    lengths=up(lengths), idfw=up(idfw))
+        return dict(step="pruned", args=args, Q=Q, k=k, W=W, R=R,
+                    P_sched=P_sched, B=B, sched_lens=sched_lens)
+
+    def run_pruned(self, prep: dict):
+        """Run a prepared pruned dispatch; returns the step's device
+        outputs."""
+        tier = self.blockmax
+        acc = tier.scan_workspace(prep["B"] * self.n_shards, self.device)
+        try:
+            out = pruned_bm25_step(
+                **prep["args"], n_pad=self.n_pad, NB=tier.n_blocks,
+                Q=prep["Q"], k=prep["k"], W=prep["W"], R=prep["R"], acc=acc)
+        except BaseException:
+            tier.drop_workspace()
+            raise
+        self.n_dispatches += 1
+        return out
+
+    def search_pruned(self, queries: Sequence[Sequence[str]], k: int = 10,
+                      *, with_totals: bool = False,
+                      stages: Optional[dict] = None, extra_docs: int = 0,
+                      extra_df: Optional[Dict[str, int]] = None):
+        """Block-max pruned dispatch (:func:`pruned_bm25_step`): the scan
+        skips the steps past each query's rank-safety threshold, the
+        survivors re-score exactly, and every query whose safety verdict
+        fails re-serves through the eager step, as does a batch touching
+        dense-tier terms (the tiered step serves those). Exact on every
+        input. Returns what :meth:`search` returns; a total is a
+        ``(value, "gte")`` lower bound where the scan stopped early.
+
+        ``stages`` also receives ``docs_scanned`` (docs in scored blocks
+        per query), ``lex_blocks_scored``, ``lex_blocks_total`` and
+        ``unsafe`` (queries re-served eagerly); that re-serve lands in
+        ``fetch_ms``."""
+        t0 = time.perf_counter()
+        prep = self.prepare_pruned(queries, k, extra_docs=extra_docs,
+                                   extra_df=extra_df)
+        if prep["step"] == "dense":
+            return self.search(queries, k=k, tiered=True, Q=prep["Q"],
+                               L=self.ladder_L(self.max_run_len(queries)),
+                               with_totals=with_totals, stages=stages,
+                               extra_docs=extra_docs, extra_df=extra_df)
+        B, Q = prep["B"], prep["Q"]
+        t1 = time.perf_counter()
+        out = self.run_pruned(prep)
+        if stages is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        gvals, gdocs, matched, unsafe, pruned, n_sc = (
+            o.cpu().numpy() for o in out)
+        vals_out = np.full((B, k), NEG_INF, np.float32)
+        wk = min(k, gvals.shape[1])
+        vals_out[:, :wk] = gvals[:, :wk]
+        hits_out: List[List[Tuple[int, int]]] = []
+        totals: List = []
+        for bi in range(B):
+            row = []
+            for v, g in zip(vals_out[bi], gdocs[bi]):
+                if v == NEG_INF:
+                    break
+                row.append((int(g) // self.n_pad, int(g) % self.n_pad))
+            hits_out.append(row)
+            totals.append((int(matched[bi]), "gte") if pruned[bi] > 0
+                          else int(matched[bi]))
+        # rank-safety fallback: a query the survivor window could not
+        # certify re-serves through the eager step
+        bad = np.flatnonzero(unsafe > 0)
+        if bad.size:
+            bad_q = [queries[i] for i in bad]
+            ev = self.search(bad_q, k=k, Q=Q,
+                             L=self.ladder_L(self.max_run_len(bad_q)),
+                             tiered=self.T_pad > 0 or None,
+                             with_totals=True, extra_docs=extra_docs,
+                             extra_df=extra_df)
+            for j, i in enumerate(bad):
+                src = np.asarray(ev[0][j], np.float32)[:k]
+                vals_out[i] = NEG_INF
+                vals_out[i, :src.shape[0]] = src
+                hits_out[i] = list(ev[1][j])[:k]
+                totals[i] = int(ev[2][j])
+        if stages is not None:
+            blocks_scored = int(n_sc.sum())
+            stages["prep_ms"] = (t1 - t0) * 1e3
+            stages["dispatch_ms"] = (t2 - t1) * 1e3
+            stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
+            stages["docs_scanned"] = blocks_scored * self.blockmax.block \
+                // max(B, 1)
+            stages["lex_blocks_scored"] = blocks_scored
+            stages["lex_blocks_total"] = int(prep["sched_lens"].sum())
+            stages["unsafe"] = int(bad.size)
+        if with_totals:
+            return vals_out, hits_out, totals
+        return vals_out, hits_out
+
     def serve(self, queries: Sequence[Sequence[str]], k: int = 10,
               *, with_totals: bool = False, stages: Optional[dict] = None,
               extra_docs: int = 0,
-              extra_df: Optional[Dict[str, int]] = None):
-        """Serving entry: :meth:`search` at the stable serving shapes —
-        ladder-rung L, Q floored to ``SERVING_Q_MIN`` — so live traffic
-        meets a small fixed lattice of launch shapes. (The reference's
-        block-max pruned and host-eager routes are not ported yet.)"""
+              extra_df: Optional[Dict[str, int]] = None,
+              prune: Optional[bool] = None):
+        """Serving entry. On a plane with a block-max tier, a batch whose
+        result window fits the θ window (k · Q ≤ ``LEX_THETA_WINDOW``, Q
+        floored to ``SERVING_Q_MIN``) takes the rank-safe pruned route
+        (:meth:`search_pruned`): results bitwise those of the eager scan,
+        totals ``(value, "gte")`` lower bounds where the scan stopped
+        early. ``prune``: None = the tier's default, False = eager.
+
+        Every other batch runs :meth:`search` at the stable serving shapes
+        (ladder-rung L, Q floored to ``SERVING_Q_MIN``). The reference
+        first routes CPU-built planes to its host scorers and demoted
+        planes to a streamed scan; the port has neither a host tier nor
+        storage tiers, so the tier check decides alone."""
+        if self.blockmax is not None and prune is not False:
+            needed_q = max(self.SERVING_Q_MIN, round_up_pow2(max(
+                max((len(set(q)) for q in queries), default=1), 1)))
+            if k * needed_q <= LEX_THETA_WINDOW:
+                return self.search_pruned(
+                    queries, k=k, with_totals=with_totals, stages=stages,
+                    extra_docs=extra_docs, extra_df=extra_df)
         return self.search(queries, k=k, **self.serving_shape(queries),
                            with_totals=with_totals, stages=stages,
                            extra_docs=extra_docs, extra_df=extra_df)
@@ -479,15 +1054,23 @@ class DistributedSearchPlane:
 
 def plane_state_from_numpy(packed: dict, *, device="cpu") -> dict:
     """The reference plane's packed host arrays (``docs`` i32[S, P],
-    ``impacts`` f32[S, P], ``dense`` bf16-as-any[S, n_blk, T, C] or its
-    int16 bit pattern ``dense_bits``) as the port's device tensors."""
+    ``impacts`` f32[S, P], ``dense`` [S, n_blk, T, C] as bf16, or as f32
+    (``export_packed``'s wire form, rounded to bf16 nearest-even as the
+    reference's ``from_packed`` rounds it), or its int16 bit pattern
+    ``dense_bits``) as the port's device tensors."""
     out = dict(docs=torch.from_numpy(np.array(
                    packed["docs"], np.int32)).to(device),
                impacts=torch.from_numpy(np.array(
                    packed["impacts"], np.float32)).to(device))
     bits = packed.get("dense_bits")
-    if bits is None and packed.get("dense") is not None:
-        bits = np.asarray(packed["dense"]).view(np.int16)
+    dense = packed.get("dense")
+    if bits is None and dense is not None:
+        dense = np.asarray(dense)
+        if dense.dtype == np.float32:
+            bits = torch.from_numpy(np.ascontiguousarray(dense)).to(
+                torch.bfloat16).view(torch.int16).numpy()
+        else:
+            bits = dense.view(np.int16)
     if bits is not None:
         out["dense"] = torch.from_numpy(np.array(
             bits, np.int16)).view(torch.bfloat16).to(device)

@@ -143,3 +143,15 @@ def assert_topk_close(v1, d1, v2, d2, *, rtol: float, atol: float,
     bad = sep & (d1 != d2)
     assert not bad.any(), \
         f"docs differ at separated slots {np.argwhere(bad)[:5]}"
+
+
+def query_mix(corpus: dict, seed: int, n: int, *, weighted: bool,
+              terms: int = 4) -> list:
+    """``n`` queries of ``terms`` terms over the terms of df >= 2: drawn in
+    proportion to df (``weighted``, the benchmark's traffic) or uniformly
+    (tail terms)."""
+    rng = np.random.RandomState(seed)
+    df = corpus["df"].astype(np.float64)
+    el = np.flatnonzero(df >= 2)
+    p = df[el] / df[el].sum() if weighted else None
+    return [[f"t{t}" for t in rng.choice(el, terms, p=p)] for _ in range(n)]
