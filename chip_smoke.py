@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one card: ``python3 chip_smoke.py``.
 
-Drives the port's serving plane (``elasticsearch_tpu_torch``, no JAX) at
+Drives the port's serving planes (``elasticsearch_tpu_torch``, no JAX) at
 the headline size of the repository's benchmark: a 2^23-document synthetic
 Zipf corpus (vocabulary 2^16, mean length 32, s = 1.2, seed 1234), packed
 into a tiered BM25 plane on the card and served in batches of 64 four-term
 queries at k = 10; then the block-max pruned route at the repository's
 prune configuration (``lexical_10m_prune``): a 2^22-document corpus
 (mean length 16, seed 1234) with no dense tier and a block-max tier,
-served through ``plane.serve`` in batches of 16 four-term queries.
+served through ``plane.serve`` in batches of 16 four-term queries; then
+the kNN plane's exact and IVF routes at the benchmark's two kNN shapes.
 Phases, each fatal on failure:
 
-1. the card's name and power limit; build the three CUDA kernels;
+1. the card's name and power limit; build the eight CUDA kernels;
 2. each kernel against its plain PyTorch version on the card, on the
    inputs of a main-path batch at each path's launch shapes: ``search``
    at the benchmark's (Q = 4, the workload's L) and ``serve`` at its own
@@ -31,7 +32,23 @@ Phases, each fatal on failure:
    unsafe); pruned == eager on three batches of the benchmark mix; three
    queries of each mix against the exact reference; K1 against its plain
    version at the eager fallback's shape; K4's and K5's times;
-6. the ``kernels`` JSON line, the card line, and the final status line.
+6. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
+   GloVe shape: 1.2M x 100 ``randn`` rows (seed 1234), one shard, cosine,
+   k = 100, 32 timed batches of 16 through ``plane.serve``: K6 within the
+   parity bar of its plain version and every K3 call of the step bitwise,
+   K6 also at 2^18 rows for dot_product and l2_norm with duplicates and
+   ``exists`` holes, every query of one batch against numpy (matmul +
+   lexsort), the path's launches counted alone, K6's times;
+7. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
+   shape: 2^20 x 64 rows around 2048 centers (noise 0.35), nlist 1024,
+   seed 7, queries perturbed corpus rows (noise 0.15), k = 10 at the
+   tier's default nprobe and rerank, 24 timed batches through ``serve``:
+   the pack time, the union width, r_cand, recall@10 against the exact
+   route for the kernels and for the plain versions (the kernels' may
+   not be lower), K7/K8 within the parity bar and K3 bitwise, the card's
+   and numpy's cluster assignments compared, the path's launches counted
+   alone, K7's and K8's times;
+8. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -39,6 +56,7 @@ package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -877,6 +895,488 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
             errs)
 
 
+#: exact kNN at the GloVe shape (``bench.py:bench_knn``): 1.2M rows of
+#: d = 100, cosine, k = 100, batches of 16
+KNN_ROWS = 1_200_000
+KNN_DIM = 100
+KNN_K = 100
+KNN_BATCH = 16
+KNN_BATCHES = 32
+#: K6 also held at 2^18 rows for the other two similarities
+KNN_SMALL_ROWS = 1 << 18
+#: IVF at ``bench.py:bench_knn_ivf``'s shape: 2^20 rows of d = 64 around
+#: 2048 centers (noise 0.35), nlist 1024, seed 7; queries are corpus rows
+#: plus noise 0.15; k = 10 at the tier's default nprobe and rerank
+IVF_ROWS = 1 << 20
+IVF_DIM = 64
+IVF_CENTERS = 2048
+IVF_NLIST = 1024
+IVF_K = 10
+IVF_BATCHES = 24
+IVF_EVAL = 4
+#: rows of the card-vs-host cluster assignment comparison
+ASSIGN_SAMPLE = 1 << 15
+
+
+def knn_tol(q, vecs_max_norm, similarity):
+    """The parity bar: 1e-5·‖q‖·max‖v‖ (dot, cosine: unit rows) or
+    1e-5·(‖q‖ + max‖v‖)² (l2, whose expansion cancels)."""
+    qn = float(np.linalg.norm(q, axis=1).max())
+    vn = vecs_max_norm
+    if similarity == "cosine":
+        qn = vn = 1.0
+    return 1e-5 * (qn + vn) ** 2 if similarity == "l2_norm" else \
+        1e-5 * qn * vn
+
+
+def check_bitwise(got, want, what):
+    if not all(same_bits(x, y) for x, y in zip(got, want)):
+        fail(f"{what} differs from its plain version")
+    return max_abs_err(zip(got, want))
+
+
+def check_lists(v1, i1, v2, i2, tol, what):
+    """[R, k] lists of a kernel (v1, i1) against [R, k+1] of the plain
+    version, under the parity bar; equal kernel scores in ascending id
+    order. Returns the largest |Δ| over the compared slots."""
+    v1, i1 = v1.cpu().numpy(), i1.cpu().numpy()
+    v2, i2 = v2.cpu().numpy(), i2.cpu().numpy()
+    k = v1.shape[1]
+    err = check_topk(v1, i1, v2[:, :k], i2[:, :k], v2[:, k], 0.0, tol, what)
+    tie = (v1[:, 1:] == v1[:, :-1]) & np.isfinite(v1[:, 1:])
+    if (i1[:, 1:][tie] <= i1[:, :-1][tie]).any():
+        fail(f"{what}: equal scores out of id order")
+    return err
+
+
+@contextlib.contextmanager
+def recording_k3(calls):
+    """Record every K3 call the kNN steps make as (args, kwargs)."""
+    from elasticsearch_tpu_torch.ops import knn
+    from elasticsearch_tpu_torch.parallel import dist_search
+    orig = knn.topk_merge
+
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    knn.topk_merge = dist_search.topk_merge = rec
+    try:
+        yield
+    finally:
+        knn.topk_merge = dist_search.topk_merge = orig
+
+
+def check_k3_calls(calls, what):
+    """Each recorded K3 call against its plain version, bitwise; returns
+    the largest error."""
+    from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
+    err = 0.0
+    for args, kw in calls:
+        err = max(err, check_bitwise(topk_merge(*args, **kw),
+                                     topk_merge_plain(*args, **kw),
+                                     f"{what}: K3 topk_merge ({kw})"))
+    return err
+
+
+def knn_inputs(dev, *, n, dim, B, similarity, seed):
+    """A one-shard packed corpus with duplicates of row 3 and ``exists``
+    holes (some whole tiles), and a batch whose first query is row 3."""
+    import torch
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        prepare_knn_corpus
+    rng = np.random.RandomState(seed)
+    raw = rng.randn(1, n, dim).astype(np.float32)
+    raw[0, 50:60] = raw[0, 3]
+    raw[0, n - 9] = raw[0, 3]
+    exists = rng.rand(1, n) > 0.15
+    exists[0, n // 2: n // 2 + 4096] = False
+    exists[0, 3] = exists[0, 50:60] = exists[0, n - 9] = True
+    vecs, vn = prepare_knn_corpus(raw, similarity)
+    vecs[~exists] = 0.0
+    vn[~exists] = 0.0
+    q = rng.randn(B, dim).astype(np.float32)
+    q[0] = raw[0, 3]
+    qq = q / np.linalg.norm(q, axis=1, keepdims=True) \
+        if similarity == "cosine" else q
+    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+         for x in (vecs, vn, exists, qq.astype(np.float32),
+                   np.sum(q * q, axis=1).astype(np.float32))]
+    return t, knn_tol(q, float(np.linalg.norm(raw, axis=-1).max()),
+                      similarity)
+
+
+def run_knn_exact(card, *, reps=20):
+    """Phase 6: the exact kNN route at the GloVe shape through ``serve``.
+    Returns the K6 row of the ``kernels`` line, the path's launch counts
+    and K3's largest error."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.knn import (
+        knn_scan_partials, knn_shard_scan, knn_shard_scan_plain)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedKnnPlane, _knn_blocking, _packed_queries, knn_step)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1234)
+    corpus = rng.randn(KNN_ROWS, KNN_DIM).astype(np.float32)
+    batches = [rng.randn(KNN_BATCH, KNN_DIM).astype(np.float32)
+               for _ in range(1 + KNN_BATCHES)]
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plane = DistributedKnnPlane([dict(vectors=corpus)], similarity="cosine",
+                                device=dev)
+    plane._device_arrays()
+    torch.cuda.synchronize()
+    print(f"# knn corpus: {KNN_ROWS} x {KNN_DIM} randn ({gen_s:.1f} s); "
+          f"plane n_pad {plane.n_pad}, "
+          f"{plane.device_corpus_bytes() / 2**30:.3f} GiB on {dev} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- K6 and every K3 call of the step against their plain versions ---
+    vecs, vn, exists = plane._device_arrays()
+    S, n_pad = plane.n_shards, plane.n_pad
+    q = torch.from_numpy(batches[1]).to(dev)
+    qq = _packed_queries(q, "cosine")
+    qn = torch.sum(q * q, dim=-1)
+    kk = min(KNN_K, n_pad)
+    blk, use_blocks = _knn_blocking(plane.block, n_pad, kk)
+    tol = knn_tol(batches[1], 1.0, "cosine")
+    B = KNN_BATCH
+    k3_calls = []
+    with recording_k3(k3_calls):
+        knn_step(vecs, vn, exists, q, n_pad=n_pad, k=KNN_K,
+                 similarity="cosine", block=plane.block)
+    k3_err = check_k3_calls(k3_calls, "knn_exact")
+    k6_v, k6_i = knn_shard_scan(vecs, vn, exists, qq, qn,
+                                similarity="cosine", kk=kk)
+    plain_kw = dict(similarity="cosine", kk=kk, blk=blk,
+                    use_blocks=use_blocks)
+    ref_v, ref_i = knn_shard_scan_plain(vecs, vn, exists, qq, qn,
+                                        **dict(plain_kw, kk=kk + 1))
+    k6_err = check_lists(k6_v[:, 0], k6_i[:, 0], ref_v[:, 0], ref_i[:, 0],
+                         tol, "K6 knn_scan (GloVe shape)")
+    C = knn_scan_partials(vecs, vn, exists, qq, qn, l2=False,
+                          kk=kk)[0].shape[2]
+    print(f"# knn_exact (B={B}, k={KNN_K}, {C} chunks): K6 ~= plain (max abs "
+          f"err {k6_err:.3g}, tol {tol:.3g}), K3 == plain (its "
+          f"{len(k3_calls)} calls of the step)", flush=True)
+    for sim in ("dot_product", "l2_norm"):
+        ins, stol = knn_inputs(dev, n=KNN_SMALL_ROWS, dim=KNN_DIM, B=B,
+                               similarity=sim, seed=9)
+        gv, gi = knn_shard_scan(*ins, similarity=sim, kk=KNN_K)
+        wv, wi = knn_shard_scan_plain(*ins, similarity=sim, kk=KNN_K + 1)
+        err = check_lists(gv[:, 0], gi[:, 0], wv[:, 0], wi[:, 0], stol,
+                          f"K6 knn_scan ({sim}, 2^18 rows)")
+        row, vals = gi[0, 0].cpu().numpy(), gv[0, 0].cpu().numpy()
+        dup = np.isin(row, [3, KNN_SMALL_ROWS - 9] + list(range(50, 60)))
+        if dup.sum() < 2 or len(set(vals[dup].view(np.int32).tolist())) != 1:
+            fail(f"K6 ({sim}): duplicate rows do not tie bitwise")
+        k6_err = max(k6_err, err)
+        print(f"# K6 ({sim}, {KNN_SMALL_ROWS} rows, duplicates and holes) ~= "
+              f"plain (max abs err {err:.3g}, tol {stol:.3g}); "
+              f"{int(dup.sum())} duplicates tie bitwise in row order",
+              flush=True)
+
+    # ---- the route through serve, counted alone -------------------------
+    lat, st, counts, n_disp, (vals, hits) = drive(
+        plane, batches, lambda qs, stg: plane.serve(qs, k=KNN_K, stages=stg),
+        kb, required=("knn_scan", "topk_merge"))
+    n_q = len(lat) * KNN_BATCH
+    print(f"# knn_exact: {n_q / lat.sum():.1f} q/s, p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms per {KNN_BATCH}-query "
+          f"batch over {len(lat)} batches [{card}]", flush=True)
+    print("# knn_exact stages (mean ms): " + ", ".join(
+        f"{key} {v / len(lat):.3f}" for key, v in st.items()))
+    print(f"# knn_exact launches over {n_disp} dispatches: {counts}",
+          flush=True)
+
+    # ---- every query of the first timed batch against numpy --------------
+    fn = corpus / np.maximum(np.linalg.norm(corpus, axis=1, keepdims=True),
+                             1e-12)
+    qb = batches[1]
+    qn_h = qb / np.maximum(np.linalg.norm(qb, axis=1, keepdims=True), 1e-12)
+    sc = qn_h @ fn.T
+    for qi in range(KNN_BATCH):
+        top = np.argpartition(-sc[qi], KNN_K + 1)[:KNN_K + 1]
+        top = top[np.lexsort((top, -sc[qi][top]))]
+        got = np.asarray([s * n_pad + d for s, d in hits[qi]])
+        if got.size != KNN_K:
+            fail(f"knn_exact query {qi}: {got.size} hits")
+        check_topk(vals[qi][None], got[None], sc[qi][top[:KNN_K]][None],
+                   top[None, :KNN_K], sc[qi][top[KNN_K:]], 0.0, tol,
+                   f"knn_exact query {qi} against numpy")
+    print(f"# knn_exact: all {KNN_BATCH} queries of a batch agree with numpy "
+          f"(matmul + lexsort) within {tol:.3g}", flush=True)
+    del fn, sc
+
+    # ---- times ----------------------------------------------------------
+    ms = timed(lambda: knn_scan_partials(vecs, vn, exists, qq, qn, l2=False,
+                                         kk=kk), reps)
+    plain_ms = timed(lambda: knn_shard_scan_plain(vecs, vn, exists, qq, qn,
+                                                  **plain_kw), 2)
+    k3_ms = timed(lambda: [topk_merge(*a, **kw) for a, kw in k3_calls], reps)
+    flat = vecs[0, :plane.n_docs_total]
+
+    def library():
+        torch.topk(qq @ flat.T, kk, dim=1)
+
+    lib = timed(library, reps)
+    live = int(exists.sum())
+    nbytes = live * KNN_DIM * 4 + S * n_pad + B * KNN_DIM * 4 + B * 4 \
+        + B * S * kk * 8
+    bms, bby = bound(nbytes, 2 * B * live * KNN_DIM)
+    print(f"# knn_scan: {ms:.4f} ms (bound {bms:.4f} ms by {bby}: {live} "
+          f"live rows of {S * n_pad}, {nbytes} bytes), plain {plain_ms:.3f} "
+          f"ms, library (fp32 matmul + torch.topk) {lib:.4f} ms; K3's "
+          f"{len(k3_calls)} calls {k3_ms:.4f} ms [{card}]", flush=True)
+    row = dict(name="knn_scan", route="cuda",
+               source="elasticsearch_tpu_torch/csrc/knn_scan.cu",
+               replaces="elasticsearch_tpu/parallel/dist_search.py:323",
+               max_abs_err=k6_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+               bound_by=bby, library_ms=lib)
+    return row, counts, k3_err
+
+
+def plain_ivf_route(plane, prep):
+    """The IVF step of one prepared dispatch through the plain versions
+    (on the card): the window, the re-rank, K3's final and cross-shard
+    top-k. Returns (vals, hits) as ``serve`` does."""
+    import torch
+    from elasticsearch_tpu_torch.ops.knn import (ivf_rerank_plain,
+                                                 ivf_scan_plain)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge_plain
+    from elasticsearch_tpu_torch.parallel.dist_search import _packed_queries
+    a = prep["args"]
+    S, n_pad = plane.n_shards, plane.n_pad
+    l2 = plane.similarity == "l2_norm"
+    qq = _packed_queries(a["q"], plane.similarity)
+    qsum, qn = qq.sum(-1), torch.sum(a["q"] * a["q"], dim=-1)
+    wv, wp = ivf_scan_plain(a["codes"], a["scale"], a["off"], a["rowid"],
+                            a["rcl"], a["vnorm2"], qq, qsum, qn, a["probed"],
+                            a["u_blocks"], l2=l2, n_pad=n_pad,
+                            r_cand=prep["r_cand"])
+    ex, rows = ivf_rerank_plain(wv, wp, a["u_blocks"], a["rowid"], a["vecs"],
+                                a["vnorm2"], qq, qn, l2=l2, n_pad=n_pad)
+    B, _, R = ex.shape
+    kk = min(prep["k"], n_pad)
+    v, i = topk_merge_plain(ex.view(B * S, R), rows.view(B * S, R), k=kk,
+                            fill_id=n_pad)
+    v, i = topk_merge_plain(v.view(B, S * kk), i.view(B, S * kk),
+                            k=min(prep["k"], S * kk), fill_id=S * n_pad,
+                            seg_len=kk, seg_stride=n_pad)
+    vals = v.cpu().numpy()
+    return vals, plane._decode_hits(vals, i.cpu().numpy())
+
+
+def recall(got_hits, exact_hits):
+    return float(np.mean([len(set(g) & set(e)) / max(len(e), 1)
+                          for gb, eb in zip(got_hits, exact_hits)
+                          for g, e in zip(gb, eb)]))
+
+
+def run_knn_ivf(card, *, reps=20):
+    """Phase 7: the IVF route at ``bench_knn_ivf``'s shape through
+    ``serve``. Returns the K7 and K8 rows of the ``kernels`` line, the
+    path's launch counts and K3's largest error."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.knn import (
+        ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
+        ivf_scan_plain, window_rows)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        IVF_DEFAULT_RERANK, DistributedKnnPlane, _assign_clusters,
+        _packed_queries, ivf_knn_step, prepare_knn_corpus)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1234)
+    centers = rng.randn(IVF_CENTERS, IVF_DIM).astype(np.float32)
+    corpus = np.empty((IVF_ROWS, IVF_DIM), np.float32)
+    for lo in range(0, IVF_ROWS, 1 << 17):
+        n = min(1 << 17, IVF_ROWS - lo)
+        corpus[lo: lo + n] = centers[rng.randint(0, IVF_CENTERS, n)] \
+            + 0.35 * rng.randn(n, IVF_DIM).astype(np.float32)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plane = DistributedKnnPlane([dict(vectors=corpus)], similarity="cosine",
+                                ivf=dict(nlist=IVF_NLIST, seed=7),
+                                device=dev)
+    pack_s = time.perf_counter() - t0
+    tier = plane.ivf
+    tier.device_arrays(dev, plane.n_pad)
+    plane._device_arrays()
+    torch.cuda.synchronize()
+    print(f"# ivf corpus: {IVF_ROWS} x {IVF_DIM} around {IVF_CENTERS} "
+          f"centers ({gen_s:.1f} s); pack (k-means on the card, assignment, "
+          f"int8 quantization, reorder) {pack_s:.1f} s; nlist {tier.nlist}, "
+          f"{tier.n_blocks} blocks of {tier.block}, "
+          f"{plane.device_corpus_bytes() / 2**30:.3f} GiB on {dev}",
+          flush=True)
+    idx = np.random.RandomState(7).choice(IVF_ROWS, ASSIGN_SAMPLE,
+                                          replace=False)
+    x = prepare_knn_corpus(corpus[idx], "cosine")[0]
+    a_dev = _assign_clusters(x, tier.centroids, False, device=dev)
+    a_host = _assign_clusters(x, tier.centroids, False, device="cpu")
+    n_diff = int((a_dev != a_host).sum())
+    print(f"# card vs numpy _assign_clusters on {ASSIGN_SAMPLE} packed rows: "
+          f"{n_diff} rows in another cluster", flush=True)
+
+    def q_batch():
+        qi = rng.randint(0, IVF_ROWS, KNN_BATCH)
+        return (corpus[qi] + 0.15 * rng.randn(KNN_BATCH, IVF_DIM)).astype(
+            np.float32)
+
+    eval_b = [q_batch() for _ in range(IVF_EVAL)]
+    batches = eval_b + [q_batch() for _ in range(IVF_BATCHES - IVF_EVAL)]
+    nprobe = tier.default_nprobe
+    S, n_pad = plane.n_shards, plane.n_pad
+
+    # ---- K7, K8 and every K3 call of the step against their plain versions
+    prep = plane.prepare_ivf(eval_b[0], IVF_K, nprobe=nprobe,
+                             rerank=IVF_DEFAULT_RERANK)
+    a, R, Pw = prep["args"], prep["r_cand"], prep["Pw"]
+    qq = _packed_queries(a["q"], "cosine")
+    qsum, qn = qq.sum(-1), torch.sum(a["q"] * a["q"], dim=-1)
+    tol = knn_tol(eval_b[0], 1.0, "cosine")
+    scan_in = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+               a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
+    scan_kw = dict(l2=False, n_pad=n_pad)
+    B = KNN_BATCH
+    k3_calls = []
+    with recording_k3(k3_calls):
+        ivf_knn_step(**a, n_pad=n_pad, k=IVF_K, similarity="cosine",
+                     nlist=tier.nlist, r_cand=R)
+    k3_err = check_k3_calls(k3_calls, "knn_ivf")
+    C = ivf_scan_partials(*scan_in, **scan_kw, nlist=tier.nlist,
+                          r_cand=R)[0].shape[2]
+    wv, wp = ivf_scan(*scan_in, **scan_kw, nlist=tier.nlist, r_cand=R)
+    pv, pp = ivf_scan_plain(*scan_in, **scan_kw, r_cand=R + 1)
+    # the window's values: the dequantized dot differs from the plain
+    # product by its summation order, within the parity bar
+    k7_err = check_lists(wv[:, 0], wp[:, 0], pv[:, 0], pp[:, 0], tol,
+                         "K7 ivf_scan (the window)")
+    rr_in = (wv, wp, a["u_blocks"], a["rowid"], a["vecs"], a["vnorm2"], qq,
+             qn)
+    ex, rows = ivf_rerank(*rr_in, l2=False, n_pad=n_pad)
+    ex_p, rows_p = ivf_rerank_plain(*rr_in, l2=False, n_pad=n_pad)
+    if not torch.equal(rows, rows_p):
+        fail("K8 ivf_rerank: rows differ from its plain version")
+    e, ep = ex.cpu().numpy(), ex_p.cpu().numpy()
+    fin = np.isfinite(ep)
+    if not np.array_equal(np.isfinite(e), fin) or \
+            np.abs(e[fin] - ep[fin]).max(initial=0.0) > tol:
+        fail("K8 ivf_rerank: scores differ from its plain version beyond "
+             "the parity bar")
+    k8_err = float(np.abs(e[fin].astype(np.float64) - ep[fin]).max(
+        initial=0.0))
+    n_real = int((a["u_blocks"] < tier.n_blocks).sum())
+    live = int(np.isfinite(e).sum())
+    print(f"# knn_ivf (B={B}, k={IVF_K}, nprobe {nprobe}, rerank "
+          f"{IVF_DEFAULT_RERANK}): Pw {Pw}, r_cand {R}, {n_real} "
+          f"union blocks scanned of {S * Pw} gathered; K7 ~= plain (max abs "
+          f"err {k7_err:.3g}, tol {tol:.3g}), K8 ~= plain (rows equal, max "
+          f"abs err {k8_err:.3g}), K3 == plain (its {len(k3_calls)} calls of "
+          f"the step); {live} "
+          f"window rows re-ranked", flush=True)
+
+    # ---- recall against the exact route, kernel and plain ----------------
+    exact = [plane.serve(qb, k=IVF_K, nprobe=0)[1] for qb in eval_b]
+    plain_hits = [plain_ivf_route(plane, plane.prepare_ivf(
+        qb, IVF_K, nprobe=nprobe, rerank=IVF_DEFAULT_RERANK))[1]
+        for qb in eval_b]
+
+    # ---- the route through serve, counted alone -------------------------
+    docs_scanned = []
+
+    def call(qs, stg):
+        out = plane.serve(qs, k=IVF_K, stages=stg)
+        docs_scanned.append(stg["docs_scanned"])
+        return out
+
+    ivf_hits = [plane.serve(qb, k=IVF_K)[1] for qb in eval_b]
+    lat, st, counts, n_disp, _ = drive(
+        plane, [eval_b[0]] + batches, call, kb,
+        required=("ivf_scan", "ivf_rerank", "topk_merge"),
+        stage_keys=("prep_ms", "dispatch_ms", "fetch_ms",
+                    "ann_quantized_bytes", "ann_exact_bytes"))
+    n_q = len(lat) * KNN_BATCH
+    r_kernel, r_plain = recall(ivf_hits, exact), recall(plain_hits, exact)
+    print(f"# knn_ivf: {n_q / lat.sum():.1f} q/s, p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms per {KNN_BATCH}-query "
+          f"batch over {len(lat)} batches [{card}]", flush=True)
+    print("# knn_ivf stages (mean): " + ", ".join(
+        f"{key} {v / len(lat):.3f}" for key, v in st.items())
+        + f", docs_scanned {np.mean(docs_scanned):.1f}")
+    print(f"# knn_ivf launches over {n_disp} dispatches: {counts}",
+          flush=True)
+    print(f"# knn_ivf recall@{IVF_K} against the exact route on {IVF_EVAL} "
+          f"batches: kernels {r_kernel:.4f}, plain versions {r_plain:.4f}",
+          flush=True)
+    if r_kernel < r_plain:
+        fail(f"IVF recall {r_kernel} below the plain route's {r_plain}")
+    if counts["knn_scan"]:
+        fail("K6 launched on the IVF path")
+
+    # ---- times ----------------------------------------------------------
+    k7_ms = timed(lambda: ivf_scan_partials(*scan_in, **scan_kw,
+                                            nlist=tier.nlist, r_cand=R), reps)
+    k8_ms = timed(lambda: ivf_rerank(*rr_in, l2=False, n_pad=n_pad), reps)
+    k7_plain = timed(lambda: ivf_scan_plain(*scan_in, **scan_kw, r_cand=R), 3)
+    k8_plain = timed(lambda: ivf_rerank_plain(*rr_in, l2=False, n_pad=n_pad),
+                     3)
+    k3_ms = timed(lambda: [topk_merge(*x, **kw) for x, kw in k3_calls],
+                  reps)
+    safe = window_rows(wp, a["u_blocks"], a["rowid"]).clamp(
+        0, n_pad - 1).long()[:, 0]
+    vec0 = a["vecs"][0]
+
+    def k8_library():
+        torch.bmm(vec0[safe], qq[:, :, None])
+
+    k8_lib = timed(k8_library, reps)
+    # K7's work: the rowid and rcl of each row of a real union block (the
+    # sentinel block NB is all padding); the codes, scale and off of a row
+    # some query of the batch probes; per (row, query) pair a D-long dot
+    # (2 ops a term) and the dequantization (3 ops); the window written
+    rcl = a["rcl"][0][a["u_blocks"][0].long()].reshape(-1)
+    member = (rcl[None, :, None] == a["probed"][:, None, :]).any(-1)
+    pairs = int(member.sum())
+    rows_read = int(member.any(0).sum())
+    k7_bytes = n_real * tier.block * 8 + rows_read * (IVF_DIM + 8) \
+        + a["probed"].numel() * 4 + a["u_blocks"].numel() * 4 + B * 8 \
+        + B * S * R * 8
+    k7_bms, k7_bby = bound(k7_bytes, pairs * (2 * IVF_DIM + 3))
+    k8_bytes = live * (8 + 4 + 4 + IVF_DIM * 4 + 8) + B * IVF_DIM * 4
+    k8_bms, k8_bby = bound(k8_bytes, live * 2 * IVF_DIM)
+    print(f"# ivf_scan: {k7_ms:.4f} ms (bound {k7_bms:.5f} ms by {k7_bby}: "
+          f"{n_real} real union blocks, {rows_read} probed rows read, "
+          f"{pairs} (row, query) pairs, "
+          f"{k7_bytes} bytes), plain {k7_plain:.3f} ms; ivf_rerank: "
+          f"{k8_ms:.4f} ms (bound {k8_bms:.5f} ms by {k8_bby}), plain "
+          f"{k8_plain:.3f} ms, library (gather + torch.bmm) {k8_lib:.4f} ms; "
+          f"K3's {len(k3_calls)} calls {k3_ms:.4f} ms [{card}]", flush=True)
+    rows_out = [
+        dict(name="ivf_scan", route="cuda",
+             source="elasticsearch_tpu_torch/csrc/ivf_scan.cu",
+             replaces="elasticsearch_tpu/parallel/dist_search.py:798",
+             max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain,
+             bound_ms=k7_bms, bound_by=k7_bby, library_ms=None,
+             library_none="no one PyTorch call scans a gathered union "
+                          "under per-query cluster masks into a window"),
+        dict(name="ivf_rerank", route="cuda",
+             source="elasticsearch_tpu_torch/csrc/ivf_rerank.cu",
+             replaces="elasticsearch_tpu/parallel/dist_search.py:894",
+             max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain,
+             bound_ms=k8_bms, bound_by=k8_bby, library_ms=k8_lib)]
+    return rows_out, counts, k3_err
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -897,13 +1397,25 @@ def main() -> int:
     print(f"# eager phases {time.perf_counter() - t0:.1f} s", flush=True)
     pruned_rows, pruned_counts, k1_fallback, errs = run_pruned(card)
     kernels += pruned_rows
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    knn_row, knn_counts, k3_knn = run_knn_exact(card)
+    torch.cuda.empty_cache()
+    print(f"# knn_exact phase {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    ivf_rows, ivf_counts, k3_ivf = run_knn_ivf(card)
+    print(f"# knn_ivf phase {time.perf_counter() - t1:.1f} s", flush=True)
+    kernels += [knn_row] + ivf_rows
+    path_counts = dict(pruned_counts, knn_exact=knn_counts,
+                       knn_ivf=ivf_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
-            kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"])
+            kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],
+                                    k3_knn, k3_ivf)
         if kd["name"] == "sparse_candidates_topk":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k1_err"])
         by_path = kd.setdefault("launches_by_path", {})
-        for path, c in pruned_counts.items():
+        for path, c in path_counts.items():
             by_path[path] = c[kd["name"]]
         by_path.setdefault("search", 0)
         by_path.setdefault("serve", 0)

@@ -1,10 +1,10 @@
-"""PyTorch/CUDA port of the engine's batched BM25 serving plane.
+"""PyTorch/CUDA port of the engine's batched serving planes (BM25 and kNN).
 
 The JAX package ``elasticsearch_tpu`` is the reference; this package keeps
 its module names (``ops/sorted_merge.py``, ``ops/tiered_bm25.py``,
 ``parallel/dist_search.py``, ...) so each function has an obvious
 counterpart. It imports ``torch`` and numpy only. The per-document device
-work runs in five hand-written CUDA kernels under ``csrc/`` (built at
+work runs in eight hand-written CUDA kernels under ``csrc/`` (built at
 first use by ``kernels/build.py``); each kernel's plain PyTorch version
 sits beside its wrapper and serves tensors that lie on the CPU.
 """

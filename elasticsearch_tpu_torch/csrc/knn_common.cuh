@@ -1,0 +1,247 @@
+// Shared pieces of the kNN scans K6 (knn_scan.cu) and K7 (ivf_scan.cu): the
+// row tile, the f32 dot products of a tile against a batch of queries, and
+// the per-query running top-k lists of one block.
+//
+// A block scores tiles of KS_ROWS rows against up to KS_BT queries. The
+// tile's rows pass through shared memory dc values of d at a time: the row
+// rounded up to 4 values, at most KS_DC_MAX, so a row of up to 128 values
+// is one load phase (one trip to device memory) a tile. Rows sit rs floats
+// apart, an odd number of float4s, so the 16-byte reads of eight
+// consecutive rows hit distinct banks. Each thread holds 2 rows x 4 queries
+// of dot products and adds one FMA per d in ascending d. A row's score thus
+// never depends on where the row lies, and a duplicate row ties bitwise.
+//
+// Each query keeps a list of its k best (score, id) keys, sorted best first
+// under (score desc, id asc), and the list's k-th key as a threshold once
+// full. In a tile a thread offers its scores that beat the threshold to the
+// query's candidate buffer (at most one per row, so KS_ROWS slots; a warp
+// takes its slots with one shared-memory atomic); after a
+// barrier the lists merge with their candidates by rank: a list entry moves
+// down by the candidates better than it, a candidate lands after the list
+// entries better than it (a binary search) and the other candidates better
+// than it. Ids are unique, so the ranks are a permutation and the result
+// does not depend on the order the candidates arrived in. The lists live in
+// shared memory when they fit, else in the block's slice of its output and
+// of a workspace in device memory (the code is the same).
+#pragma once
+
+#include "topk_common.cuh"
+
+#define KS_THREADS 256
+#define KS_ROWS 128
+#define KS_DC_MAX 128
+#define KS_BT 16
+
+// d values a tile holds at a time, and the row stride in floats.
+static int ks_dc(int D) {
+  const int dc = (D + 3) / 4 * 4;
+  return dc < KS_DC_MAX ? dc : KS_DC_MAX;
+}
+static int ks_rs(int dc) { return (dc / 4) % 2 ? dc : dc + 4; }
+
+// Dynamic shared memory of a block without its lists: the row tile, the
+// query chunk (KS_BT rows, zero past the batch and past D) and the
+// candidate buffers.
+static size_t ks_base_bytes(int bt, int D) {
+  const int dc = ks_dc(D);
+  return (size_t)KS_ROWS * ks_rs(dc) * 4 + (size_t)KS_BT * dc * 4 +
+         (size_t)bt * KS_ROWS * 8;
+}
+
+// The lists and their merge buffers.
+static size_t ks_list_bytes(int bt, int k) { return (size_t)4 * bt * k * 4; }
+
+struct QueryLists {
+  float* v;         // query q's list at v + q * qstride, best first
+  int* id;
+  size_t qstride;
+  float* tv;        // merge buffer at tv + q * tstride
+  int* tid;
+  size_t tstride;
+  float* cv;        // [bt][KS_ROWS] candidates of the tile
+  int* cid;
+  int* filled;      // [bt] entries in the list
+  int* ncand;       // [bt] candidates of the tile
+  float* thr_v;     // [bt] the k-th key, once the list is full
+  int* thr_id;
+  int k;
+  int bt;
+
+  __device__ __forceinline__ bool beats(int q, float sc, int key) const {
+    return filled[q] < k || key_better(sc, key, thr_v[q], thr_id[q]);
+  }
+
+  // Offer (sc, key) to query q where `want`; every lane of the warp calls
+  // it with the same q.
+  __device__ __forceinline__ void push_warp(int q, bool want, float sc,
+                                            int key) {
+    const unsigned m = __ballot_sync(0xffffffffu, want);
+    if (m == 0u) return;
+    const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(&ncand[q], __popc(m));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (want) {
+      const int i = base + __popc(m & ((1u << lane) - 1u));
+      cv[q * KS_ROWS + i] = sc;
+      cid[q * KS_ROWS + i] = key;
+    }
+  }
+
+  // Entries of query q's merge (its list and candidates, or none) and
+  // entries its merged list keeps.
+  __device__ __forceinline__ int merge_len(int q) const {
+    return ncand[q] ? filled[q] + ncand[q] : 0;
+  }
+  __device__ __forceinline__ int kept_len(int q) const {
+    return min(k, merge_len(q));
+  }
+
+  // Merge every list with its candidates; all threads, after a barrier.
+  // The work is spread over every (query, entry) pair of the block.
+  __device__ void merge() {
+    int total = 0;
+    for (int q = 0; q < bt; ++q) total += merge_len(q);
+    if (total == 0) return;
+    for (int x = threadIdx.x; x < total; x += blockDim.x) {
+      int q = 0, e = x;
+      while (e >= merge_len(q)) e -= merge_len(q++);
+      const int f = filled[q], nc = ncand[q];
+      const float* lv = v + q * qstride;
+      const int* li = id + q * qstride;
+      const float* c_v = cv + q * KS_ROWS;
+      const int* c_i = cid + q * KS_ROWS;
+      float ev;
+      int ei, rank;
+      if (e < f) {
+        ev = lv[e];
+        ei = li[e];
+        rank = e;
+      } else {
+        ev = c_v[e - f];
+        ei = c_i[e - f];
+        int lo = 0, hi = f;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (key_better(lv[mid], li[mid], ev, ei))
+            lo = mid + 1;
+          else
+            hi = mid;
+        }
+        rank = lo;
+      }
+      for (int c = 0; c < nc; ++c) rank += key_better(c_v[c], c_i[c], ev, ei);
+      if (rank < k) {
+        tv[q * tstride + rank] = ev;
+        tid[q * tstride + rank] = ei;
+      }
+    }
+    __syncthreads();
+    total = 0;
+    for (int q = 0; q < bt; ++q) total += kept_len(q);
+    for (int x = threadIdx.x; x < total; x += blockDim.x) {
+      int q = 0, e = x;
+      while (e >= kept_len(q)) e -= kept_len(q++);
+      v[q * qstride + e] = tv[q * tstride + e];
+      id[q * qstride + e] = tid[q * tstride + e];
+    }
+    __syncthreads();
+    if (threadIdx.x < bt) {
+      const int q = threadIdx.x;
+      const int nc = ncand[q];
+      if (nc) {
+        const int nf = kept_len(q);
+        filled[q] = nf;
+        if (nf == k) {
+          thr_v[q] = v[q * qstride + k - 1];
+          thr_id[q] = id[q * qstride + k - 1];
+        }
+        ncand[q] = 0;
+      }
+    }
+    __syncthreads();
+  }
+
+  // Query q's list into out (k slots), (-inf, fill) past its entries; when
+  // the list lives in out already, only the fill is written.
+  __device__ void write(int q, float* out_v, int* out_i, int fill,
+                        bool in_place) const {
+    const int f = filled[q];
+    for (int i = threadIdx.x; i < k; i += blockDim.x) {
+      if (i >= f) {
+        out_v[i] = -CUDART_INF_F;
+        out_i[i] = fill;
+      } else if (!in_place) {
+        out_v[i] = v[q * qstride + i];
+        out_i[i] = id[q * qstride + i];
+      }
+    }
+  }
+};
+
+// The block's lists: in shared memory after `dyn` (kShared), else in the
+// output slice of the block (query q at out + q * ostride) with their merge
+// buffers in the workspace at the same offsets.
+__device__ __forceinline__ QueryLists ks_lists(
+    bool shared, unsigned char* dyn, float* out_v, int* out_i, float* ws_v,
+    int* ws_i, size_t ostride, float* cv, int* cid, int* filled, int* ncand,
+    float* thr_v, int* thr_id, int k, int bt) {
+  QueryLists L;
+  if (shared) {
+    L.v = reinterpret_cast<float*>(dyn);
+    L.id = reinterpret_cast<int*>(L.v + (size_t)bt * k);
+    L.tv = reinterpret_cast<float*>(L.id + (size_t)bt * k);
+    L.tid = reinterpret_cast<int*>(L.tv + (size_t)bt * k);
+    L.qstride = L.tstride = k;
+  } else {
+    L.v = out_v;
+    L.id = out_i;
+    L.tv = ws_v;
+    L.tid = ws_i;
+    L.qstride = L.tstride = ostride;
+  }
+  L.cv = cv;
+  L.cid = cid;
+  L.filled = filled;
+  L.ncand = ncand;
+  L.thr_v = thr_v;
+  L.thr_id = thr_id;
+  L.k = k;
+  L.bt = bt;
+  return L;
+}
+
+// acc[i][j] += row (rr + 64 i) . query (4 qg + j) over one chunk of d.
+__device__ __forceinline__ void ks_tile_dot(const float* rows_s,
+                                            const float* q_s, int rr, int qg,
+                                            int dc, int rs, float acc[2][4]) {
+#pragma unroll 4
+  for (int c = 0; c < dc; c += 4) {
+    const float4 r0 = *reinterpret_cast<const float4*>(rows_s + rr * rs + c);
+    const float4 r1 =
+        *reinterpret_cast<const float4*>(rows_s + (rr + 64) * rs + c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float4 qv =
+          *reinterpret_cast<const float4*>(q_s + (qg * 4 + j) * dc + c);
+      acc[0][j] = fmaf(r0.x, qv.x, acc[0][j]);
+      acc[0][j] = fmaf(r0.y, qv.y, acc[0][j]);
+      acc[0][j] = fmaf(r0.z, qv.z, acc[0][j]);
+      acc[0][j] = fmaf(r0.w, qv.w, acc[0][j]);
+      acc[1][j] = fmaf(r1.x, qv.x, acc[1][j]);
+      acc[1][j] = fmaf(r1.y, qv.y, acc[1][j]);
+      acc[1][j] = fmaf(r1.z, qv.z, acc[1][j]);
+      acc[1][j] = fmaf(r1.w, qv.w, acc[1][j]);
+    }
+  }
+}
+
+// The query chunk [KS_BT][dc] at d0: zero past the batch and past D.
+__device__ __forceinline__ void ks_load_queries(float* q_s, const float* qq,
+                                                int b0, int nb, int D, int d0,
+                                                int dc) {
+  for (int e = threadIdx.x; e < KS_BT * dc; e += blockDim.x) {
+    const int q = e / dc, d = d0 + e % dc;
+    q_s[e] = (q < nb && d < D) ? qq[(size_t)(b0 + q) * D + d] : 0.0f;
+  }
+}

@@ -36,10 +36,21 @@ static int es_max_shared_bytes() {
   return bytes;
 }
 
-// Sets a kernel's dynamic shared memory, or returns ES_ERR_SHARED.
+// Bytes of static shared memory a kernel declares.
+template <typename Kernel>
+static size_t es_static_shared_bytes(Kernel kernel) {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, kernel) != cudaSuccess) return 0;
+  return attr.sharedSizeBytes;
+}
+
+// Sets a kernel's dynamic shared memory, or returns ES_ERR_SHARED when it
+// and the kernel's static shared memory exceed what a block may have.
 template <typename Kernel>
 static int es_set_shared(Kernel kernel, size_t bytes) {
-  if (bytes > (size_t)es_max_shared_bytes()) return ES_ERR_SHARED;
+  if (bytes + es_static_shared_bytes(kernel) >
+      (size_t)es_max_shared_bytes())
+    return ES_ERR_SHARED;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

@@ -35,7 +35,8 @@ BUILD_DIR = PKG_DIR / "_build"
 
 #: one entry per kernel source (csrc/<name>.cu)
 KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
-           "blockmax_scan", "bisect_exact_scores")
+           "blockmax_scan", "bisect_exact_scores", "knn_scan", "ivf_scan",
+           "ivf_rerank")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -80,6 +81,22 @@ _SIGNATURES = {
     "bisect_exact_scores": (
         "es_bisect_exact_scores",
         [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P] * 3),
+    # vecs, vn, exists, qq, qn, B, S, n_pad, D, k, l2, n_chunks, part_vals,
+    # part_rows, workspace, stream
+    "knn_scan": (
+        "es_knn_scan",
+        [_P] * 5 + [_I] * 7 + [_P] * 4),
+    # codes, is_bf16, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
+    # u_blocks, B, S, NB1, BLK, D, n_pad, nlist, nprobe, P, k, l2, n_chunks,
+    # part_vals, part_pos, workspace, stream
+    "ivf_scan": (
+        "es_ivf_scan",
+        [_P, _I] + [_P] * 10 + [_I] * 12 + [_P] * 4),
+    # win_vals, win_pos, u_blocks, rowid, vecs, vn, qq, qn, B, S, R, P, NB1,
+    # BLK, n_pad, D, l2, out_score, out_rows, stream
+    "ivf_rerank": (
+        "es_ivf_rerank",
+        [_P] * 8 + [_I] * 9 + [_P] * 3),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -87,6 +104,15 @@ _QUERIES = {
     "topk_merge": {
         # (m, R) -> workspace bytes, 0 when a row fits shared memory
         "es_topk_merge_workspace_bytes": ([_I, _I], ctypes.c_longlong),
+    },
+    "knn_scan": {
+        # (B, S, n_chunks, k, D) -> workspace bytes, 0 when the lists fit
+        "es_knn_scan_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
+    },
+    "ivf_scan": {
+        # (B, S, n_chunks, k, nlist, D) -> workspace bytes, 0 when they
+        # fit
+        "es_ivf_scan_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
     },
 }
 

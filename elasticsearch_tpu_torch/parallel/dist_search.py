@@ -1,5 +1,5 @@
-"""Batched BM25 serving plane on one device (port of the lexical part of
-``elasticsearch_tpu/parallel/dist_search.py``).
+"""Batched BM25 and kNN serving planes on one device (port of the lexical
+and kNN parts of ``elasticsearch_tpu/parallel/dist_search.py``).
 
 The reference runs each step as one SPMD program over a (replica, shard)
 mesh: every device scores its shards, takes a local top-k, and an
@@ -17,6 +17,12 @@ A plane built with ``blockmax=`` also packs the reference's block-max
 tier and serves through its rank-safe pruned route: the quantized scan
 (K4), the exact re-score of its survivors (K5) and K3's top-k, with the
 eager step re-serving any query the scan cannot certify.
+
+The kNN plane packs vectors with their invariants on the host and serves
+the exact scan (K6, then K3 over its chunks and shards) or, with an IVF
+tier, the quantized scan of the probed clusters' blocks into a window (K7
++ K3), the window's exact re-rank (K8) and K3's top-k; the probe and the
+union of probed blocks are host numpy, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..device import resolve_device
 from ..ops.blockmax import blockmax_scan
 from ..ops.bm25 import DEFAULT_B, DEFAULT_K1, idf_weight
 from ..ops.fused_query import bisect_exact_scores
+from ..ops.knn import ivf_rerank, ivf_scan, knn_shard_scan
 from ..ops.sorted_merge import make_impacts, sparse_candidates_topk
 from ..ops.tiered_bm25 import (build_dense_rows, split_tiers,
                                tiered_bm25_topk)
@@ -1075,3 +1082,676 @@ def plane_state_from_numpy(packed: dict, *, device="cpu") -> dict:
         out["dense"] = torch.from_numpy(np.array(
             bits, np.int16)).view(torch.bfloat16).to(device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# kNN: the exact blocked scan and the IVF tier
+# ---------------------------------------------------------------------------
+
+#: rows per streamed block of the reference's exact scan (the port's plain
+#: version follows it; K6's result does not depend on it)
+KNN_BLOCK = 1 << 16
+
+KNN_SIMILARITIES = ("dot_product", "cosine", "l2_norm")
+
+#: rows per IVF device-tier block: the quantized tier is block-major
+#: [NB, IVF_BLOCK, d], so the probed union is a list of whole blocks whose
+#: rows are masked by cluster
+IVF_BLOCK = 256
+
+#: serving defaults (the reference's ``knn_ivf_recall`` bench measures
+#: these)
+IVF_DEFAULT_NPROBE = 8
+IVF_DEFAULT_RERANK = 4
+
+#: k-means training defaults: Lloyd on a bounded sample, then one
+#: assignment of the full corpus
+IVF_TRAIN_SAMPLE = 1 << 15
+IVF_KMEANS_ITERS = 6
+
+
+def prepare_knn_corpus(vecs: np.ndarray, similarity: str):
+    """Pack-time corpus invariants (host numpy, once): unit rows for
+    cosine, ``‖v‖²`` rows for l2 (zeros otherwise). ``vecs``: f32[...,
+    dim]. Returns (vecs', vnorm2)."""
+    if similarity not in KNN_SIMILARITIES:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    vecs = np.asarray(vecs, np.float32)
+    if similarity == "cosine":
+        norms = np.linalg.norm(vecs, axis=-1, keepdims=True)
+        vecs = vecs / np.maximum(norms, 1e-12)
+    if similarity == "l2_norm":
+        vnorm2 = np.sum(vecs.astype(np.float64) ** 2,
+                        axis=-1).astype(np.float32)
+    else:
+        vnorm2 = np.zeros(vecs.shape[:-1], np.float32)
+    return vecs, vnorm2
+
+
+def _knn_blocking(block: Optional[int], n_pad: int, kk: int):
+    """(blk, use_blocks): blocking only when it divides the corpus cleanly
+    and a block's top-k can hold kk candidates."""
+    use_blocks = (block is not None and block > 0 and n_pad % block == 0
+                  and n_pad // block >= 2 and kk <= block)
+    return (block if use_blocks else n_pad), use_blocks
+
+
+def _packed_queries(q: torch.Tensor, similarity: str) -> torch.Tensor:
+    """Queries in the packed convention: unit rows for cosine."""
+    if similarity == "cosine":
+        return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1,
+                                                        keepdim=True),
+                               min=1e-12)
+    return q
+
+
+def knn_step(vecs, vnorm2, exists, q, *, n_pad: int, k: int,
+             similarity: str, block: Optional[int] = KNN_BLOCK):
+    """Body of the reference's ``build_knn_step`` over S shards: the query
+    in the packed convention, ``qn = Σq²`` of the raw query, the exact
+    scan (K6 + K3) and the cross-shard reduce (K3). Returns (vals f32[B,
+    k'], global rows i32[B, k'])."""
+    if similarity not in KNN_SIMILARITIES:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    S = vecs.shape[0]
+    kk = min(k, n_pad)
+    blk, use_blocks = _knn_blocking(block, n_pad, kk)
+    qq = _packed_queries(q, similarity)
+    qn = torch.sum(q * q, dim=-1)
+    vals, idx = knn_shard_scan(vecs, vnorm2, exists, qq, qn,
+                               similarity=similarity, kk=kk, blk=blk,
+                               use_blocks=use_blocks)
+    return _global_topk_reduce(vals, idx, kk=kk, n_pad=n_pad,
+                               out_k=min(k, S * n_pad))
+
+
+def ivf_knn_step(codes, scale, off, rowid, rcl, vecs, vnorm2, q, probed,
+                 u_blocks, *, n_pad: int, k: int, similarity: str,
+                 nlist: int, r_cand: int):
+    """Body of the reference's ``build_ivf_knn_step`` over S shards: the
+    quantized scan of the probed union into a top-``r_cand`` window (K7 +
+    K3), the exact re-score of the window's rows (K8), the top-kk by
+    (score desc, row asc) (K3), and the cross-shard reduce (K3)."""
+    S = vecs.shape[0]
+    kk = min(k, n_pad)
+    l2 = similarity == "l2_norm"
+    qq = _packed_queries(q, similarity)
+    qsum = torch.sum(qq, dim=-1)
+    qn = torch.sum(q * q, dim=-1)
+    win_v, win_p = ivf_scan(codes, scale, off, rowid, rcl, vnorm2, qq, qsum,
+                            qn, probed, u_blocks, l2=l2, n_pad=n_pad,
+                            nlist=nlist, r_cand=r_cand)
+    ex, rows = ivf_rerank(win_v, win_p, u_blocks, rowid, vecs, vnorm2, qq,
+                          qn, l2=l2, n_pad=n_pad)
+    B, _, R = ex.shape
+    vals, idx = topk_merge(ex.view(B * S, R), rows.view(B * S, R), k=kk,
+                           fill_id=n_pad)
+    return _global_topk_reduce(vals.view(B, S, kk), idx.view(B, S, kk),
+                               kk=kk, n_pad=n_pad, out_k=min(k, S * n_pad))
+
+
+def _assign_clusters(x: np.ndarray, centroids: np.ndarray, l2: bool,
+                     chunk: Optional[int] = None, *, device=None
+                     ) -> np.ndarray:
+    """argmax_c metric(x, c) per row (dot; ``2x·c − ‖c‖²`` for l2),
+    chunked so the [chunk, nlist] score matrix stays near 64 MB.
+
+    On the CPU this is the reference's numpy branch (BLAS), so a host pack
+    is byte-identical to the reference's; on the card its accelerator
+    branch: an f32 product and ``argmax``, which takes the first of equal
+    maxima. A card pack needs TF32 off (PyTorch's default): with
+    ``torch.backends.cuda.matmul.allow_tf32`` on, the product would round
+    its inputs to 10-bit mantissas, so this raises rather than change the
+    process-wide flag."""
+    dev = resolve_device(device)
+    if dev.type != "cpu" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "_assign_clusters: a card pack needs f32 products; turn "
+            "torch.backends.cuda.matmul.allow_tf32 off")
+    if chunk is None:
+        chunk = max(1024, (64 << 20) // (4 * max(centroids.shape[0], 1)))
+    c2 = np.sum(centroids.astype(np.float64) ** 2,
+                axis=1).astype(np.float32)
+    out = np.empty(x.shape[0], np.int32)
+    if dev.type == "cpu":
+        for lo in range(0, x.shape[0], chunk):
+            s = x[lo: lo + chunk] @ centroids.T
+            if l2:
+                s = 2.0 * s - c2[None, :]
+            out[lo: lo + chunk] = np.argmax(s, axis=1).astype(np.int32)
+        return out
+    cent = torch.from_numpy(np.ascontiguousarray(centroids)).to(dev)
+    c2_dev = torch.from_numpy(c2).to(dev)
+    for lo in range(0, x.shape[0], chunk):
+        xb = torch.from_numpy(np.ascontiguousarray(
+            x[lo: lo + chunk], np.float32)).to(dev)
+        s = xb @ cent.T
+        if l2:
+            s = 2.0 * s - c2_dev[None, :]
+        out[lo: lo + chunk] = torch.argmax(s, dim=1).to(
+            torch.int32).cpu().numpy()
+    return out
+
+
+def kmeans_fit(x: np.ndarray, nlist: int, *, l2: bool = False,
+               spherical: bool = False, iters: int = IVF_KMEANS_ITERS,
+               sample: int = IVF_TRAIN_SAMPLE, seed: int = 0,
+               device=None) -> np.ndarray:
+    """Lloyd's k-means on (a sample of) x: nlist centroids seeded from the
+    sample, empty clusters re-seeded from random rows, renormalised each
+    round when ``spherical``. The assignment runs on ``device`` (see
+    :func:`_assign_clusters`); the update is host numpy."""
+    rng = np.random.RandomState(seed)
+    n = x.shape[0]
+    if n == 0 or nlist <= 0:
+        raise ValueError("kmeans_fit needs rows and nlist >= 1")
+    train = x if n <= sample else x[rng.choice(n, sample, replace=False)]
+    nlist = min(nlist, train.shape[0])
+    cent = train[rng.choice(train.shape[0], nlist, replace=False)].copy()
+    for _ in range(max(iters, 1)):
+        assign = _assign_clusters(train, cent, l2, device=device)
+        sums = np.zeros_like(cent, dtype=np.float64)
+        np.add.at(sums, assign, train.astype(np.float64))
+        counts = np.bincount(assign, minlength=nlist)
+        empty = counts == 0
+        nz = ~empty
+        cent[nz] = (sums[nz] / counts[nz, None]).astype(np.float32)
+        if empty.any():
+            cent[empty] = train[rng.choice(train.shape[0],
+                                           int(empty.sum()))]
+        if spherical:
+            cent /= np.maximum(
+                np.linalg.norm(cent, axis=1, keepdims=True), 1e-12)
+    return cent
+
+
+def quantize_int8_rows(vecs: np.ndarray):
+    """Per-row asymmetric int8 quantization: ``v ≈ scale·q + off`` with
+    row i's [min, max] mapped onto [−127, 127]. Returns (codes int8[N, d],
+    scale f32[N], off f32[N])."""
+    vecs = np.asarray(vecs, np.float32)
+    lo = vecs.min(axis=-1)
+    hi = vecs.max(axis=-1)
+    scale = np.maximum((hi - lo) / 254.0, 1e-12).astype(np.float32)
+    codes = np.clip(np.rint((vecs - lo[:, None]) / scale[:, None]) - 127.0,
+                    -127, 127).astype(np.int8)
+    off = (lo + 127.0 * scale).astype(np.float32)
+    return codes, scale, off
+
+
+class IvfKnnTier:
+    """IVF index over a kNN plane's packed corpus: shared centroids and,
+    per shard, cluster-contiguous quantized rows (stable within a cluster,
+    so equal scores keep doc order). The plane's f32 rows, in original
+    order, serve the exact re-rank."""
+
+    def __init__(self, similarity: str, quant: str = "int8",
+                 block: int = IVF_BLOCK):
+        if quant not in ("int8", "bf16"):
+            raise ValueError(f"unknown ivf quant [{quant}]")
+        self.similarity = similarity
+        self.quant = quant
+        self.block = block
+        self.nlist = 0
+        self.centroids: Optional[np.ndarray] = None
+        #: per shard: offsets i64[nlist+1] (cluster → row range in the
+        #: reordered space), rows i32[n_exist] (reordered → original local
+        #: row), codes (int8, or f16 for the bf16 tier), scale f32, off f32
+        self.shards: List[dict] = []
+        self.default_nprobe = IVF_DEFAULT_NPROBE
+        #: blocks per shard in the device tier; block NB is the sentinel
+        self.n_blocks = 1
+        #: rows per cluster summed over shards
+        self.cluster_sizes: Optional[np.ndarray] = None
+        self._dev: Optional[dict] = None
+
+    @classmethod
+    def build(cls, vecs: np.ndarray, exists: np.ndarray, similarity: str,
+              *, nlist: Optional[int] = None, quant: str = "int8",
+              iters: int = IVF_KMEANS_ITERS,
+              train_sample: int = IVF_TRAIN_SAMPLE, seed: int = 0,
+              block: int = IVF_BLOCK, device=None) -> "IvfKnnTier":
+        """``vecs`` f32[S, n_pad, d] / ``exists`` bool[S, n_pad]: the
+        plane's packed arrays. ``nlist`` defaults to about sqrt(N) rounded
+        to a power of two, capped so a cluster averages 8 rows or more.
+        The k-means assignments run on ``device``."""
+        tier = cls(similarity, quant=quant, block=block)
+        S = vecs.shape[0]
+        d = vecs.shape[2]
+        flat = np.concatenate([vecs[s][exists[s]] for s in range(S)]) \
+            if S else np.zeros((0, d), np.float32)
+        n_exist = flat.shape[0]
+        if n_exist == 0:
+            raise ValueError("IVF tier needs at least one vector")
+        if nlist is None:
+            nlist = round_up_pow2(max(int(np.sqrt(n_exist)), 1))
+        nlist = max(1, min(int(nlist), max(n_exist // 8, 1)))
+        l2 = similarity == "l2_norm"
+        tier.centroids = kmeans_fit(
+            flat, nlist, l2=l2, spherical=(similarity == "cosine"),
+            iters=iters, sample=train_sample, seed=seed, device=device)
+        tier.nlist = tier.centroids.shape[0]
+        tier.default_nprobe = min(IVF_DEFAULT_NPROBE, tier.nlist)
+        for s in range(S):
+            rows0 = np.flatnonzero(exists[s]).astype(np.int32)
+            v = vecs[s][rows0]
+            assign = _assign_clusters(v, tier.centroids, l2, device=device) \
+                if rows0.size else np.zeros(0, np.int32)
+            order = np.argsort(assign, kind="stable")
+            rows = rows0[order]
+            offsets = np.zeros(tier.nlist + 1, np.int64)
+            np.cumsum(np.bincount(assign, minlength=tier.nlist),
+                      out=offsets[1:])
+            if quant == "int8":
+                codes, scale, off = quantize_int8_rows(v[order])
+            else:
+                # host codes are f16 (numpy has no bf16); the device tier
+                # converts them to bf16 at upload
+                codes = v[order].astype(np.float16)
+                scale = np.ones(rows.size, np.float32)
+                off = np.zeros(rows.size, np.float32)
+            tier.shards.append(dict(offsets=offsets, rows=rows,
+                                    codes=codes, scale=scale, off=off))
+        tier.n_blocks = max(max((-(-sh["rows"].size // tier.block)
+                                 for sh in tier.shards), default=1), 1)
+        sizes = np.zeros(tier.nlist, np.int64)
+        for sh in tier.shards:
+            sizes += np.diff(sh["offsets"]).astype(np.int64)
+        tier.cluster_sizes = sizes
+        return tier
+
+    def quant_bytes_per_dim(self) -> int:
+        return 1 if self.quant == "int8" else 2
+
+    def nbytes(self) -> int:
+        return sum(sh["codes"].nbytes + sh["scale"].nbytes
+                   + sh["off"].nbytes + sh["rows"].nbytes
+                   for sh in self.shards) \
+            + (self.centroids.nbytes if self.centroids is not None else 0)
+
+    def probe(self, qq: np.ndarray, nprobe: int) -> np.ndarray:
+        """Top-``nprobe`` cluster ids per query from one host [B, nlist]
+        product (the probed set sizes the union, so it is host-visible
+        anyway). ``qq``: queries in the packed convention."""
+        s = qq @ self.centroids.T
+        if self.similarity == "l2_norm":
+            c2 = np.sum(self.centroids.astype(np.float64) ** 2,
+                        axis=1).astype(np.float32)
+            s = 2.0 * s - c2[None, :]
+        nprobe = min(nprobe, self.nlist)
+        if nprobe >= self.nlist:
+            return np.broadcast_to(
+                np.arange(self.nlist, dtype=np.int32),
+                (qq.shape[0], self.nlist)).copy()
+        part = np.argpartition(-s, nprobe - 1, axis=1)[:, :nprobe]
+        return part.astype(np.int32)
+
+    def device_arrays(self, device, n_pad: int) -> dict:
+        """Block-major device tier (built once): codes [S, NB+1, blk, d]
+        (int8, or bf16 converted from the host's f16 codes), scale/off f32,
+        rowid i32 (original local row; ``n_pad`` = padding) and rcl i32
+        (cluster; −1 = padding) [S, NB+1, blk]. Block NB is all padding,
+        the union's filler."""
+        if self._dev is not None:
+            return self._dev
+        S = len(self.shards)
+        blk = self.block
+        d = self.shards[0]["codes"].shape[1] if S else 1
+        nb = self.n_blocks
+        cdt = np.int8 if self.quant == "int8" else np.float16
+        codes = np.zeros((S, nb + 1, blk, d), cdt)
+        scale = np.zeros((S, nb + 1, blk), np.float32)
+        off = np.zeros((S, nb + 1, blk), np.float32)
+        rowid = np.full((S, nb + 1, blk), n_pad, np.int32)
+        rcl = np.full((S, nb + 1, blk), -1, np.int32)
+        for s, sh in enumerate(self.shards):
+            n = sh["rows"].size
+            if not n:
+                continue
+            flat_cl = np.repeat(
+                np.arange(self.nlist, dtype=np.int32),
+                np.diff(sh["offsets"]).astype(np.int64))
+            codes[s].reshape(-1, d)[:n] = sh["codes"]
+            scale[s].reshape(-1)[:n] = sh["scale"]
+            off[s].reshape(-1)[:n] = sh["off"]
+            rowid[s].reshape(-1)[:n] = sh["rows"]
+            rcl[s].reshape(-1)[:n] = flat_cl
+        dev_codes = torch.from_numpy(codes).to(device)
+        if self.quant == "bf16":
+            dev_codes = dev_codes.to(torch.bfloat16)
+        self._dev = dict(
+            nb=nb, codes=dev_codes,
+            scale=torch.from_numpy(scale).to(device),
+            off=torch.from_numpy(off).to(device),
+            rowid=torch.from_numpy(rowid).to(device),
+            rcl=torch.from_numpy(rcl).to(device))
+        return self._dev
+
+    def device_bytes(self) -> int:
+        """Bytes of :meth:`device_arrays`: codes plus 16 bytes of
+        scale/off/rowid/rcl a slot, sentinel block included."""
+        d = self.shards[0]["codes"].shape[1] if self.shards else 1
+        return len(self.shards) * (self.n_blocks + 1) * self.block * \
+            (d * self.quant_bytes_per_dim() + 16)
+
+    def union_blocks(self, probed: np.ndarray, n_shards: int):
+        """Per-shard union of the blocks the batch's probed clusters touch,
+        padded with the sentinel block NB to a shared power-of-two width
+        P (capped at NB). Returns (i32[n_shards, P], P)."""
+        blk = self.block
+        nb = self.n_blocks
+        uniq = np.unique(probed)
+        per_shard: List[np.ndarray] = []
+        for sh in self.shards[:n_shards]:
+            offs = sh["offsets"]
+            blocks: set = set()
+            for c in uniq:
+                lo, hi = int(offs[c]), int(offs[c + 1])
+                if hi > lo:
+                    blocks.update(range(lo // blk, (hi - 1) // blk + 1))
+            per_shard.append(np.fromiter(sorted(blocks), np.int32,
+                                         len(blocks)))
+        width = max(max((b.size for b in per_shard), default=1), 1)
+        Pw = max(min(round_up_pow2(width), nb), 1)
+        out = np.full((n_shards, Pw), nb, np.int32)
+        for s, b in enumerate(per_shard):
+            out[s, :min(b.size, Pw)] = b[:Pw]
+        return out, Pw
+
+    def to_packed(self) -> dict:
+        """The tier as the reference's ``export_packed`` writes it."""
+        return dict(similarity=self.similarity, quant=self.quant,
+                    block=int(self.block), nlist=int(self.nlist),
+                    centroids=self.centroids,
+                    default_nprobe=int(self.default_nprobe),
+                    n_blocks=int(self.n_blocks),
+                    cluster_sizes=self.cluster_sizes, shards=self.shards)
+
+    @classmethod
+    def from_packed(cls, packed: dict) -> "IvfKnnTier":
+        t = cls(str(packed["similarity"]), quant=str(packed["quant"]),
+                block=int(packed["block"]))
+        t.nlist = int(packed["nlist"])
+        t.centroids = np.asarray(packed["centroids"], np.float32)
+        t.default_nprobe = int(packed["default_nprobe"])
+        t.n_blocks = int(packed["n_blocks"])
+        t.cluster_sizes = np.asarray(packed["cluster_sizes"])
+        t.shards = [dict(sh) for sh in packed["shards"]]
+        return t
+
+
+class DistributedKnnPlane:
+    """Brute-force kNN plane (port of the reference's): per-shard vector
+    matrices packed once with their invariants (unit rows for cosine,
+    ``‖v‖²`` for l2) and served by the exact scan, or, with an IVF tier,
+    by its cluster-pruned scan and exact re-rank.
+
+    ``shards``: one dict per shard with ``vectors`` f32[N, dim] and
+    optional ``exists`` bool[N]. Hits are (shard, local row), tie order
+    (shard, row) ascending. ``ivf``: keyword arguments of
+    :meth:`IvfKnnTier.build` (nlist, quant, seed, iters, train_sample) to
+    pack an IVF tier; None packs none (exact serving only). ``device``:
+    where the plane lives and the kernels run; None means ``cuda``, and
+    a process without CUDA raises unless the caller passes ``"cpu"``.
+    The reference pads the shard count to its mesh with
+    :meth:`empty_pad_shard`; one device needs no mesh, so the port keeps
+    the shards it is given (a pad shard passed in scores −inf).
+    """
+
+    def __init__(self, shards: Sequence[dict], *,
+                 similarity: str = "cosine",
+                 block: Optional[int] = KNN_BLOCK,
+                 ivf: Optional[dict] = None, device=None):
+        if similarity not in KNN_SIMILARITIES:
+            raise ValueError(f"unknown similarity [{similarity}]")
+        self.device = resolve_device(device)
+        self.similarity = similarity
+        self.block = block
+        shards = list(shards)
+        self.n_shards = len(shards)
+        self.n_dispatches = 0
+        dims = {int(s["vectors"].shape[1]) for s in shards
+                if s["vectors"].size}
+        if len(dims) > 1:
+            raise ValueError(f"mixed vector dims across shards: {dims}")
+        self.dim = dims.pop() if dims else 0
+        self.n_docs_total = sum(int(s["vectors"].shape[0]) for s in shards)
+        self.n_pad = round_up_pow2(
+            max(max((int(s["vectors"].shape[0]) for s in shards),
+                    default=1), 1))
+        S = self.n_shards
+        vecs = np.zeros((S, self.n_pad, max(self.dim, 1)), np.float32)
+        exists = np.zeros((S, self.n_pad), bool)
+        for i, s in enumerate(shards):
+            v = np.asarray(s["vectors"], np.float32)
+            n = v.shape[0]
+            if n:
+                vecs[i, :n, :] = v
+            ex = s.get("exists")
+            exists[i, :n] = np.ones(n, bool) if ex is None else ex
+        vecs, vnorm2 = prepare_knn_corpus(vecs, similarity)
+        vecs[~exists] = 0.0
+        vnorm2[~exists] = 0.0
+        self.nbytes = vecs.nbytes + vnorm2.nbytes + exists.nbytes
+        self._packed = (vecs, vnorm2, exists)
+        self.ivf: Optional[IvfKnnTier] = None
+        if ivf is not None and exists.any() and self.dim:
+            self.ivf = IvfKnnTier.build(vecs, exists, similarity,
+                                        device=self.device, **ivf)
+            self.nbytes += self.ivf.nbytes()
+        self._dev = None
+
+    @staticmethod
+    def empty_pad_shard(dim: int) -> dict:
+        """Inert shard (zero rows, ``exists`` all false): its rows score
+        −inf like padding rows."""
+        return dict(vectors=np.zeros((0, max(int(dim), 1)), np.float32),
+                    exists=np.zeros(0, bool))
+
+    def _device_arrays(self):
+        """(vecs, vnorm2, exists) on the plane's device, uploaded on first
+        use; on the card the host copy is then released."""
+        if self._dev is None:
+            self._dev = tuple(torch.from_numpy(a).to(self.device)
+                              for a in self._packed)
+            if self.device.type != "cpu":
+                self._packed = None
+        return self._dev
+
+    def device_corpus_bytes(self) -> int:
+        """Bytes the plane holds on its device: vecs f32 + vnorm2 f32 +
+        exists bool a padded row, plus the IVF tier."""
+        total = self.n_shards * self.n_pad * (max(self.dim, 1) * 4 + 4 + 1)
+        if self.ivf is not None:
+            total += self.ivf.device_bytes()
+        return total
+
+    # -- packed state (wire-compatible with the reference) -------------------
+
+    def export_packed(self) -> dict:
+        """Packed invariants and the IVF tier as the reference's
+        ``export_packed`` writes them (host numpy), which its
+        ``from_packed`` loads."""
+        packed = self._packed
+        if packed is None:
+            packed = tuple(a.cpu().numpy() for a in self._dev)
+        vecs, vnorm2, exists = packed
+        return dict(similarity=self.similarity, block=self.block,
+                    dim=int(self.dim), n_shards=int(self.n_shards),
+                    n_docs_total=int(self.n_docs_total),
+                    n_pad=int(self.n_pad), nbytes=int(self.nbytes),
+                    vecs=vecs, vnorm2=vnorm2, exists=exists,
+                    ivf=self.ivf.to_packed() if self.ivf is not None
+                    else None)
+
+    @classmethod
+    def from_packed(cls, packed: dict, device=None
+                    ) -> "DistributedKnnPlane":
+        """A plane from ``export_packed`` state (the reference's or the
+        port's), with no pack work: no ``prepare_knn_corpus``, no
+        k-means."""
+        self = cls.__new__(cls)
+        self.device = resolve_device(device)
+        self.similarity = str(packed["similarity"])
+        self.block = packed["block"]
+        self.n_shards = int(packed["n_shards"])
+        self.n_dispatches = 0
+        self.dim = int(packed["dim"])
+        self.n_docs_total = int(packed["n_docs_total"])
+        self.n_pad = int(packed["n_pad"])
+        self.nbytes = int(packed["nbytes"])
+        self._packed = (np.asarray(packed["vecs"], np.float32),
+                        np.asarray(packed["vnorm2"], np.float32),
+                        np.asarray(packed["exists"], bool))
+        ivf = packed.get("ivf")
+        self.ivf = IvfKnnTier.from_packed(ivf) if ivf is not None else None
+        self._dev = None
+        return self
+
+    # -- serving --------------------------------------------------------------
+
+    def resolve_ann(self, nprobe: Optional[int], rerank: Optional[int]):
+        """Effective (nprobe, rerank) of a dispatch, or None for the exact
+        scan: ``nprobe=0`` forces exact; None takes the tier's default;
+        values clip into [1, nlist] and [1, …]."""
+        if self.ivf is None or nprobe == 0:
+            return None
+        if nprobe is None:
+            nprobe = self.ivf.default_nprobe
+        nprobe = max(1, min(int(nprobe), self.ivf.nlist))
+        rerank = max(1, int(rerank)) if rerank else IVF_DEFAULT_RERANK
+        return nprobe, rerank
+
+    def serve(self, query_vectors, k: int = 10,
+              stages: Optional[dict] = None, nprobe: Optional[int] = None,
+              rerank: Optional[int] = None):
+        """Serving entry: the IVF route at the resolved ``nprobe`` /
+        ``rerank`` when the plane has a tier, else (or with ``nprobe=0``)
+        the exact scan. The reference first routes CPU-built planes to its
+        host scorers and demoted planes to a streamed scan; the port has
+        neither tier."""
+        ann = self.resolve_ann(nprobe, rerank)
+        if ann is not None:
+            return self.search_ivf(query_vectors, k=k, nprobe=ann[0],
+                                   rerank=ann[1], stages=stages)
+        return self.search(query_vectors, k=k, stages=stages)
+
+    def _queries(self, query_vectors) -> np.ndarray:
+        q = np.asarray(query_vectors, np.float32)
+        if q.ndim != 2 or (self.dim and q.shape[1] != self.dim):
+            raise ValueError(
+                f"query_vectors must be [B, {self.dim}], got {q.shape}")
+        return q
+
+    def _sync(self, stages: Optional[dict]) -> None:
+        if stages is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def search(self, query_vectors, k: int = 10,
+               stages: Optional[dict] = None):
+        """Exact top-k over the packed corpus for a batch of query
+        vectors: (raw scores f32[B, k'], hits list[list[(shard, local)]]).
+        Raw scores are the similarity values (cosine/dot: the dot
+        product; l2: ``−‖q−v‖²``). ``stages``: optional dict receiving
+        ``prep_ms``, ``dispatch_ms`` (synchronised), ``fetch_ms`` and
+        ``kernel``."""
+        t0 = time.perf_counter()
+        q = self._queries(query_vectors)
+        vecs, vnorm2, exists = self._device_arrays()
+        q_dev = torch.from_numpy(q).to(self.device)
+        t1 = time.perf_counter()
+        out = knn_step(vecs, vnorm2, exists, q_dev, n_pad=self.n_pad, k=k,
+                       similarity=self.similarity, block=self.block)
+        self._sync(stages)
+        t2 = time.perf_counter()
+        self.n_dispatches += 1
+        vals = out[0].cpu().numpy()
+        hits = self._decode_hits(vals, out[1].cpu().numpy())
+        if stages is not None:
+            stages["prep_ms"] = (t1 - t0) * 1e3
+            stages["dispatch_ms"] = (t2 - t1) * 1e3
+            stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
+            stages["kernel"] = "knn_exact"
+        return vals, hits
+
+    def _decode_hits(self, vals, gdocs):
+        """(shard, local row) of each query's entries before its first
+        −inf."""
+        fin = vals != NEG_INF
+        n = np.where(fin.all(1), vals.shape[1], np.argmin(fin, 1))
+        shard, row = np.divmod(gdocs.astype(np.int64), self.n_pad)
+        return [list(zip(shard[b, :n[b]].tolist(), row[b, :n[b]].tolist()))
+                for b in range(vals.shape[0])]
+
+    def _probe_queries(self, q: np.ndarray):
+        """Host queries in the packed convention (unit rows for cosine)
+        and their Σq."""
+        if self.similarity == "cosine":
+            qq = q / np.maximum(
+                np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+        else:
+            qq = q
+        return qq, np.sum(qq, axis=1)
+
+    def _ivf_probed_docs(self, probed: np.ndarray) -> int:
+        """Mean rows per query the probed clusters cover (all shards)."""
+        sizes = self.ivf.cluster_sizes
+        return int(sizes[probed].sum(axis=1).mean()) if probed.size else 0
+
+    def prepare_ivf(self, query_vectors, k: int, *, nprobe: int,
+                    rerank: int) -> dict:
+        """Host half of an IVF dispatch: probe the centroids, size the
+        union and the window (``r_cand = max(kk, min(rerank·kk, P·blk))``,
+        the reference's), upload. Returns the step's arguments and sizes."""
+        tier = self.ivf
+        q = self._queries(query_vectors)
+        qq, _ = self._probe_queries(q)
+        probed = tier.probe(qq, nprobe)
+        u_blocks, Pw = tier.union_blocks(probed, self.n_shards)
+        kk = min(k, self.n_pad)
+        r_cand = max(kk, min(rerank * kk, Pw * tier.block))
+        dev = tier.device_arrays(self.device, self.n_pad)
+        vecs, vnorm2, _ = self._device_arrays()
+        args = dict(codes=dev["codes"], scale=dev["scale"], off=dev["off"],
+                    rowid=dev["rowid"], rcl=dev["rcl"], vecs=vecs,
+                    vnorm2=vnorm2, q=torch.from_numpy(q).to(self.device),
+                    probed=torch.from_numpy(probed).to(self.device),
+                    u_blocks=torch.from_numpy(u_blocks).to(self.device))
+        return dict(args=args, probed=probed, Pw=Pw, r_cand=r_cand, k=k,
+                    B=q.shape[0], nprobe=nprobe)
+
+    def search_ivf(self, query_vectors, k: int = 10, *, nprobe: int,
+                   rerank: int, stages: Optional[dict] = None):
+        """IVF dispatch: the host probe sizes the union, then the step
+        scans only its blocks of the quantized tier and re-ranks exactly
+        from the f32 tier. Same return convention as :meth:`search`;
+        ``stages`` also receives ``kernel``, ``ann_quantized_bytes`` /
+        ``ann_exact_bytes`` (what the scan and the re-rank read) and
+        ``docs_scanned`` (mean rows a query's clusters cover)."""
+        if self.ivf is None:
+            raise RuntimeError("plane has no IVF tier")
+        t0 = time.perf_counter()
+        prep = self.prepare_ivf(query_vectors, k, nprobe=nprobe,
+                                rerank=rerank)
+        t1 = time.perf_counter()
+        out = ivf_knn_step(**prep["args"], n_pad=self.n_pad, k=k,
+                           similarity=self.similarity, nlist=self.ivf.nlist,
+                           r_cand=prep["r_cand"])
+        self._sync(stages)
+        t2 = time.perf_counter()
+        self.n_dispatches += 1
+        vals = out[0].cpu().numpy()
+        hits = self._decode_hits(vals, out[1].cpu().numpy())
+        if stages is not None:
+            tier, B, Pw = self.ivf, prep["B"], prep["Pw"]
+            meta_b = 12 + (4 if self.similarity == "l2_norm" else 0)
+            stages["prep_ms"] = (t1 - t0) * 1e3
+            stages["dispatch_ms"] = (t2 - t1) * 1e3
+            stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
+            stages["kernel"] = "knn_ivf"
+            stages["ann_quantized_bytes"] = self.n_shards * Pw * \
+                tier.block * (self.dim * tier.quant_bytes_per_dim() + meta_b)
+            stages["ann_exact_bytes"] = self.n_shards * B * \
+                prep["r_cand"] * self.dim * 4
+            stages["docs_scanned"] = self._ivf_probed_docs(prep["probed"])
+        return vals, hits

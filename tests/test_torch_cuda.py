@@ -17,17 +17,21 @@ from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
                                                   blockmax_scan_plain)
 from elasticsearch_tpu_torch.ops.fused_query import (
     bisect_exact_scores, bisect_exact_scores_plain)
+from elasticsearch_tpu_torch.ops.knn import (
+    ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, knn_shard_scan,
+    knn_shard_scan_plain)
 from elasticsearch_tpu_torch.ops.sorted_merge import (
     sparse_candidates_topk, sparse_candidates_topk_plain)
 from elasticsearch_tpu_torch.ops.tiered_bm25 import (
     dense_stream_topk, dense_stream_topk_plain)
 from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
 from elasticsearch_tpu_torch.parallel.dist_search import (
-    DistributedSearchPlane, total_is_lower_bound, total_value)
+    DistributedKnnPlane, DistributedSearchPlane, prepare_knn_corpus,
+    total_is_lower_bound, total_value)
 from elasticsearch_tpu_torch.utils.synth import split_csr_shards
 from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
-from torch_cases import (assert_topk_close, dense_case, query_mix,
-                         sparse_case, topk_lists_case)
+from torch_cases import (assert_topk_close, dense_case, hit_ids, knn_tol,
+                         query_mix, sparse_case, topk_lists_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -376,3 +380,217 @@ def test_scan_workspace_is_one_streams_and_dropped_on_failure(cuda,
     with torch.cuda.stream(torch.cuda.Stream()):
         gpu.blockmax.drop_workspace()
         assert gpu.serve(qs, k=10, with_totals=True)[1:] == want[1:]
+
+
+# ---------------------------------------------------------------------------
+# K6 (knn_scan), K7 (ivf_scan), K8 (ivf_rerank): within the parity bar's
+# tolerance of their plain versions (the plain products sum in cuBLAS's
+# order, the kernels in ascending d)
+# ---------------------------------------------------------------------------
+
+
+def _knn_case(cuda, *, S, n, D, B, similarity, seed=0):
+    """Packed shards with duplicates of row 3, ``exists`` holes and whole
+    missing tiles, and queries whose first is row 3."""
+    rng = np.random.RandomState(seed)
+    raw = rng.randn(S, n, D).astype(np.float32)
+    raw[0, 50:60] = raw[0, 3]
+    raw[S - 1, n - 9] = raw[0, 3]
+    exists = rng.rand(S, n) > 0.15
+    exists[:, n // 2 + 128: n // 2 + 1024] = False
+    exists[0, 3] = exists[0, 50:60] = exists[S - 1, n - 9] = True
+    vecs, vn = prepare_knn_corpus(raw, similarity)
+    vecs[~exists] = 0.0
+    vn[~exists] = 0.0
+    q = rng.randn(B, D).astype(np.float32)
+    q[0] = raw[0, 3]
+    qq = q / np.linalg.norm(q, axis=1, keepdims=True) \
+        if similarity == "cosine" else q
+    qn = np.sum(q * q, axis=1)
+    args = [_t(x, cuda) for x in (vecs, vn, exists, qq.astype(np.float32),
+                                  qn.astype(np.float32))]
+    return args, knn_tol(q, raw, similarity)
+
+
+def _topk_ties_ascend(v, i):
+    v, i = np.asarray(v), np.asarray(i)
+    tie = (v[..., 1:] == v[..., :-1]) & np.isfinite(v[..., 1:])
+    assert (i[..., 1:][tie] > i[..., :-1][tie]).all()
+
+
+@pytest.mark.parametrize("similarity,D,B,k", [
+    ("cosine", 100, 16, 100), ("dot_product", 12, 5, 10),
+    ("l2_norm", 7, 37, 32), ("l2_norm", 100, 16, 100),
+    # BEIR/NQ width (the hybrid configuration's)
+    ("cosine", 768, 8, 10),
+    # lists past shared memory, in device memory
+    ("dot_product", 16, 3, 10000)])
+def test_k6_matches_plain(cuda, similarity, D, B, k):
+    S, n = 2, 1 << 14
+    args, tol = _knn_case(cuda, S=S, n=n, D=D, B=B, similarity=similarity)
+    n0 = kb.launches["knn_scan"]
+    gv, gi = knn_shard_scan(*args, similarity=similarity, kk=k)
+    assert kb.launches["knn_scan"] == n0 + 1
+    wv, wi = knn_shard_scan_plain(*args, similarity=similarity, kk=k + 1)
+    torch.cuda.synchronize()
+    gv, gi, wv, wi = (x.cpu().numpy() for x in (gv, gi, wv, wi))
+    for s in range(S):
+        assert_topk_close(gv[:, s], gi[:, s], wv[:, s, :k], wi[:, s, :k],
+                          rtol=0.0, atol=tol, v_next=wv[:, s, k])
+    _topk_ties_ascend(gv, gi)
+    # the duplicates of row 3 score bitwise alike, rows ascending
+    row = gi[0, 0]
+    dup = np.isin(row, [3] + list(range(50, 60)))
+    if dup.any():
+        assert len(set(gv[0, 0][dup].view(np.int32).tolist())) == 1
+        assert (np.diff(row[dup]) > 0).all()
+
+
+def _ivf_planes(cuda, similarity, quant, n=1 << 14, D=32, seed=3):
+    """A clustered corpus packed on the host, and the same packed state
+    on the card (one tier, whichever device assigned its clusters)."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(64, D).astype(np.float32)
+    vecs = centers[rng.randint(0, 64, n)] + \
+        0.35 * rng.randn(n, D).astype(np.float32)
+    vecs[100:110] = vecs[7]
+    cpu = DistributedKnnPlane([dict(vectors=vecs[: n // 2]),
+                               dict(vectors=vecs[n // 2:])],
+                              similarity=similarity,
+                              ivf=dict(nlist=64, quant=quant, seed=1),
+                              device="cpu")
+    gpu = DistributedKnnPlane.from_packed(cpu.export_packed(), device=cuda)
+    qs = vecs[rng.randint(0, n, 16)] + \
+        0.15 * rng.randn(16, D).astype(np.float32)
+    qs[0] = vecs[7]
+    return cpu, gpu, qs.astype(np.float32), knn_tol(qs, vecs, similarity)
+
+
+@pytest.mark.parametrize("similarity,quant,nprobe,rerank", [
+    ("dot_product", "int8", 8, 4), ("cosine", "int8", 8, 4),
+    ("l2_norm", "int8", 8, 4), ("cosine", "bf16", 8, 4),
+    # every cluster, a window past shared memory
+    ("l2_norm", "int8", 64, 400)])
+def test_k7_k8_match_plain(cuda, similarity, quant, nprobe, rerank):
+    cpu, gpu, qs, tol = _ivf_planes(cuda, similarity, quant)
+    prep = gpu.prepare_ivf(qs, 10, nprobe=nprobe, rerank=rerank)
+    a, R = prep["args"], prep["r_cand"]
+    q = a["q"]
+    qq = q / q.norm(dim=1, keepdim=True) if similarity == "cosine" else q
+    qsum, qn = qq.sum(1), (q * q).sum(1)
+    l2 = similarity == "l2_norm"
+    ins = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
+    kw = dict(l2=l2, n_pad=gpu.n_pad)
+    n0 = dict(kb.launches)
+    wv, wp = ivf_scan(*ins, **kw, nlist=gpu.ivf.nlist, r_cand=R)
+    pv, pp = ivf_scan_plain(*ins, **kw, r_cand=R + 1)
+    torch.cuda.synchronize()
+    g = [x.cpu().numpy() for x in (wv, wp, pv, pp)]
+    for s in range(gpu.n_shards):
+        assert_topk_close(g[0][:, s], g[1][:, s], g[2][:, s, :R],
+                          g[3][:, s, :R], rtol=0.0, atol=tol,
+                          v_next=g[2][:, s, R])
+    _topk_ties_ascend(g[0], g[1])
+    ex, rows = ivf_rerank(wv, wp, a["u_blocks"], a["rowid"], a["vecs"],
+                          a["vnorm2"], qq, qn, l2=l2, n_pad=gpu.n_pad)
+    ex_p, rows_p = ivf_rerank_plain(wv, wp, a["u_blocks"], a["rowid"],
+                                    a["vecs"], a["vnorm2"], qq, qn, l2=l2,
+                                    n_pad=gpu.n_pad)
+    torch.cuda.synchronize()
+    assert kb.launches["ivf_scan"] == n0["ivf_scan"] + 1
+    assert kb.launches["ivf_rerank"] == n0["ivf_rerank"] + 1
+    assert torch.equal(rows, rows_p)
+    e, ep = ex.cpu().numpy(), ex_p.cpu().numpy()
+    assert np.array_equal(np.isfinite(e), np.isfinite(ep))
+    f = np.isfinite(e)
+    np.testing.assert_allclose(e[f], ep[f], rtol=0.0, atol=tol)
+
+
+def test_knn_kernels_refuse_what_they_cannot_launch(cuda):
+    """Probe bitmaps too large for shared memory are refused with the
+    library's message; wrong types raise before a launch."""
+    cpu, gpu, qs, _ = _ivf_planes(cuda, "dot_product", "int8")
+    prep = gpu.prepare_ivf(qs, 10, nprobe=8, rerank=4)
+    a = prep["args"]
+    q = a["q"]
+    ins = [a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], q, q.sum(1), (q * q).sum(1), a["probed"],
+           a["u_blocks"]]
+    with pytest.raises(RuntimeError, match="shared memory"):
+        ivf_scan(*ins, l2=False, n_pad=gpu.n_pad, nlist=1 << 17, r_cand=40)
+    bad = list(ins)
+    bad[0] = bad[0].to(torch.int32)
+    with pytest.raises(TypeError):
+        ivf_scan(*bad, l2=False, n_pad=gpu.n_pad, nlist=64, r_cand=40)
+    vecs, vn, exists = gpu._device_arrays()
+    with pytest.raises(TypeError):
+        knn_shard_scan(vecs.double(), vn, exists, q, q.sum(1),
+                       similarity="dot_product", kk=10)
+
+
+@pytest.mark.parametrize("similarity,quant", [
+    ("dot_product", "int8"), ("cosine", "int8"), ("l2_norm", "bf16")])
+def test_knn_plane_on_card_matches_plane_on_host(cuda, similarity, quant):
+    """``serve`` on the card (exact and IVF, k = 10 and 10000) against the
+    host plane with the same packed state; each path launches its
+    kernels; with every cluster probed and a covering window the IVF route
+    gives the exact route's values bitwise (K8 sums as K6 does)."""
+    cpu, gpu, qs, tol = _ivf_planes(cuda, similarity, quant)
+    for nprobe, kernels in ((0, ("knn_scan", "topk_merge")),
+                            (None, ("ivf_scan", "ivf_rerank", "topk_merge"))):
+        for k in (10, 10000):
+            kb.reset_launches()
+            st = {}
+            gv, gh = gpu.serve(qs, k=k, nprobe=nprobe, stages=st)
+            assert all(kb.launches[n] > 0 for n in kernels), kb.launches
+            assert st["kernel"] == ("knn_exact" if nprobe == 0 else
+                                    "knn_ivf")
+            cv, ch = cpu.serve(qs, k=k + 1, nprobe=nprobe)
+            ch = [h[:k] for h in ch]
+            assert [len(h) for h in gh] == [len(h) for h in ch]
+            assert_topk_close(gv, hit_ids(gh, gpu.n_pad, k), cv[:, :k],
+                              hit_ids(ch, cpu.n_pad, k), rtol=0.0,
+                              atol=tol, v_next=cv[:, k])
+    full = gpu.serve(qs, k=50, nprobe=gpu.ivf.nlist, rerank=10000)
+    exact = gpu.serve(qs, k=50, nprobe=0)
+    assert np.array_equal(full[0].view(np.int32), exact[0].view(np.int32))
+    assert full[1] == exact[1]
+
+
+def test_card_pack_assigns_clusters_as_the_host_mostly(cuda):
+    """The card's k-means (f32 products, TF32 off) packs a tier whose
+    clusters differ from the host's numpy pack in few rows."""
+    rng = np.random.RandomState(5)
+    centers = rng.randn(32, 24).astype(np.float32)
+    vecs = centers[rng.randint(0, 32, 4096)] + \
+        0.35 * rng.randn(4096, 24).astype(np.float32)
+    ivf = dict(nlist=32, seed=2)
+    gpu = DistributedKnnPlane([dict(vectors=vecs)], similarity="l2_norm",
+                              ivf=ivf, device=cuda)
+    cpu = DistributedKnnPlane([dict(vectors=vecs)], similarity="l2_norm",
+                              ivf=ivf, device="cpu")
+    np.testing.assert_allclose(gpu.ivf.centroids, cpu.ivf.centroids,
+                               rtol=1e-4, atol=1e-4)
+    ga = np.empty(4096, np.int32)
+    ca = np.empty(4096, np.int32)
+    for tier, out in ((gpu.ivf, ga), (cpu.ivf, ca)):
+        sh = tier.shards[0]
+        out[sh["rows"]] = np.repeat(np.arange(tier.nlist),
+                                    np.diff(sh["offsets"]))
+    assert (ga != ca).mean() < 0.01
+
+
+def test_card_pack_refuses_tf32_and_leaves_the_flag(cuda, monkeypatch):
+    """A card pack runs its f32 products with TF32 as the caller left it:
+    off, the flag is untouched; on, the pack raises and the flag stays on."""
+    vecs = np.random.RandomState(6).randn(512, 16).astype(np.float32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    DistributedKnnPlane([dict(vectors=vecs)], ivf=dict(nlist=8, seed=1),
+                        device=cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        DistributedKnnPlane([dict(vectors=vecs)], ivf=dict(nlist=8, seed=1),
+                            device=cuda)
+    assert torch.backends.cuda.matmul.allow_tf32 is True

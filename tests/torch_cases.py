@@ -155,3 +155,27 @@ def query_mix(corpus: dict, seed: int, n: int, *, weighted: bool,
     el = np.flatnonzero(df >= 2)
     p = df[el] / df[el].sum() if weighted else None
     return [[f"t{t}" for t in rng.choice(el, terms, p=p)] for _ in range(n)]
+
+
+def knn_tol(q, vecs, similarity: str) -> float:
+    """The kNN parity bar's absolute tolerance for one query batch:
+    1e-5·‖q‖·max‖v‖ for dot and cosine (unit norms), 1e-5·(‖q‖+max‖v‖)²
+    for l2, where the expansion cancels. The scores may differ by that
+    much because the dot's sum runs in another order."""
+    qn = float(np.linalg.norm(q, axis=1).max())
+    if similarity == "cosine":
+        qn, vn = 1.0, 1.0
+    else:
+        vn = float(np.linalg.norm(vecs, axis=-1).max())
+    return 1e-5 * (qn + vn) ** 2 if similarity == "l2_norm" else \
+        1e-5 * qn * vn
+
+
+def hit_ids(hits, n_pad: int, k: int) -> np.ndarray:
+    """Decoded (shard, doc) hits as global ids ``shard · n_pad + doc``,
+    int64[B, k], −1 past a row's last hit."""
+    out = np.full((len(hits), k), -1, np.int64)
+    for b, row in enumerate(hits):
+        for j, (s, d) in enumerate(row):
+            out[b, j] = s * n_pad + d
+    return out
