@@ -8,11 +8,13 @@ into a tiered BM25 plane on the card and served in batches of 64 four-term
 queries at k = 10; then the block-max pruned route at the repository's
 prune configuration (``lexical_10m_prune``): a 2^22-document corpus
 (mean length 16, seed 1234) with no dense tier and a block-max tier,
-served through ``plane.serve`` in batches of 16 four-term queries; then
-the kNN plane's exact and IVF routes at the benchmark's two kNN shapes.
-Phases, each fatal on failure:
+served through ``plane.serve`` in batches of 16 four-term queries; bool
+trees on that plane; the kNN plane's exact and IVF routes at the
+benchmark's two kNN shapes; and the one-dispatch hybrid (BM25 + kNN +
+RRF) at BEIR/NQ's size. Phases, each fatal on failure:
 
-1. the card's name and power limit; build the eight CUDA kernels;
+1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
+   a source, all started together);
 2. each kernel against its plain PyTorch version on the card, on the
    inputs of a main-path batch at each path's launch shapes: ``search``
    at the benchmark's (Q = 4, the workload's L) and ``serve`` at its own
@@ -32,14 +34,25 @@ Phases, each fatal on failure:
    unsafe); pruned == eager on three batches of the benchmark mix; three
    queries of each mix against the exact reference; K1 against its plain
    version at the eager fallback's shape; K4's and K5's times;
-6. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
+6. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
+   pruned phase's plane, batches of 16 at k = 10 in two mixes: (c) one
+   8-term should clause (``bench_bool_disjunction``'s draws), (d) must /
+   should (3 terms) / filter / must_not: K9 bitwise and K3 exact against
+   their plain versions on a batch of each mix and of a tree with three
+   should clauses at msm 2; three trees of each against a numpy exact
+   reference (clause membership, scores within 1 %, totals exact); mix
+   (c) equal to ``plane.search`` of the same bags (the K1 path); the
+   rescore stage (``bool_rescore_device``) for each of the five score
+   modes with K5, K3's selection, the payload gather and K11 bitwise;
+   each mix's launches counted alone; K9's and K11's times;
+7. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
    GloVe shape: 1.2M x 100 ``randn`` rows (seed 1234), one shard, cosine,
    k = 100, 32 timed batches of 16 through ``plane.serve``: K6 within the
    parity bar of its plain version and every K3 call of the step bitwise,
    K6 also at 2^18 rows for dot_product and l2_norm with duplicates and
    ``exists`` holes, every query of one batch against numpy (matmul +
    lexsort), the path's launches counted alone, K6's times;
-7. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
+8. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
    shape: 2^20 x 64 rows around 2048 centers (noise 0.35), nlist 1024,
    seed 7, queries perturbed corpus rows (noise 0.15), k = 10 at the
    tier's default nprobe and rerank, 24 timed batches through ``serve``:
@@ -48,7 +61,17 @@ Phases, each fatal on failure:
    not be lower), K7/K8 within the parity bar and K3 bitwise, the card's
    and numpy's cluster assignments compared, the path's launches counted
    alone, K7's and K8's times;
-8. the ``kernels`` JSON line, the card line, and the final status line.
+9. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
+   length 79) and as many 768-d ``standard_normal`` rows, one shard each,
+   batches of 16 queries (9 sparse-tier terms in one should clause, a
+   randn vector; RRF, rank constant 60, windows 100, k = 10) through
+   ``fused_search_device``: K9, K10 and every K3 call bitwise and K6
+   within the parity bar against their plain versions; sum fusion and
+   the five rescore modes with K10, K5 and K11 bitwise; a dense-tier term
+   refused; four queries against numpy (exact BM25 top-100, matmul +
+   lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
+   launches counted alone; each kernel's time;
+10. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -692,7 +715,9 @@ def k5_work(plane, a, ck):
 def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
                reps=20):
     """The block-max pruned route end to end (phase 5). Returns the K4/K5
-    rows of the ``kernels`` line and each pruned path's launch counts."""
+    rows of the ``kernels`` line, each pruned path's launch counts, K1 at
+    the fallback shape, the largest errors, and the plane with its corpus
+    (the bool phase serves the same plane)."""
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan
@@ -892,7 +917,7 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
     errs = dict(k3_err=max(ck["k3_err"] for ck in chk.values()),
                 k1_err=k1_fallback["err"] if k1_fallback else 0.0)
     return (out, {f"pruned_{m}": c for m, c in counts.items()}, k1_fallback,
-            errs)
+            errs, (plane, corpus))
 
 
 #: exact kNN at the GloVe shape (``bench.py:bench_knn``): 1.2M rows of
@@ -950,31 +975,43 @@ def check_lists(v1, i1, v2, i2, tol, what):
 
 
 @contextlib.contextmanager
-def recording_k3(calls):
-    """Record every K3 call the kNN steps make as (args, kwargs)."""
+def recording(calls, names):
+    """Record every call of the named kernel wrappers that the bool and
+    hybrid steps (and the kNN scan) make, as (name, args, kwargs, out)."""
     from elasticsearch_tpu_torch.ops import knn
     from elasticsearch_tpu_torch.parallel import dist_search
-    orig = knn.topk_merge
+    saved = []
+    for mod in (dist_search, knn):
+        for name in names:
+            if not hasattr(mod, name):
+                continue
+            orig = getattr(mod, name)
 
-    def rec(*args, **kw):
-        calls.append((args, kw))
-        return orig(*args, **kw)
+            def rec(*args, _name=name, _orig=orig, **kw):
+                out = _orig(*args, **kw)
+                calls.append((_name, args, kw, out))
+                return out
 
-    knn.topk_merge = dist_search.topk_merge = rec
+            saved.append((mod, name, orig))
+            setattr(mod, name, rec)
     try:
         yield
     finally:
-        knn.topk_merge = dist_search.topk_merge = orig
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
 
 
-def check_k3_calls(calls, what):
-    """Each recorded K3 call against its plain version, bitwise; returns
-    the largest error."""
-    from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
+def of(calls, name):
+    return [c for c in calls if c[0] == name]
+
+
+def check_recorded_k3(calls, what):
+    """Each recorded K3 call's output against its plain version on the same
+    inputs, bitwise (no kernel launched); returns the largest error."""
+    from elasticsearch_tpu_torch.ops.topk import topk_merge_plain
     err = 0.0
-    for args, kw in calls:
-        err = max(err, check_bitwise(topk_merge(*args, **kw),
-                                     topk_merge_plain(*args, **kw),
+    for _n, args, kw, out in of(calls, "topk_merge"):
+        err = max(err, check_bitwise(out, topk_merge_plain(*args, **kw),
                                      f"{what}: K3 topk_merge ({kw})"))
     return err
 
@@ -1007,7 +1044,7 @@ def knn_inputs(dev, *, n, dim, B, similarity, seed):
 
 
 def run_knn_exact(card, *, reps=20):
-    """Phase 6: the exact kNN route at the GloVe shape through ``serve``.
+    """Phase 7: the exact kNN route at the GloVe shape through ``serve``.
     Returns the K6 row of the ``kernels`` line, the path's launch counts
     and K3's largest error."""
     import torch
@@ -1045,11 +1082,12 @@ def run_knn_exact(card, *, reps=20):
     blk, use_blocks = _knn_blocking(plane.block, n_pad, kk)
     tol = knn_tol(batches[1], 1.0, "cosine")
     B = KNN_BATCH
-    k3_calls = []
-    with recording_k3(k3_calls):
+    rec = []
+    with recording(rec, ("topk_merge",)):
         knn_step(vecs, vn, exists, q, n_pad=n_pad, k=KNN_K,
                  similarity="cosine", block=plane.block)
-    k3_err = check_k3_calls(k3_calls, "knn_exact")
+    k3_err = check_recorded_k3(rec, "knn_exact")
+    k3_calls = [(a, kw) for _n, a, kw, _o in rec]
     k6_v, k6_i = knn_shard_scan(vecs, vn, exists, qq, qn,
                                 similarity="cosine", kk=kk)
     plain_kw = dict(similarity="cosine", kk=kk, blk=blk,
@@ -1168,8 +1206,9 @@ def plain_ivf_route(plane, prep):
     v, i = topk_merge_plain(v.view(B, S * kk), i.view(B, S * kk),
                             k=min(prep["k"], S * kk), fill_id=S * n_pad,
                             seg_len=kk, seg_stride=n_pad)
+    from elasticsearch_tpu_torch.parallel.dist_search import decode_hits
     vals = v.cpu().numpy()
-    return vals, plane._decode_hits(vals, i.cpu().numpy())
+    return vals, decode_hits(vals, i.cpu().numpy(), plane.n_pad)
 
 
 def recall(got_hits, exact_hits):
@@ -1179,7 +1218,7 @@ def recall(got_hits, exact_hits):
 
 
 def run_knn_ivf(card, *, reps=20):
-    """Phase 7: the IVF route at ``bench_knn_ivf``'s shape through
+    """Phase 8: the IVF route at ``bench_knn_ivf``'s shape through
     ``serve``. Returns the K7 and K8 rows of the ``kernels`` line, the
     path's launch counts and K3's largest error."""
     import torch
@@ -1247,11 +1286,12 @@ def run_knn_ivf(card, *, reps=20):
                a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
     scan_kw = dict(l2=False, n_pad=n_pad)
     B = KNN_BATCH
-    k3_calls = []
-    with recording_k3(k3_calls):
+    rec = []
+    with recording(rec, ("topk_merge",)):
         ivf_knn_step(**a, n_pad=n_pad, k=IVF_K, similarity="cosine",
                      nlist=tier.nlist, r_cand=R)
-    k3_err = check_k3_calls(k3_calls, "knn_ivf")
+    k3_err = check_recorded_k3(rec, "knn_ivf")
+    k3_calls = [(a, kw) for _n, a, kw, _o in rec]
     C = ivf_scan_partials(*scan_in, **scan_kw, nlist=tier.nlist,
                           r_cand=R)[0].shape[2]
     wv, wp = ivf_scan(*scan_in, **scan_kw, nlist=tier.nlist, r_cand=R)
@@ -1377,6 +1417,660 @@ def run_knn_ivf(card, *, reps=20):
     return rows_out, counts, k3_err
 
 
+# ---------------------------------------------------------------------------
+# bool trees (config #2) and the one-dispatch hybrid (config #5)
+# ---------------------------------------------------------------------------
+
+#: bool trees on the prune phase's plane: batches of 16 at k = 10, 16
+#: timed batches per mix after one warm-up
+BOOL_BATCH = 16
+BOOL_BATCHES = 16
+#: the rescore checks: 2 rescore terms, window 50, qw 0.7, rw 1.3, over a
+#: ranking of 100 (``rank_window_size``)
+RESCORE = dict(qw=0.7, rw=1.3, window=50)
+RESCORE_TERMS = 2
+RESCORE_WT = 100
+RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
+#: BEIR/NQ (Thakur et al. 2021, Table 1): 2,681,468 passages of 78.9
+#: words on average, queries of 9.2 words; 768-d dot-product vectors
+HY_DOCS = 2_681_468
+HY_AVG_DL = 79
+HY_DIM = 768
+HY_TERMS = 9
+HY_BATCH = 16
+HY_BATCHES = 24
+HY_WINDOW = 100              # Elasticsearch's rank_window_size default
+HY_RC = 60.0                 # and its rank_constant
+HY_EVAL = 4
+#: relative separation of the fused RRF scores (f32 on the card, f64 in
+#: the host fusion)
+RRF_RTOL = 1e-6
+
+
+def exact_bool(corpus, bq, k):
+    """Numpy term-at-a-time scoring of a lowered bool tree over the whole
+    corpus (f64 BM25 of the scoring clauses, clause bits per doc, the
+    bool eligibility): (top k+1 docs, their scores, the eligible mask)."""
+    offsets, docs, tf = corpus["offsets"], corpus["docs"], corpus["tf"]
+    dl = corpus["doc_len"]
+    n_docs = dl.shape[0]
+    avgdl = dl.mean()
+    df = corpus["df"]
+    scores = np.zeros(n_docs, np.float64)
+    bits = np.zeros(n_docs, np.int32)
+    req = neg = shd = 0
+    for ci, (role, terms) in enumerate(bq["clauses"]):
+        bit = 1 << ci
+        if role in ("must", "filter"):
+            req |= bit
+        elif role == "must_not":
+            neg |= bit
+        else:
+            shd |= bit
+        for t in set(terms):
+            tid = int(t[1:])
+            st, en = offsets[tid], offsets[tid + 1]
+            if en == st:
+                continue
+            run_docs = docs[st:en]
+            bits[run_docs] |= bit
+            if role in ("must", "should"):
+                run_tf = tf[st:en].astype(np.float64)
+                idf = np.log(1 + (n_docs - df[tid] + 0.5) / (df[tid] + 0.5))
+                norm = run_tf + K1 * (1 - B_BM25 + B_BM25 * dl[run_docs]
+                                      / avgdl)
+                scores[run_docs] += terms.count(t) * idf * (K1 + 1) \
+                    * run_tf / norm
+    sb = bits & shd & 0xFF
+    n_should = np.zeros(n_docs, np.int32)
+    for ci in range(8):
+        n_should += (sb >> ci) & 1
+    elig = ((bits & req) == req) & ((bits & neg) == 0) & \
+        (n_should >= bq["msm"])
+    sc = np.where(elig, scores, -np.inf)
+    top = np.argpartition(-sc, k + 1)[:k + 1]
+    top = top[np.lexsort((top, -sc[top]))]
+    return top, sc[top], elig
+
+
+def check_bool_exact(corpus, plane, bqs, vals, hits, totals, label, k=K):
+    """The first ``REF_QUERIES`` trees against :func:`exact_bool`: every
+    hit eligible, min(k, eligible) hits, scores within REF_RTOL, docs
+    equal where separated, totals exact."""
+    for qi in range(REF_QUERIES):
+        top, sc, elig = exact_bool(corpus, bqs[qi], k)
+        n_match = int(elig.sum())
+        n = min(k, n_match)
+        got = [s * plane.n_pad + d for s, d in hits[qi]]
+        if not all(elig[d] for d in got):
+            fail(f"{label} query {qi}: a hit that is not eligible")
+        row = np.asarray(vals[qi], np.float64)
+        if len(got) != n or not np.isneginf(row[n:]).all():
+            fail(f"{label} query {qi}: {len(got)} hits, expected {n}")
+        check_topk(row[None, :n], np.asarray([got]), sc[None, :n],
+                   top[None, :n], sc[n:n + 1], REF_RTOL, 0.0,
+                   f"{label} query {qi} against the exact reference")
+        if totals[qi] != n_match:
+            fail(f"{label} query {qi}: total {totals[qi]} != exact "
+                 f"{n_match}")
+    print(f"# {label}: {REF_QUERIES} trees agree with the exact reference "
+          f"(clause membership, scores within {REF_RTOL:.0%}, totals exact)",
+          flush=True)
+
+
+def bool_args(a):
+    return [a[n] for n in ("postings_docs", "postings_impact", "starts",
+                           "lengths", "idfw", "cbits", "req", "neg", "shd",
+                           "msm")]
+
+
+def check_k9(args, kw, label, got=None, chunk=FALLBACK_CHUNK):
+    """K9's outputs (``got``, else a launch) against its plain version,
+    bitwise, a few queries per plain call (the plain version holds Q·L
+    entries a query). Returns the outputs and the plain version's time
+    over the batch (ms)."""
+    import torch
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bool_bm25_topk, bool_bm25_topk_plain)
+    if got is None:
+        got = bool_bm25_topk(*args, **kw)
+    B = args[2].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(0, B, chunk):
+        part = [x[j:j + chunk].contiguous() for x in args[2:]]
+        want = bool_bm25_topk_plain(*args[:2], *part, **kw)
+        mine = [x[j:j + chunk] for x in got]
+        if not all(same_bits(x, y) for x, y in zip(mine, want)):
+            fail(f"{label}: K9 bool_bm25_topk differs from its plain "
+                 f"version")
+    torch.cuda.synchronize()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def k9_work(plane, args, k):
+    """Bytes and f32 operations K9 needs: each valid posting read once (doc
+    and impact), the slot tables (starts, lengths, idfw, clause bits) and
+    masks, the lists and counts written; a product per posting and an add
+    per posting that joins an owner's group."""
+    import torch
+    docs, _imp, starts, lengths = args[:4]
+    B, S, Q = starts.shape
+    st, ln = starts.cpu().numpy(), lengths.cpu().numpy()
+    n_post = int(ln.sum())
+    n_owner = 0
+    for b in range(B):
+        for s in range(S):
+            runs = [docs[s, int(st[b, s, q]): int(st[b, s, q])
+                         + int(ln[b, s, q])]
+                    for q in range(Q) if ln[b, s, q]]
+            if runs:
+                n_owner += int(torch.unique(torch.cat(runs)).numel())
+    nbytes = 8 * n_post + B * Q * 8 + B * S * Q * 8 + 16 * B \
+        + B * S * (8 * k + 4)
+    return nbytes, n_post + (n_post - n_owner), n_post, n_owner
+
+
+def k11_work(args, k):
+    """K11 reads each entry's value, id, secondary and match flag once,
+    the per-query weights and window, and writes k (value, id) pairs;
+    three f32 operations an entry at most."""
+    vals = args[0]
+    B, n = vals.shape
+    return B * n * 13 + B * 12 + B * k * 8, 3 * B * n
+
+
+def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
+    """Phase 6: bool trees (config #2) through ``serve_bool`` on the prune
+    phase's plane. Returns K9's row, K11's bool timing and the path's
+    launch counts."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bisect_exact_scores_plain, bool_bm25_topk, rescore_reorder,
+        rescore_reorder_body)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge_plain
+    from elasticsearch_tpu_torch.search.query_planner import \
+        bool_rescore_device
+
+    rng = np.random.RandomState(1234)
+    df = corpus["df"].astype(np.float64)
+    el = np.flatnonzero(df >= 2)
+    p = df[el] / df[el].sum()
+
+    def draw(m):
+        return [f"t{t}" for t in rng.choice(el, m, p=p)]
+
+    # (c) bench_bool_disjunction's 8-term should clause; (d) the lowered
+    # shape of a must / should / filter / must_not tree
+    mixes = {
+        "c": [[{"clauses": [("should", draw(8))], "msm": 1}
+               for _ in range(BOOL_BATCH)] for _ in range(1 + n_batches)],
+        "d": [[{"clauses": [("must", draw(1)), ("should", draw(3)),
+                            ("filter", draw(1)), ("must_not", draw(1))],
+                "msm": 0} for _ in range(BOOL_BATCH)]
+              for _ in range(1 + n_batches)]}
+    extra = [{"clauses": [("must", draw(1)), ("should", draw(2)),
+                          ("should", draw(2)), ("should", draw(2)),
+                          ("filter", draw(1)), ("must_not", draw(1))],
+              "msm": 2} for _ in range(BOOL_BATCH)]
+    kk = min(K, plane.n_pad)
+
+    # ---- K9 and K3 against their plain versions, one batch a mix ----------
+    chk = {}
+    for m, qs in list(mixes.items()) + [("d, msm 2", [None, extra])]:
+        prep = plane.prepare_bool(qs[1])
+        args = bool_args(prep["args"])
+        kw = dict(n_pad=plane.n_pad, L=prep["L"], k=kk)
+        got, plain_ms = check_k9(args, kw, f"bool mix ({m})")
+        calls = []
+        with recording(calls, ("topk_merge",)):
+            out = plane.search_bool(qs[1], k=K, with_totals=True)
+        check_recorded_k3(calls, f"bool ({m})")
+        chk[m] = dict(prep=prep, args=args, kw=kw, plain_ms=plain_ms,
+                      out=out)
+        print(f"# bool mix ({m}) (Q={prep['Q']}, L={prep['L']}): K9 == "
+              f"plain (bitwise), K3 == plain; plain K9 {plain_ms:.1f} ms",
+              flush=True)
+    check_bool_exact(corpus, plane, extra, *chk["d, msm 2"]["out"],
+                     "bool mix (d), 3 should clauses at msm 2")
+
+    # ---- mix (c) against plane.search of the same bags (the K1 path) -------
+    qs = mixes["c"][1]
+    bags = [bq["clauses"][0][1] for bq in qs]
+    shape = plane.serving_shape(bags)
+    pb = chk["c"]["prep"]
+    st, ln, iw = plane._lookup(bags, shape["Q"])[:3]
+    np.minimum(ln, shape["L"], out=ln)
+    same_in = (shape["Q"] == pb["Q"] and shape["L"] == pb["L"] and all(
+        np.array_equal(x, pb["args"][n].cpu().numpy())
+        for x, n in ((st, "starts"), (ln, "lengths"), (iw, "idfw"))))
+    if not same_in:
+        fail("mix (c): _lookup and bool_inputs assign different slots")
+    ev, eh, et = plane.search(bags, k=K, **shape, with_totals=True)
+    bv, bh, bt = chk["c"]["out"]
+    if not (same_bits(torch.from_numpy(np.asarray(ev, np.float32)),
+                      torch.from_numpy(np.asarray(bv, np.float32)))
+            and eh == bh and et == bt):
+        fail("mix (c): serve_bool differs from plane.search of the bags")
+    print("# bool mix (c) == plane.search of the same bags (the K1 path: "
+          "same slots, scores bitwise, hits and totals equal)", flush=True)
+
+    # ---- each mix through serve_bool, counted alone ------------------------
+    counts, res = {}, {}
+    path = {name: 0 for name in kb.launches}
+    for m, batches in mixes.items():
+        lat, stg, c, n_disp, first = drive(
+            plane, batches,
+            lambda b, s: plane.serve_bool(b, k=K, stages=s), kb,
+            required=("bool_bm25_topk", "topk_merge"))
+        if c["bool_bm25_topk"] != n_disp or c["topk_merge"] != n_disp or \
+                c["sparse_candidates_topk"] or c["blockmax_scan"]:
+            fail(f"bool mix ({m}): launches {c} over {n_disp} dispatches")
+        for name in path:
+            path[name] += c[name]
+        n_q = len(lat) * BOOL_BATCH
+        counts[m], res[m] = c, first
+        print(f"# bool mix ({m}): {n_q / lat.sum():.1f} q/s, p50 "
+              f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+              f"{np.percentile(lat, 99) * 1e3:.3f} ms per {BOOL_BATCH}-query"
+              f" batch over {len(lat)} batches [{card}]", flush=True)
+        print(f"# bool mix ({m}) stages (mean ms): " + ", ".join(
+            f"{key} {v / len(lat):.3f}" for key, v in stg.items()))
+        print(f"# bool mix ({m}) launches over {n_disp} dispatches: "
+              f"{ {n: v for n, v in c.items() if v} }", flush=True)
+    for m, batches in mixes.items():
+        _, _, totals = plane.serve_bool(batches[1][:REF_QUERIES], k=K,
+                                        with_totals=True)
+        check_bool_exact(corpus, plane, batches[1], *res[m], totals,
+                         f"bool mix ({m})")
+
+    # ---- the rescore stage, one batch a mode --------------------------------
+    bqs = mixes["d"][1]
+    k11_calls, n_rs = {}, 0
+    kb.reset_launches()
+    for mode in RESCORE_MODES:
+        items = [{"rescore": dict(RESCORE, terms=draw(RESCORE_TERMS))}
+                 for _ in bqs]
+        calls = []
+        with recording(calls, ("bisect_exact_scores", "topk_merge",
+                               "rescore_reorder")):
+            bool_rescore_device(plane, bqs, items, RESCORE_WT, mode)
+        n_rs += 1
+        (_n, k5a, k5k, (sec, fnd)), = of(calls, "bisect_exact_scores")
+        check_bitwise((sec, fnd), bisect_exact_scores_plain(*k5a, **k5k),
+                      f"bool rescore ({mode}): K5")
+        (_n, k3a, k3k, k3o), = of(calls, "topk_merge")
+        want = topk_merge_plain(*k3a, **k3k)
+        check_bitwise(k3o, want, f"bool rescore ({mode}): K3 with sel")
+        (_n, k11a, k11k, k11o), = of(calls, "rescore_reorder")
+        B = sec.shape[0]
+        sel = want[2].long()
+        for x, ch in ((k11a[2], sec), (k11a[3], fnd)):
+            if not same_bits(x, torch.gather(ch.reshape(B, -1), 1, sel)):
+                fail(f"bool rescore ({mode}): the payload gather differs "
+                     f"from the plain selection's")
+        check_bitwise(k11o, rescore_reorder_body(*k11a, **k11k),
+                      f"bool rescore ({mode}): K11 rescore_reorder")
+        k11_calls[mode] = (k11a, k11k)
+    c = dict(kb.launches)
+    for name in ("bool_bm25_topk", "bisect_exact_scores", "topk_merge",
+                 "rescore_reorder"):
+        if c[name] != n_rs:
+            fail(f"bool rescore: {name} launched {c[name]} times in {n_rs} "
+                 f"dispatches")
+    for name in path:
+        path[name] += c[name]
+    print(f"# bool rescore (window {RESCORE['window']}, over "
+          f"{RESCORE_WT}): K5, K3 with sel, the payload gather and K11 == "
+          f"plain (bitwise) for {', '.join(RESCORE_MODES)}; launches "
+          f"{ {n: v for n, v in c.items() if v} } over {n_rs} dispatches",
+          flush=True)
+
+    # ---- times ---------------------------------------------------------------
+    rows = {}
+    for m in ("c", "d"):
+        ck = chk[m]
+        nb, nf, n_post, n_owner = k9_work(plane, ck["args"], kk)
+        ms = timed(lambda: bool_bm25_topk(*ck["args"], **ck["kw"]),
+                   max(reps // 4, 1))
+        bms, bby = bound(nb, nf)
+        rows[m] = dict(ms=ms, plain_ms=ck["plain_ms"], bound_ms=bms,
+                       bound_by=bby)
+        print(f"# bool_bm25_topk mix ({m}): {ms:.4f} ms (bound {bms:.5f} ms "
+              f"by {bby}: {n_post} valid postings, {n_owner} candidates, "
+              f"{nb} bytes), plain {ck['plain_ms']:.3f} ms [{card}]",
+              flush=True)
+    a, kw = k11_calls["total"]
+    k11_ms = timed(lambda: rescore_reorder(*a, **kw), reps)
+    k11_plain = timed(lambda: rescore_reorder_body(*a, **kw), 3)
+    nb, nf = k11_work(a, kw["k"])
+    k11_b = bound(nb, nf)
+    print(f"# rescore_reorder (bool, total, n={a[0].shape[1]}): "
+          f"{k11_ms:.4f} ms (bound {k11_b[0]:.6f} ms by {k11_b[1]}), plain "
+          f"{k11_plain:.3f} ms [{card}]", flush=True)
+    k9_row = dict(name="bool_bm25_topk", route="cuda",
+                  source="elasticsearch_tpu_torch/csrc/"
+                         "sparse_candidates_topk.cu",
+                  replaces="elasticsearch_tpu/ops/fused_query.py:50",
+                  max_abs_err=0.0, **rows["c"], library_ms=None,
+                  library_none="no one PyTorch call merges postings runs "
+                               "with clause bits",
+                  ms_by_path={"bool_c": rows["c"]["ms"],
+                              "bool_d": rows["d"]["ms"]})
+    k11_bool = dict(ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_b[0],
+                    bound_by=k11_b[1])
+    return k9_row, k11_bool, path
+
+
+def hybrid_corpus(rng, n_docs):
+    """The text corpus of the hybrid (``synthetic_csr_corpus_fast`` at
+    BEIR/NQ's passage count and length)."""
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    corpus = synthetic_csr_corpus_fast(rng, n_docs, VOCAB, HY_AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(VOCAB)}
+    return corpus
+
+
+def hybrid_vectors(n_docs, dim, seed=1234, chunk=1 << 18):
+    """``standard_normal`` f32 rows from ``default_rng(seed)``, made in
+    chunks."""
+    g = np.random.default_rng(seed)
+    vecs = np.empty((n_docs, dim), np.float32)
+    for lo in range(0, n_docs, chunk):
+        hi = min(n_docs, lo + chunk)
+        vecs[lo:hi] = g.standard_normal((hi - lo, dim), dtype=np.float32)
+    return vecs
+
+
+def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
+               reps=20):
+    """Phase 9: the one-dispatch hybrid (config #5) through
+    ``fused_search_device``. Returns the K10 and K11 rows and the timing
+    of K9, K6 and K3 at this shape, and the path's launch counts."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bisect_exact_scores_plain, bool_bm25_topk, fuse_rank,
+        fuse_rank_plain, rescore_reorder, rescore_reorder_body)
+    from elasticsearch_tpu_torch.ops.knn import (knn_scan_partials,
+                                                 knn_shard_scan_plain)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedKnnPlane, DistributedSearchPlane, fused_search_device)
+    from elasticsearch_tpu_torch.search.query_planner import rrf_fuse_rows
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1234)
+    corpus = hybrid_corpus(rng, n_docs)
+    gen_t = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tplane = DistributedSearchPlane([corpus], "body", device=dev)
+    torch.cuda.synchronize()
+    print(f"# hybrid text: {n_docs} docs, {corpus['docs'].shape[0]} postings"
+          f" ({gen_t:.1f} s); plane n_pad {tplane.n_pad}, dense threshold "
+          f"{tplane.dense_threshold}, {tplane.n_dense} dense terms (pad "
+          f"{tplane.T_pad}), L_cap {tplane.L_cap}, "
+          f"{tplane.device_corpus_bytes() / 2**30:.3f} GiB on {dev} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    vecs = hybrid_vectors(n_docs, dim)
+    gen_v = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kplane = DistributedKnnPlane([dict(vectors=vecs)],
+                                 similarity="dot_product", device=dev)
+    kplane._device_arrays()
+    torch.cuda.synchronize()
+    print(f"# hybrid vectors: {n_docs} x {dim} standard_normal ({gen_v:.1f} "
+          f"s); plane n_pad {kplane.n_pad}, "
+          f"{kplane.device_corpus_bytes() / 2**30:.3f} GiB on {dev} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # traffic: 9 terms ∝ df over the sparse-tier terms of df >= 2, a randn
+    # query vector, Elasticsearch's RRF defaults
+    sh = tplane.shards[0]
+    df = corpus["df"].astype(np.float64)
+    dense = np.zeros(df.shape[0], bool)
+    dense[list(sh["dense_row_of"])] = True
+    el = np.flatnonzero((df >= 2) & ~dense)
+    p = df[el] / df[el].sum()
+
+    def fq(i):
+        terms = [f"t{t}" for t in rng.choice(el, HY_TERMS, p=p)]
+        return dict(clauses=[("should", terms)], msm=1,
+                    qv=rng.randn(dim).astype(np.float32), kboost=1.0,
+                    rc=HY_RC, wt=HY_WINDOW, wk=HY_WINDOW, k=K)
+
+    batches = [[fq(i) for i in range(HY_BATCH)]
+               for _ in range(1 + n_batches)]
+    print(f"# hybrid traffic: {el.size} sparse-tier terms of df >= 2; "
+          f"{HY_TERMS}-term should clauses, msm 1, rrf rc {HY_RC}, windows "
+          f"{HY_WINDOW}, k {K}, batches of {HY_BATCH}", flush=True)
+
+    # ---- one batch: every kernel of the step against its plain version -----
+    names = ("bool_bm25_topk", "knn_shard_scan", "topk_merge", "fuse_rank",
+             "rescore_reorder", "bisect_exact_scores")
+    calls = []
+    with recording(calls, names):
+        rows, totals, text_rows, knn_rows = fused_search_device(
+            tplane, kplane, batches[1], fusion="rrf")
+    (_n, k9a, k9k, k9o), = of(calls, "bool_bm25_topk")
+    _, k9_plain = check_k9(list(k9a), k9k, "hybrid", got=k9o)
+    (_n, k6a, k6k, (k6v, k6i)), = of(calls, "knn_shard_scan")
+    kk_k = k6k["kk"]
+    wv, wi = knn_shard_scan_plain(*k6a, **dict(k6k, kk=kk_k + 1))
+    q1 = np.stack([f["qv"] for f in batches[1]])
+    vmax = float(np.sqrt(np.max(np.einsum("ij,ij->i", vecs, vecs))))
+    tol = knn_tol(q1, vmax, "dot_product")
+    k6_err = check_lists(k6v[:, 0], k6i[:, 0], wv[:, 0], wi[:, 0], tol,
+                         f"K6 knn_scan (D={dim})")
+    k3 = [(a, k) for _n, a, k, _o in of(calls, "topk_merge")]
+    k3_err = check_recorded_k3(calls, "hybrid")
+    (_n, k10a, k10k, k10o), = of(calls, "fuse_rank")
+    check_bitwise(k10o, fuse_rank_plain(*k10a, **k10k),
+                  "hybrid: K10 fuse_rank (rrf)")
+    print(f"# hybrid (Q={k9a[2].shape[2]}, L={k9k['L']}, W={kk_k}): K9 == "
+          f"plain (bitwise), K6 ~= plain (max abs err {k6_err:.3g}, tol "
+          f"{tol:.3g}), K3 == plain ({len(k3)} calls), K10 == plain (rrf, "
+          f"bitwise)", flush=True)
+
+    # ---- sum fusion and the five rescore modes: K10, K5, K11 ---------------
+    kb.reset_launches()
+    n_extra, k11_rec, k10_sum = 0, {}, None
+    for mode in (None,) + RESCORE_MODES:
+        fqs = [dict(f, rescore=dict(RESCORE, terms=[
+            f"t{t}" for t in rng.choice(el, RESCORE_TERMS, p=p)]))
+            for f in batches[2]]
+        calls = []
+        with recording(calls, names):
+            fused_search_device(tplane, kplane, fqs,
+                                fusion="sum" if mode is None else "rrf",
+                                rescore_mode=mode)
+        n_extra += 1
+        (_n, a, kw, o), = of(calls, "fuse_rank")
+        check_bitwise(o, fuse_rank_plain(*a, **kw),
+                      f"hybrid: K10 fuse_rank ({kw['fusion']})")
+        if mode is None:
+            k10_sum = (a, kw)
+            continue
+        for _n, a5, kw5, o5 in of(calls, "bisect_exact_scores"):
+            check_bitwise(o5, bisect_exact_scores_plain(*a5, **kw5),
+                          f"hybrid rescore ({mode}): K5")
+        (_n, a, kw, o), = of(calls, "rescore_reorder")
+        check_bitwise(o, rescore_reorder_body(*a, **kw),
+                      f"hybrid rescore ({mode}): K11")
+        k11_rec[mode] = (a, kw)
+        check_recorded_k3(calls, f"hybrid ({mode})")
+    c_extra = dict(kb.launches)
+    n_rs = len(RESCORE_MODES)
+    if c_extra["fuse_rank"] != n_extra or c_extra["rescore_reorder"] != \
+            n_rs or c_extra["bisect_exact_scores"] != 2 * n_rs:
+        fail(f"hybrid sum/rescore: launches {c_extra} over {n_extra} "
+             f"dispatches")
+    print(f"# hybrid: sum fusion and rescore ({', '.join(RESCORE_MODES)}; "
+          f"window {RESCORE['window']}): K10, K5, K3 and K11 == plain "
+          f"(bitwise); launches "
+          f"{ {n: v for n, v in c_extra.items() if v} } over {n_extra} "
+          f"dispatches", flush=True)
+
+    # ---- a dense-tier term is refused ---------------------------------------
+    if not dense.any():
+        fail("hybrid: the text plane has no dense tier")
+    head = f"t{int(np.flatnonzero(dense)[0])}"
+    bad = [dict(batches[-1][0], clauses=[("should", [head, "t5000"])])] + \
+        batches[-1][1:]
+    try:
+        fused_search_device(tplane, kplane, bad, fusion="rrf")
+    except ValueError as e:
+        print(f"# hybrid: a batch with a dense-tier term ({head}) raises "
+              f"ValueError ({e})", flush=True)
+    else:
+        fail("hybrid: a dense-tier term was served by the sparse step")
+
+    # ---- the route, counted alone -------------------------------------------
+    def call(b, s):
+        out = fused_search_device(tplane, kplane, b, fusion="rrf", stages=s)
+        return out[0], out[2]
+
+    lat, stg, counts, n_disp, _ = drive(
+        tplane, batches, call, kb,
+        required=("bool_bm25_topk", "knn_scan", "topk_merge", "fuse_rank"),
+        stage_keys=("prep_ms", "dispatch_ms", "fetch_ms", "h2d_bytes",
+                    "d2h_bytes"))
+    if any(counts[n] != n_disp for n in ("bool_bm25_topk", "knn_scan",
+                                         "fuse_rank")) or \
+            counts["topk_merge"] < 3 * n_disp or counts["rescore_reorder"] \
+            or counts["sparse_candidates_topk"]:
+        fail(f"hybrid: launches {counts} over {n_disp} dispatches")
+    n_q = len(lat) * HY_BATCH
+    print(f"# hybrid: {n_q / lat.sum():.1f} q/s, p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms per {HY_BATCH}-query batch "
+          f"over {len(lat)} batches [{card}]", flush=True)
+    print("# hybrid stages (mean): " + ", ".join(
+        f"{key} {v / len(lat):.3f}" for key, v in stg.items()))
+    print(f"# hybrid launches over {n_disp} dispatches: "
+          f"{ {n: v for n, v in counts.items() if v} }", flush=True)
+
+    # ---- four queries against numpy ------------------------------------------
+    qv = np.stack([f["qv"] for f in batches[1][:HY_EVAL]])
+    sc = vecs @ qv.T
+    for qi in range(HY_EVAL):
+        bq = batches[1][qi]
+        top, tsc, elig = exact_bool(corpus, bq, HY_WINDOW)
+        n = min(HY_WINDOW, int(elig.sum()))
+        if totals[qi] != int(elig.sum()):
+            fail(f"hybrid query {qi}: total {totals[qi]} != exact "
+                 f"{int(elig.sum())}")
+        tr = text_rows[qi]
+        if len(tr) != n:
+            fail(f"hybrid query {qi}: {len(tr)} text hits, expected {n}")
+        check_topk(np.asarray([[r[0] for r in tr]]),
+                   np.asarray([[r[2] for r in tr]]), tsc[None, :n],
+                   top[None, :n], tsc[n:n + 1], REF_RTOL, 0.0,
+                   f"hybrid query {qi}: text against the exact reference")
+        ktop = np.argpartition(-sc[:, qi], HY_WINDOW + 1)[:HY_WINDOW + 1]
+        ktop = ktop[np.lexsort((ktop, -sc[ktop, qi]))]
+        kr = knn_rows[qi]
+        if len(kr) != HY_WINDOW:
+            fail(f"hybrid query {qi}: {len(kr)} kNN hits")
+        check_topk(np.asarray([[r[0] for r in kr]]),
+                   np.asarray([[r[2] for r in kr]]),
+                   sc[ktop[:HY_WINDOW], qi][None], ktop[None, :HY_WINDOW],
+                   sc[ktop[HY_WINDOW:], qi], 0.0, tol,
+                   f"hybrid query {qi}: kNN against numpy")
+        want = rrf_fuse_rows([tr, kr], int(HY_RC))
+        got = rows[qi]
+        wn = min(K, len(want))
+        if len(got) != wn:
+            fail(f"hybrid query {qi}: {len(got)} fused hits, expected {wn}")
+        check_topk(np.asarray([[r[0] for r in got]]),
+                   np.asarray([[r[1] * kplane.n_pad + r[2] for r in got]]),
+                   np.asarray([[r[0] for r in want[:wn]]]),
+                   np.asarray([[r[1] * kplane.n_pad + r[2]
+                                for r in want[:wn]]]),
+                   [want[wn][0] if len(want) > wn else -np.inf], RRF_RTOL,
+                   0.0, f"hybrid query {qi}: fused against rrf_fuse_rows")
+    print(f"# hybrid: {HY_EVAL} queries agree with numpy (exact BM25 top-"
+          f"{HY_WINDOW}, matmul + lexsort kNN top-{HY_WINDOW} within "
+          f"{tol:.3g}, RRF of the two by rrf_fuse_rows within "
+          f"{RRF_RTOL}, totals exact)", flush=True)
+    del sc
+
+    # ---- times ----------------------------------------------------------------
+    out = {}
+    k9_ms = timed(lambda: bool_bm25_topk(*k9a, **k9k), reps)
+    nb, nf, n_post, n_owner = k9_work(tplane, list(k9a), k9k["k"])
+    out["k9"] = dict(ms=k9_ms, bound=bound(nb, nf))
+    print(f"# bool_bm25_topk (hybrid text side): {k9_ms:.4f} ms (bound "
+          f"{out['k9']['bound'][0]:.5f} ms: {n_post} valid postings, "
+          f"{n_owner} candidates), plain {k9_plain:.3f} ms [{card}]",
+          flush=True)
+    vk, vn, ex, qq, qn = k6a
+    k6_ms = timed(lambda: knn_scan_partials(vk, vn, ex, qq, qn, l2=False,
+                                            kk=kk_k), reps)
+    k6_plain = timed(lambda: knn_shard_scan_plain(*k6a, **k6k), 2)
+    flat = vk[0, :kplane.n_docs_total]
+    k6_lib = timed(lambda: torch.topk(qq @ flat.T, kk_k, dim=1), reps)
+    B = qq.shape[0]
+    live = int(ex.sum())
+    nb = live * dim * 4 + ex.numel() + B * dim * 4 + B * 4 + B * kk_k * 8
+    k6_b = bound(nb, 2 * B * live * dim)
+    print(f"# knn_scan (D={dim}, {live} live rows): {k6_ms:.4f} ms (bound "
+          f"{k6_b[0]:.4f} ms by {k6_b[1]}), plain {k6_plain:.3f} ms, library "
+          f"(fp32 matmul + torch.topk) {k6_lib:.4f} ms [{card}]", flush=True)
+    out["k6"] = dict(ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
+                     bound=k6_b, err=k6_err)
+    k3_ms = timed(lambda: [topk_merge(*a, **kw) for a, kw in k3], reps)
+    k3_plain = timed(lambda: [topk_merge_plain(*a, **kw) for a, kw in k3], 3)
+    k3_b = bound(sum(8 * a[0].numel() + 8 * a[0].shape[0] * kw["k"]
+                     for a, kw in k3), 0)
+    print(f"# topk_merge, the hybrid step's {len(k3)} calls: {k3_ms:.4f} ms "
+          f"(bound {k3_b[0]:.5f} ms by {k3_b[1]}), plain {k3_plain:.3f} ms "
+          f"[{card}]", flush=True)
+    out["k3"] = dict(ms=k3_ms, err=k3_err)
+    kernels = []
+    for name, (a, kw), src, repl, what in (
+            ("fuse_rank", (k10a, k10k), "fuse_rank.cu",
+             "elasticsearch_tpu/ops/fused_query.py:163", "rrf"),
+            ("rescore_reorder", k11_rec["total"], "rescore_reorder.cu",
+             "elasticsearch_tpu/ops/fused_query.py:245", "total")):
+        f, fp = (fuse_rank, fuse_rank_plain) if name == "fuse_rank" else \
+            (rescore_reorder, rescore_reorder_body)
+        ms = timed(lambda: f(*a, **kw), reps)
+        plain = timed(lambda: fp(*a, **kw), 3)
+        if name == "fuse_rank":
+            Bq, n_in = a[0].shape[0], a[0].shape[1] + a[2].shape[1]
+            nb, nf = Bq * n_in * 8 + Bq * 16 + Bq * kw["k"] * 12, \
+                3 * Bq * n_in
+        else:
+            n_in = a[0].shape[1]
+            nb, nf = k11_work(a, kw["k"])
+        bms, bby = bound(nb, nf)
+        print(f"# {name} (hybrid, {what}, n={n_in}): {ms:.4f} ms (bound "
+              f"{bms:.6f} ms by {bby}), plain {plain:.3f} ms [{card}]",
+              flush=True)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"elasticsearch_tpu_torch/csrc/{src}", replaces=repl,
+            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
+            bound_by=bby, library_ms=None,
+            library_none="no one PyTorch call fuses two rankings by rank"
+            if name == "fuse_rank" else
+            "no one PyTorch call re-sorts a window ahead of its tail"))
+    a, kw = k10_sum
+    kernels[0]["ms_by_fusion"] = {"rrf": kernels[0]["ms"],
+                                  "sum": timed(lambda: fuse_rank(*a, **kw),
+                                               reps)}
+    path = {n: counts[n] + c_extra[n] for n in counts}
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del vecs, kplane, tplane
+    return kernels, out, path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1395,23 +2089,46 @@ def main() -> int:
     kernels, card = run()
     torch.cuda.empty_cache()
     print(f"# eager phases {time.perf_counter() - t0:.1f} s", flush=True)
-    pruned_rows, pruned_counts, k1_fallback, errs = run_pruned(card)
+    pruned_rows, pruned_counts, k1_fallback, errs, (pplane, pcorpus) = \
+        run_pruned(card)
     kernels += pruned_rows
+    t1 = time.perf_counter()
+    k9_row, k11_bool, bool_counts = run_bool(card, pplane, pcorpus)
+    del pplane, pcorpus
     torch.cuda.empty_cache()
+    print(f"# bool phase {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     knn_row, knn_counts, k3_knn = run_knn_exact(card)
     torch.cuda.empty_cache()
     print(f"# knn_exact phase {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
     ivf_rows, ivf_counts, k3_ivf = run_knn_ivf(card)
+    torch.cuda.empty_cache()
     print(f"# knn_ivf phase {time.perf_counter() - t1:.1f} s", flush=True)
-    kernels += [knn_row] + ivf_rows
+    t1 = time.perf_counter()
+    hy_rows, hy_times, hy_counts = run_hybrid(card)
+    torch.cuda.empty_cache()
+    print(f"# hybrid phase {time.perf_counter() - t1:.1f} s", flush=True)
+    k9_row["ms_by_path"]["hybrid"] = hy_times["k9"]["ms"]
+    hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
+                                "bool": k11_bool["ms"]}
+    kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
-                       knn_ivf=ivf_counts)
+                       knn_ivf=ivf_counts, bool=bool_counts,
+                       hybrid=hy_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],
-                                    k3_knn, k3_ivf)
+                                    k3_knn, k3_ivf, hy_times["k3"]["err"])
+            kd["ms_by_path"] = {"search": kd["ms"],
+                                "hybrid": hy_times["k3"]["ms"]}
+        if kd["name"] == "knn_scan":
+            kd["max_abs_err"] = max(kd["max_abs_err"], hy_times["k6"]["err"])
+            kd["hybrid"] = dict(ms=hy_times["k6"]["ms"],
+                                plain_ms=hy_times["k6"]["plain_ms"],
+                                library_ms=hy_times["k6"]["library_ms"],
+                                bound_ms=hy_times["k6"]["bound"][0],
+                                bound_by=hy_times["k6"]["bound"][1])
         if kd["name"] == "sparse_candidates_topk":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k1_err"])
         by_path = kd.setdefault("launches_by_path", {})

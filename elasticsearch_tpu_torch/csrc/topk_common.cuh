@@ -23,6 +23,8 @@
 // Returned by a C entry when the sizes it was given need more shared memory
 // than the card lets one block have (no cudaError_t takes this value).
 #define ES_ERR_SHARED (-1)
+// Returned by a C entry given a mode or method code it does not know.
+#define ES_ERR_ARG (-2)
 
 // Bytes of shared memory one block may opt in to on the current card.
 static int es_max_shared_bytes() {
@@ -59,6 +61,7 @@ static int es_set_shared(Kernel kernel, size_t bytes) {
 extern "C" const char* es_error_string(int code) {
   if (code == ES_ERR_SHARED)
     return "the sizes need more shared memory than the card gives a block";
+  if (code == ES_ERR_ARG) return "unknown mode or method code";
   return cudaGetErrorString((cudaError_t)code);
 }
 

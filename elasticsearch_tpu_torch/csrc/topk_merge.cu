@@ -19,7 +19,10 @@
 // one, each the best key strictly worse than the previous, under the total
 // order (value desc, id asc, column asc): the order lax.top_k gives over
 // doc-ascending lists and lax.sort gives in merge_topk_lists. Rows with
-// fewer than k entries pad with (-inf, fill_id).
+// fewer than k entries pad with (-inf, fill_id). With out_sel, each output
+// also records its column in [a | b] (0 on padded slots): the payload
+// channels of _global_topk_reduce (the rescore secondaries) follow the
+// selection through one gather.
 //
 // Bound: the card's memory rate (8 bytes per entry read, 8 per output);
 // the k selection passes re-read the row from L1/L2.
@@ -55,7 +58,7 @@ topk_merge_kernel(const float* __restrict__ a_vals,
                   const int* __restrict__ b_ids, int mb, int k, int dedup,
                   int seg_len, int seg_stride, int fill_id,
                   float* __restrict__ out_vals, int* __restrict__ out_ids,
-                  float* workspace) {
+                  int* __restrict__ out_sel, float* workspace) {
   extern __shared__ unsigned char smem[];
   __shared__ Key warp_best[K3_THREADS / 32];
   __shared__ Key best;
@@ -108,6 +111,7 @@ topk_merge_kernel(const float* __restrict__ a_vals,
   Key prev{CUDART_INF_F, -2147483647 - 1, -1};   // better than any entry
   float* ov = out_vals + (size_t)r * k;
   int* oi = out_ids + (size_t)r * k;
+  int* os = out_sel != nullptr ? out_sel + (size_t)r * k : nullptr;
   for (int j = 0; j < k; ++j) {
     Key mine{-CUDART_INF_F, 2147483647, 2147483647};
     for (int c = tid; c < m; c += K3_THREADS) {
@@ -130,6 +134,7 @@ topk_merge_kernel(const float* __restrict__ a_vals,
       bool ok = bst.v > -CUDART_INF_F;
       ov[j] = ok ? bst.v : -CUDART_INF_F;
       oi[j] = ok ? bst.id : fill_id;
+      if (os != nullptr) os[j] = ok ? bst.c : 0;
     }
     __syncthreads();
     prev = best;
@@ -137,6 +142,7 @@ topk_merge_kernel(const float* __restrict__ a_vals,
       for (int j2 = j + 1 + tid; j2 < k; j2 += K3_THREADS) {
         ov[j2] = -CUDART_INF_F;
         oi[j2] = fill_id;
+        if (os != nullptr) os[j2] = 0;
       }
       break;
     }
@@ -154,12 +160,13 @@ extern "C" int es_topk_merge(const float* a_vals, const int* a_ids, int ma,
                              const float* b_vals, const int* b_ids, int mb,
                              int R, int k, int dedup, int seg_len,
                              int seg_stride, int fill_id, float* out_vals,
-                             int* out_ids, void* workspace, void* stream) {
+                             int* out_ids, int* out_sel, void* workspace,
+                             void* stream) {
   size_t shm = workspace != nullptr ? 0 : (size_t)(ma + mb) * 8;
   int e = es_set_shared(topk_merge_kernel, shm);
   if (e != 0) return e;
   topk_merge_kernel<<<R, K3_THREADS, shm, (cudaStream_t)stream>>>(
       a_vals, a_ids, ma, b_vals, b_ids, mb, k, dedup, seg_len, seg_stride,
-      fill_id, out_vals, out_ids, (float*)workspace);
+      fill_id, out_vals, out_ids, out_sel, (float*)workspace);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,10 @@ first use, into ``elasticsearch_tpu_torch/_build/`` (git-ignored), under a
 name that carries a hash of the sources and flags, so an edited kernel is
 never served from a stale library.
 
+A source may hold more than one kernel entry (K1 and its bool variant K9
+share ``sparse_candidates_topk.cu``): :data:`ENTRY_SOURCE` names the
+source of each such entry, and each entry counts its launches apart.
+
 Every kernel wrapper counts its launches in :data:`launches`; a run that
 wants to show the main path went through the kernels zeroes the counts
 with :func:`reset_launches` and reads them afterwards. Each library also
@@ -36,13 +40,16 @@ BUILD_DIR = PKG_DIR / "_build"
 #: one entry per kernel source (csrc/<name>.cu)
 KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
            "blockmax_scan", "bisect_exact_scores", "knn_scan", "ivf_scan",
-           "ivf_rerank")
+           "ivf_rerank", "fuse_rank", "rescore_reorder")
+
+#: kernel entries built from another kernel's source: entry -> source
+ENTRY_SOURCE = {"bool_bm25_topk": "sparse_candidates_topk"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel since the last reset (main-path accounting)
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+launches: Dict[str, int] = {name: 0 for name in (*KERNELS, *ENTRY_SOURCE)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -65,11 +72,16 @@ _SIGNATURES = {
     "dense_stream_topk": (
         "es_dense_stream_topk",
         [_P] * 3 + [_I] * 11 + [_P] * 4),
+    # docs, imps, P, starts, lengths, idfw, cbits, req, neg, shd, msm,
+    # B, S, Q, L, n_pad, k, nc, out_vals, out_docs, out_count, stream
+    "bool_bm25_topk": (
+        "es_bool_bm25_topk",
+        [_P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P] * 4),
     # a_vals, a_ids, ma, b_vals, b_ids, mb, R, k, dedup, seg_len,
-    # seg_stride, fill_id, out_vals, out_ids, workspace, stream
+    # seg_stride, fill_id, out_vals, out_ids, out_sel, workspace, stream
     "topk_merge": (
         "es_topk_merge",
-        [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 4),
+        [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 5),
     # t_docs, t_codes, t_scale, t_off, NB1, BS, sched, w, rho, slack, B, S,
     # P, n_pad, NB, W, R, kq_idx, prune_active, acc, out_ci, out_cv,
     # out_counts, stream
@@ -97,6 +109,16 @@ _SIGNATURES = {
     "ivf_rerank": (
         "es_ivf_rerank",
         [_P] * 8 + [_I] * 9 + [_P] * 3),
+    # tv, tg, na, kv, kg, nb, wt, wk, rc, kboost, B, n_pad_t, n_pad_k, UP,
+    # pad_id, fusion, sim, k, out_vals, out_ids, out_sel, workspace, stream
+    "fuse_rank": (
+        "es_fuse_rank",
+        [_P, _P, _I, _P, _P, _I] + [_P] * 4 + [_I] * 8 + [_P] * 5),
+    # vals, ids, secondary, matched, qw, rw, window, B, n, mode, k, pad_id,
+    # out_vals, out_ids, workspace, stream
+    "rescore_reorder": (
+        "es_rescore_reorder",
+        [_P] * 7 + [_I] * 5 + [_P] * 4),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -113,6 +135,14 @@ _QUERIES = {
         # (B, S, n_chunks, k, nlist, D) -> workspace bytes, 0 when they
         # fit
         "es_ivf_scan_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
+    },
+    "fuse_rank": {
+        # (n, B) -> workspace bytes, 0 when a row's sort fits
+        "es_fuse_rank_workspace_bytes": ([_I] * 2, ctypes.c_longlong),
+    },
+    "rescore_reorder": {
+        # (n, B) -> workspace bytes, 0 when a row's sort fits
+        "es_rescore_reorder_workspace_bytes": ([_I] * 2, ctypes.c_longlong),
     },
 }
 
@@ -170,27 +200,29 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (built on first use), its C
-    functions typed."""
-    lib = _libs.get(name)
+    """The loaded library of kernel entry ``name`` (its source built on
+    first use), its C functions typed."""
+    src = ENTRY_SOURCE.get(name, name)
+    lib = _libs.get(src)
     if lib is not None:
         return lib
-    path = _lib_path(name)
+    path = _lib_path(src)
     if not path.exists():
         build_all()
     with _lock:
-        if name not in _libs:
+        if src not in _libs:
             lib = ctypes.CDLL(str(path))
-            sym, argtypes = _SIGNATURES[name]
-            funcs = {sym: (argtypes, ctypes.c_int),
-                     "es_error_string": ([_I], ctypes.c_char_p),
-                     **_QUERIES.get(name, {})}
+            funcs = {"es_error_string": ([_I], ctypes.c_char_p),
+                     **_QUERIES.get(src, {})}
+            for entry, (sym, argtypes) in _SIGNATURES.items():
+                if ENTRY_SOURCE.get(entry, entry) == src:
+                    funcs[sym] = (argtypes, ctypes.c_int)
             for fname, (argtypes, restype) in funcs.items():
                 fn = getattr(lib, fname)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _libs[name] = lib
-    return _libs[name]
+            _libs[src] = lib
+    return _libs[src]
 
 
 def query(name: str, fname: str, *args):
@@ -214,8 +246,8 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
 
 
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name``'s C entry on the current stream; raise on a
-    refused launch. Counts the launch.
+    """Call kernel entry ``name``'s C function on the current stream; raise
+    on a refused launch. Counts the launch.
 
     The libraries carry their own CUDA runtime, whose current device is
     the first card: tensors on another card are refused."""

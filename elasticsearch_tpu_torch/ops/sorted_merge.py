@@ -55,12 +55,14 @@ def slice_runs(postings_docs, postings_impact, starts, lengths, idfw, *,
     return docs, contrib
 
 
-def merge_runs(docs, contrib, *, n_pad: int):
+def merge_runs(docs, contrib, *, n_pad: int, bits=None):
     """Merge [R, Q, L] run tiles into doc-ascending [R, Q·L] candidates.
 
     Returns ``(sdocs, gscore, gcount, is_last)`` as the reference's
     ``bm25_merge_candidates`` does: each doc group's summed score and
-    matched-slot count sit at its last slot."""
+    matched-slot count sit at its last slot. ``bits`` (optional i32[R, Q,
+    L], 0 past a run's length) is a tag channel OR-reduced per doc group
+    the same way; its group value is appended as a fifth output."""
     R, Q, L = docs.shape
     flat_d = docs.reshape(R, Q * L)
     flat_c = contrib.reshape(R, Q * L)
@@ -69,10 +71,13 @@ def merge_runs(docs, contrib, *, n_pad: int):
     sdocs, order = torch.sort(flat_d, dim=1, stable=True)
     scontrib = torch.gather(flat_c, 1, order)
     svalid = (sdocs < n_pad).to(torch.float32)
+    sbits = None if bits is None else \
+        torch.gather(bits.reshape(R, Q * L), 1, order)
     nxt = torch.cat([sdocs[:, 1:], sdocs.new_full((R, 1), -2)], 1)
     is_last = sdocs != nxt
     gscore = scontrib
     gcount = svalid
+    gbits = sbits
     for j in range(1, Q):
         same = torch.cat([sdocs.new_full((R, j), -1), sdocs[:, :-j]],
                          1) == sdocs
@@ -82,17 +87,39 @@ def merge_runs(docs, contrib, *, n_pad: int):
         gcount = gcount + torch.where(
             same, torch.cat([svalid.new_zeros((R, j)), svalid[:, :-j]], 1),
             0.0)
+        if gbits is not None:
+            gbits = gbits | torch.where(
+                same, torch.cat([sbits.new_zeros((R, j)), sbits[:, :-j]],
+                                1), 0)
+    if gbits is not None:
+        return sdocs, gscore, gcount, is_last, gbits
     return sdocs, gscore, gcount, is_last
 
 
 def bm25_merge_candidates(postings_docs, postings_impact, starts, lengths,
-                          idfw, *, n_pad: int, L: int):
+                          idfw, *, n_pad: int, L: int, slot_bits=None):
     """One query's candidate stage: ``(sdocs i32[Q·L], gscore f32[Q·L],
-    gcount f32[Q·L], is_last bool[Q·L])``, as in the reference."""
+    gcount f32[Q·L], is_last bool[Q·L])``, as in the reference. With
+    ``slot_bits`` (i32[Q], each slot's tag) a fifth output ``gbits
+    i32[Q·L]`` holds the OR of the tags of every slot holding the doc, at
+    the group's last slot (the bool-tree kernel's clause membership)."""
     docs, contrib = slice_runs(postings_docs, postings_impact, starts,
                                lengths, idfw, n_pad=n_pad, L=L)
-    out = merge_runs(docs[None], contrib[None], n_pad=n_pad)
+    bits = None
+    if slot_bits is not None:
+        bits = run_bits(slot_bits, lengths, L)[None]
+    out = merge_runs(docs[None], contrib[None], n_pad=n_pad, bits=bits)
     return tuple(o[0] for o in out)
+
+
+def run_bits(slot_bits, lengths, L: int):
+    """[..., Q, L] tiles of each slot's tag over its run's valid prefix (0
+    past the run's length)."""
+    pos = torch.arange(L, device=slot_bits.device)
+    valid = pos < lengths.long()[..., None]
+    return torch.where(valid, slot_bits[..., None].to(torch.int32),
+                       torch.zeros((), dtype=torch.int32,
+                                   device=slot_bits.device))
 
 
 def _select_topk(sdocs, score, *, k: int, n_pad: int):

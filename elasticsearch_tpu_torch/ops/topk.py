@@ -51,7 +51,8 @@ def batched_blockwise_topk(scores: torch.Tensor, k: int,
 
 def topk_merge_plain(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
                      fill_id: int, dedup: bool = False,
-                     seg_len: Optional[int] = None, seg_stride: int = 0):
+                     seg_len: Optional[int] = None, seg_stride: int = 0,
+                     with_sel: bool = False):
     """Plain version of K3 (see :func:`topk_merge`)."""
     vals = a_vals if b_vals is None else torch.cat([a_vals, b_vals], -1)
     ids = a_ids if b_ids is None else torch.cat([a_ids, b_ids], -1)
@@ -82,16 +83,21 @@ def topk_merge_plain(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
     out_i = torch.gather(ids, 1, order)
     out_i = torch.where(out_v > NEG_INF, out_i,
                         torch.full_like(out_i, fill_id))
+    sel = torch.where(out_v > NEG_INF, order, torch.zeros_like(order))
     if out_v.shape[1] < k:
         pad = k - out_v.shape[1]
         out_v = torch.cat([out_v, out_v.new_full((R, pad), NEG_INF)], 1)
         out_i = torch.cat([out_i, out_i.new_full((R, pad), fill_id)], 1)
+        sel = torch.cat([sel, sel.new_zeros((R, pad))], 1)
+    if with_sel:
+        return out_v, out_i.to(torch.int32), sel.to(torch.int32)
     return out_v, out_i.to(torch.int32)
 
 
 def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
                fill_id: int, dedup: bool = False,
-               seg_len: Optional[int] = None, seg_stride: int = 0):
+               seg_len: Optional[int] = None, seg_stride: int = 0,
+               with_sel: bool = False):
     """Row-wise top-k over the concatenated lists [a | b] (f32 values,
     int32 ids, [R, m] each), ordered (value desc, id asc, column asc).
 
@@ -99,14 +105,18 @@ def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
     lists globalised as ``s * n_pad + local``). Entries at -inf, or with
     an id >= ``fill_id``, take no part; with ``dedup`` an id keeps only its
     highest value (``merge_topk_lists``). Returns (f32[R, k], i32[R, k]);
-    slots past the available entries hold (-inf, ``fill_id``).
+    slots past the available entries hold (-inf, ``fill_id``). With
+    ``with_sel`` a third output i32[R, k] holds each selected entry's
+    column in [a | b] (0 on empty slots), so that per-entry payloads
+    follow the selection with one ``torch.gather``.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K3.
     """
     if a_vals.device.type == "cpu":
         return topk_merge_plain(a_vals, a_ids, b_vals, b_ids, k=k,
                                 fill_id=fill_id, dedup=dedup,
-                                seg_len=seg_len, seg_stride=seg_stride)
+                                seg_len=seg_len, seg_stride=seg_stride,
+                                with_sel=with_sel)
     if a_vals.device.type != "cuda":
         raise ValueError(f"topk_merge: unsupported device {a_vals.device}")
     R, ma = a_vals.shape
@@ -118,8 +128,11 @@ def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
         _kb.check(b_ids, "b_ids", torch.int32, (R, mb), a_vals.device)
     out_v = torch.empty((R, k), dtype=torch.float32, device=a_vals.device)
     out_i = torch.empty((R, k), dtype=torch.int32, device=a_vals.device)
+    sel = torch.empty((R, k), dtype=torch.int32, device=a_vals.device) \
+        if with_sel else None
+    outs = (out_v, out_i) if sel is None else (out_v, out_i, sel)
     if R == 0 or k == 0:
-        return out_v, out_i
+        return outs
     # rows too long for shared memory are held in device memory
     ws_bytes = _kb.query("topk_merge", "es_topk_merge_workspace_bytes",
                          ma + mb, R)
@@ -130,5 +143,6 @@ def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
                b_ids.data_ptr() if mb else None, mb, R, k, int(dedup),
                seg_len or max(ma + mb, 1), seg_stride, fill_id,
                out_v.data_ptr(), out_i.data_ptr(),
+               None if sel is None else sel.data_ptr(),
                None if ws is None else ws.data_ptr())
-    return out_v, out_i
+    return outs

@@ -23,6 +23,13 @@ the exact scan (K6, then K3 over its chunks and shards) or, with an IVF
 tier, the quantized scan of the probed clusters' blocks into a window (K7
 + K3), the window's exact re-rank (K8) and K3's top-k; the probe and the
 union of probed blocks are host numpy, as in the reference.
+
+The text plane also serves lowered bool trees (K9, the clause-bit
+variant of K1, and K3), with a rescore window riding along (K5 on each
+shard's candidates, K3 carrying their scores through the reduce, K11
+reordering the window), and :func:`fused_search_device` serves hybrid
+requests over a text and a kNN plane in one step: K9 and the exact kNN
+scan, each list's cross-shard reduce, and their fusion (K10).
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import torch
 from ..device import resolve_device
 from ..ops.blockmax import blockmax_scan
 from ..ops.bm25 import DEFAULT_B, DEFAULT_K1, idf_weight
-from ..ops.fused_query import bisect_exact_scores
+from ..ops.fused_query import (MAX_BOOL_CLAUSES, bisect_exact_scores,
+                               bool_bm25_topk, fuse_rank, rescore_reorder)
 from ..ops.knn import ivf_rerank, ivf_scan, knn_shard_scan
 from ..ops.sorted_merge import make_impacts, sparse_candidates_topk
 from ..ops.tiered_bm25 import (build_dense_rows, split_tiers,
@@ -301,15 +309,42 @@ class BlockMaxTier:
 # ---------------------------------------------------------------------------
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array, contiguous, on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                       non_blocking=True)
+
+
+def decode_hits(vals, gdocs, n_pad: int, cut=None):
+    """(shard, local doc) of each query's entries before its first −inf
+    (at most ``cut[b]`` of them), global ids ``shard · n_pad + doc``."""
+    fin = vals != NEG_INF
+    n = np.where(fin.all(1), vals.shape[1], np.argmin(fin, 1))
+    if cut is not None:
+        n = np.minimum(n, cut)
+    shard, doc = np.divmod(gdocs.astype(np.int64), n_pad)
+    return [list(zip(shard[b, :n[b]].tolist(), doc[b, :n[b]].tolist()))
+            for b in range(vals.shape[0])]
+
+
 def _global_topk_reduce(vals, idx, *, kk: int, n_pad: int,
-                        out_k: Optional[int] = None):
+                        out_k: Optional[int] = None, payload=()):
     """Cross-shard reduce: [B, S, kk] shard-local lists → ([B, w], [B, w])
-    with w = min(out_k, S·kk), ids globalised as ``s · n_pad + local``."""
+    with w = min(out_k, S·kk), ids globalised as ``s · n_pad + local``.
+
+    ``payload``: [B, S, kk] per-candidate channels (the rescore
+    secondaries) gathered along the same selections (K3's ``sel``); when
+    given, a third output holds them as a tuple of [B, w] tensors."""
     out_k = kk if out_k is None else out_k
     B, S, _ = vals.shape
-    return topk_merge(vals.reshape(B, S * kk), idx.reshape(B, S * kk),
-                      k=min(out_k, S * kk), fill_id=S * n_pad, seg_len=kk,
-                      seg_stride=n_pad)
+    out = topk_merge(vals.reshape(B, S * kk), idx.reshape(B, S * kk),
+                     k=min(out_k, S * kk), fill_id=S * n_pad, seg_len=kk,
+                     seg_stride=n_pad, with_sel=bool(payload))
+    if not payload:
+        return out
+    sel = out[2].long()
+    return out[0], out[1], tuple(
+        torch.gather(p.reshape(B, S * kk), 1, sel) for p in payload)
 
 
 def bm25_topk_step(postings_docs, postings_impact, starts, lengths, idfw, *,
@@ -386,6 +421,73 @@ def pruned_bm25_step(postings_docs, postings_impact, t_docs, t_codes,
         out_k=min(k, S * n_pad))
     return (gvals, gdocs, matched.sum(1), unsafe.sum(1), pruned.sum(1),
             n_sc.sum(1))
+
+
+def bool_bm25_step(postings_docs, postings_impact, starts, lengths, idfw,
+                   cbits, req, neg, shd, msm, st2=None, ln2=None, iw2=None,
+                   qw=None, rw=None, rwin=None, *, n_pad: int, L: int,
+                   k: int, nc: int = MAX_BOOL_CLAUSES,
+                   rescore_mode: str = "total"):
+    """Body of the reference's ``build_bool_bm25_step`` over S shards:
+    bool-tree scoring (K9) and the cross-shard reduce (K3). With the
+    rescore query (``st2``/``ln2`` i32[B, S, Q2], ``iw2`` f32[B, Q2],
+    ``qw``/``rw`` f32[B], ``rwin`` i32[B]), each shard's candidates carry
+    their exact rescore scores and matches (K5) through the reduce (K3's
+    ``sel``) and the window reorders (K11). Returns (vals f32[B, k'],
+    global docs i32[B, k'], counts i32[B]) with k' = min(k, S·n_pad)."""
+    S = postings_docs.shape[0]
+    kk = min(k, n_pad)
+    out_k = min(k, S * n_pad)
+    vals, docs, cnt = bool_bm25_topk(
+        postings_docs, postings_impact, starts, lengths, idfw, cbits, req,
+        neg, shd, msm, n_pad=n_pad, L=L, k=kk, nc=nc)
+    if st2 is None:
+        gvals, gdocs = _global_topk_reduce(vals, docs, kk=kk, n_pad=n_pad,
+                                           out_k=out_k)
+        return gvals, gdocs, cnt.sum(1)
+    sec, fnd = bisect_exact_scores(postings_docs, postings_impact, st2, ln2,
+                                   iw2, docs, n_pad=n_pad)
+    gvals, gdocs, (gsec, gfnd) = _global_topk_reduce(
+        vals, docs, kk=kk, n_pad=n_pad, out_k=out_k, payload=(sec, fnd))
+    gvals, gdocs = rescore_reorder(gvals, gdocs, gsec, gfnd, qw, rw, rwin,
+                                   mode=rescore_mode, k=out_k,
+                                   pad_id=S * n_pad)
+    return gvals, gdocs, cnt.sum(1)
+
+
+def bool_role_masks(clauses) -> Tuple[int, int, int]:
+    """(required, prohibited, should) clause bitmasks of a lowered bool
+    tree: clause ci owns bit ``1 << ci``; must and filter are required,
+    must_not prohibited, should optional (counted against msm)."""
+    req = neg = shd = 0
+    for ci, (role, _terms) in enumerate(clauses):
+        bit = 1 << ci
+        if role in ("must", "filter"):
+            req |= bit
+        elif role == "must_not":
+            neg |= bit
+        else:
+            shd |= bit
+    return req, neg, shd
+
+
+def bool_clause_rows(clauses, idf_of):
+    """Per-clause ``[(term, idf·weight)]`` in first-appearance order under
+    ``idf_of``. Scoring clauses (must, should) drop terms of zero idf;
+    filter and must_not clauses keep every term at weight 0.0 (they need
+    the postings run for membership, never the weight)."""
+    out = []
+    for role, terms in clauses:
+        weights: Dict[str, float] = {}
+        for t in terms:
+            weights[t] = weights.get(t, 0.0) + 1.0
+        if role in ("must", "should"):
+            rows = [(t, idf_of(t) * w) for t, w in weights.items()
+                    if idf_of(t) > 0.0]
+        else:
+            rows = [(t, 0.0) for t in weights]
+        out.append((role, rows))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -769,12 +871,7 @@ class DistributedSearchPlane:
         if tiered is False and any_dense:
             raise ValueError(
                 "tiered=False but the batch hits dense-tier terms")
-        dev = self.device
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev, non_blocking=True)
-
+        up = self._upload
         args = dict(postings_docs=self.docs_dev,
                     postings_impact=self.impacts_dev, starts=up(starts),
                     lengths=up(lengths), idfw=up(idfw))
@@ -823,15 +920,7 @@ class DistributedSearchPlane:
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
         vals = out[0].cpu().numpy()
-        gdocs = out[1].cpu().numpy()
-        hits = []
-        for bi in range(len(queries)):
-            row = []
-            for v, g in zip(vals[bi], gdocs[bi]):
-                if v == NEG_INF:
-                    break
-                row.append((int(g) // self.n_pad, int(g) % self.n_pad))
-            hits.append(row)
+        hits = decode_hits(vals, out[1].cpu().numpy(), self.n_pad)
         if stages is not None:
             stages["prep_ms"] = (t1 - t0) * 1e3
             stages["dispatch_ms"] = (t2 - t1) * 1e3
@@ -915,13 +1004,8 @@ class DistributedSearchPlane:
         kk = min(k, self.n_pad)
         W = min(round_up_pow2(max(k * Q, 1)), LEX_THETA_WINDOW)
         R = min(round_up_pow2(max(self.prune_rerank * kk, 64)), self.n_pad)
-        dev = self.device
-        tdev = tier.device_arrays(dev)
-
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(
-                dev, non_blocking=True)
-
+        tdev = tier.device_arrays(self.device)
+        up = self._upload
         args = dict(postings_docs=self.docs_dev,
                     postings_impact=self.impacts_dev, t_docs=tdev["docs"],
                     t_codes=tdev["codes"], t_scale=tdev["scale"],
@@ -981,17 +1065,9 @@ class DistributedSearchPlane:
         vals_out = np.full((B, k), NEG_INF, np.float32)
         wk = min(k, gvals.shape[1])
         vals_out[:, :wk] = gvals[:, :wk]
-        hits_out: List[List[Tuple[int, int]]] = []
-        totals: List = []
-        for bi in range(B):
-            row = []
-            for v, g in zip(vals_out[bi], gdocs[bi]):
-                if v == NEG_INF:
-                    break
-                row.append((int(g) // self.n_pad, int(g) % self.n_pad))
-            hits_out.append(row)
-            totals.append((int(matched[bi]), "gte") if pruned[bi] > 0
-                          else int(matched[bi]))
+        hits_out = decode_hits(vals_out, gdocs[:, :wk], self.n_pad)
+        totals: List = [(int(m), "gte") if p > 0 else int(m)
+                        for m, p in zip(matched, pruned)]
         # rank-safety fallback: a query the survivor window could not
         # certify re-serves through the eager step
         bad = np.flatnonzero(unsafe > 0)
@@ -1057,6 +1133,176 @@ class DistributedSearchPlane:
         return dict(Q=max(self.SERVING_Q_MIN, round_up_pow2(needed_q)),
                     L=self.ladder_L(self.max_run_len(queries)),
                     tiered=self.T_pad > 0 or None)
+
+    # -- bool trees (the fused planner's lexical stage) ----------------------
+
+    def _bool_clause_idfw(self, clauses, extra_docs: int,
+                          extra_df: Optional[Dict[str, int]]):
+        """Per-clause ``[(term, idf·weight)]`` under this plane's global
+        stats (and any mass outside it): :func:`bool_clause_rows` with a
+        cached idf."""
+        idf_cache: Dict[str, float] = {}
+
+        def idf_of(t: str) -> float:
+            v = idf_cache.get(t)
+            if v is None:
+                gdf = sum(int(s2["df"][s2["term_ids"][t]])
+                          for s2 in self.shards if t in s2["term_ids"])
+                if extra_df:
+                    gdf += int(extra_df.get(t, 0))
+                v = float(idf_weight(self.n_docs_total + extra_docs,
+                                     np.int64(gdf))) if gdf else 0.0
+                idf_cache[t] = v
+            return v
+
+        return bool_clause_rows(clauses, idf_of)
+
+    def has_dense_terms(self, terms) -> bool:
+        """True when any term lives in some shard's dense tier: the bool
+        and hybrid steps read only the sparse table, so such a batch
+        cannot take them."""
+        for t in set(terms):
+            for sh in self.shards:
+                tid = sh["term_ids"].get(t)
+                if tid is not None and sh["dense_row_of"] and \
+                        int(tid) in sh["dense_row_of"]:
+                    return True
+        return False
+
+    def bool_inputs(self, bool_queries, Q: int, *, extra_docs: int = 0,
+                    extra_df: Optional[Dict[str, int]] = None):
+        """Host assembly of a bool-query batch: one slot per (clause,
+        unique term) over the sparse table, and each query's clause-role
+        masks. Returns (starts, lengths, idfw, cbits, req, neg, shd, msm,
+        max_len, any_dense), numpy."""
+        B, S = len(bool_queries), self.n_shards
+        starts = np.zeros((B, S, Q), np.int32)
+        lengths = np.zeros((B, S, Q), np.int32)
+        idfw = np.zeros((B, Q), np.float32)
+        cbits = np.zeros((B, Q), np.int32)
+        req = np.zeros(B, np.int32)
+        neg = np.zeros(B, np.int32)
+        shd = np.zeros(B, np.int32)
+        msm = np.zeros(B, np.int32)
+        max_len = 1
+        any_dense = False
+        for bi, bq in enumerate(bool_queries):
+            clauses = bq.get("clauses") or []
+            msm[bi] = int(bq.get("msm", 0))
+            req[bi], neg[bi], shd[bi] = bool_role_masks(clauses)
+            per_clause = self._bool_clause_idfw(clauses, extra_docs,
+                                                extra_df)
+            qi = 0
+            for ci, (_role, rows) in enumerate(per_clause):
+                for t, w in rows:
+                    if qi >= Q:
+                        continue
+                    idfw[bi, qi] = w
+                    cbits[bi, qi] = 1 << ci
+                    for si, sh in enumerate(self.shards):
+                        tid = sh["term_ids"].get(t)
+                        if tid is None:
+                            continue
+                        if sh["dense_row_of"] and \
+                                int(tid) in sh["dense_row_of"]:
+                            any_dense = True
+                            continue
+                        st = int(sh["sparse_offsets"][tid])
+                        ln = int(sh["sparse_offsets"][tid + 1]) - st
+                        starts[bi, si, qi] = st
+                        lengths[bi, si, qi] = ln
+                        max_len = max(max_len, ln)
+                    qi += 1
+        return (starts, lengths, idfw, cbits, req, neg, shd, msm, max_len,
+                any_dense)
+
+    @staticmethod
+    def bool_slot_count(bool_queries) -> int:
+        """Slots a bool-query batch needs (one per (clause, unique
+        term)): the Q axis of the bool and hybrid steps."""
+        out = 1
+        for bq in bool_queries:
+            n = 0
+            for _role, terms in (bq.get("clauses") or []):
+                n += len(set(terms))
+            out = max(out, n)
+        return out
+
+    def prepare_bool(self, bool_queries, *, extra_docs: int = 0,
+                     extra_df: Optional[Dict[str, int]] = None) -> dict:
+        """Host assembly + upload of a bool dispatch at the serving shapes
+        (Q floored to ``SERVING_Q_MIN``, a ladder-rung L): the step's
+        tensors and ``h2d_bytes``. Raises ``ValueError`` for a batch that
+        touches a dense-tier term."""
+        Q = max(self.SERVING_Q_MIN,
+                round_up_pow2(self.bool_slot_count(bool_queries)))
+        (starts, lengths, idfw, cbits, req, neg, shd, msm, max_len,
+         any_dense) = self.bool_inputs(bool_queries, Q,
+                                       extra_docs=extra_docs,
+                                       extra_df=extra_df)
+        if any_dense:
+            raise ValueError(
+                "bool batch touches dense-tier terms; the sparse-slice "
+                "bool step cannot serve it (fall back)")
+        L = min(self.ladder_L(max_len), self.L_cap)
+        np.minimum(lengths, L, out=lengths)
+        up = self._upload
+        args = dict(postings_docs=self.docs_dev,
+                    postings_impact=self.impacts_dev, starts=up(starts),
+                    lengths=up(lengths), idfw=up(idfw), cbits=up(cbits),
+                    req=up(req), neg=up(neg), shd=up(shd), msm=up(msm))
+        h2d = starts.nbytes + lengths.nbytes + idfw.nbytes + cbits.nbytes \
+            + 16 * len(bool_queries)
+        return dict(args=args, Q=Q, L=L, h2d=h2d)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return _upload(a, self.device)
+
+    def search_bool(self, bool_queries, k: int = 10, *,
+                    with_totals: bool = False,
+                    stages: Optional[dict] = None, extra_docs: int = 0,
+                    extra_df: Optional[Dict[str, int]] = None):
+        """Bool-tree dispatch (:func:`bool_bm25_step`) at the serving
+        shapes. ``bool_queries``: one dict per query, ``clauses`` a list of
+        (role, terms) with role must / should / filter / must_not, ``msm``
+        the minimum number of should clauses. Returns (scores f32[B, k'],
+        hits list[list[(shard, doc)]]) plus exact totals (list[int]) with
+        ``with_totals``. Dense-tier terms cannot ride the sparse slice:
+        callers check :meth:`has_dense_terms` first (the batch raises
+        ``ValueError``). ``stages`` receives ``prep_ms``, ``dispatch_ms``
+        (synchronised), ``fetch_ms``, ``h2d_bytes`` and ``d2h_bytes``."""
+        t0 = time.perf_counter()
+        prep = self.prepare_bool(bool_queries, extra_docs=extra_docs,
+                                 extra_df=extra_df)
+        t1 = time.perf_counter()
+        out = bool_bm25_step(**prep["args"], n_pad=self.n_pad, L=prep["L"],
+                             k=k)
+        if stages is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        self.n_dispatches += 1
+        vals, gdocs, counts = (o.cpu().numpy() for o in out)
+        hits = decode_hits(vals, gdocs, self.n_pad)
+        if stages is not None:
+            stages["prep_ms"] = (t1 - t0) * 1e3
+            stages["dispatch_ms"] = (t2 - t1) * 1e3
+            stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
+            stages["h2d_bytes"] = prep["h2d"]
+            stages["d2h_bytes"] = vals.nbytes + gdocs.nbytes + counts.nbytes
+        if with_totals:
+            return vals, hits, [int(c) for c in counts]
+        return vals, hits
+
+    def serve_bool(self, bool_queries, k: int = 10, *,
+                   with_totals: bool = False,
+                   stages: Optional[dict] = None, extra_docs: int = 0,
+                   extra_df: Optional[Dict[str, int]] = None):
+        """Serving entry for lowered bool trees: the bool step. The
+        reference first routes CPU-built planes to its host scorer; the
+        port has no host tier."""
+        return self.search_bool(bool_queries, k=k, with_totals=with_totals,
+                                stages=stages, extra_docs=extra_docs,
+                                extra_df=extra_df)
 
 
 def plane_state_from_numpy(packed: dict, *, device="cpu") -> dict:
@@ -1666,22 +1912,13 @@ class DistributedKnnPlane:
         t2 = time.perf_counter()
         self.n_dispatches += 1
         vals = out[0].cpu().numpy()
-        hits = self._decode_hits(vals, out[1].cpu().numpy())
+        hits = decode_hits(vals, out[1].cpu().numpy(), self.n_pad)
         if stages is not None:
             stages["prep_ms"] = (t1 - t0) * 1e3
             stages["dispatch_ms"] = (t2 - t1) * 1e3
             stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
             stages["kernel"] = "knn_exact"
         return vals, hits
-
-    def _decode_hits(self, vals, gdocs):
-        """(shard, local row) of each query's entries before its first
-        −inf."""
-        fin = vals != NEG_INF
-        n = np.where(fin.all(1), vals.shape[1], np.argmin(fin, 1))
-        shard, row = np.divmod(gdocs.astype(np.int64), self.n_pad)
-        return [list(zip(shard[b, :n[b]].tolist(), row[b, :n[b]].tolist()))
-                for b in range(vals.shape[0])]
 
     def _probe_queries(self, q: np.ndarray):
         """Host queries in the packed convention (unit rows for cosine)
@@ -1741,7 +1978,7 @@ class DistributedKnnPlane:
         t2 = time.perf_counter()
         self.n_dispatches += 1
         vals = out[0].cpu().numpy()
-        hits = self._decode_hits(vals, out[1].cpu().numpy())
+        hits = decode_hits(vals, out[1].cpu().numpy(), self.n_pad)
         if stages is not None:
             tier, B, Pw = self.ivf, prep["B"], prep["Pw"]
             meta_b = 12 + (4 if self.similarity == "l2_norm" else 0)
@@ -1755,3 +1992,195 @@ class DistributedKnnPlane:
                 prep["r_cand"] * self.dim * 4
             stages["docs_scanned"] = self._ivf_probed_docs(prep["probed"])
         return vals, hits
+
+
+# ---------------------------------------------------------------------------
+# the one-dispatch hybrid: both planes, one step
+# ---------------------------------------------------------------------------
+
+
+def fused_hybrid_step(postings_docs, postings_impact, kvecs, kvn, kex, starts,
+                      lengths, idfw, cbits, req, neg, shd, msm, qv, kboost, rc,
+                      wt, wk, st2=None, ln2=None, iw2=None, qw=None, rw=None,
+                      rwin=None, *, n_pad_t: int, n_pad_k: int, L: int,
+                      W_text: int, W_knn: int, k: int, fusion: str,
+                      similarity: str, block: Optional[int] = KNN_BLOCK,
+                      rescore_mode: str = "total",
+                      nc: int = MAX_BOOL_CLAUSES):
+    """Body of the reference's ``build_fused_hybrid_step`` over S shards
+    of both planes: the text side's bool-tree scoring (K9) and the kNN
+    side's exact scan (K6 + K3) per shard, each list's cross-shard reduce
+    (K3), then the fusion in the unified id space ``s · UP + doc`` with
+    ``UP = max(n_pad_t, n_pad_k)`` (K10). With the rescore query
+    (``st2``/``ln2``/``iw2``/``qw``/``rw``/``rwin`` as in
+    :func:`bool_bm25_step`), both lists' candidates carry their exact
+    rescore scores (K5; kNN rows past the text pad count as empty) through
+    the reduces and the fusion, and the window reorders (K11).
+
+    Returns (fused vals f32[B, k], fused ids i32[B, k], text counts i32[B],
+    text vals f32[B, out_t], text ids i32[B, out_t], knn vals f32[B,
+    out_kn], knn ids i32[B, out_kn]) as the reference does."""
+    if fusion not in ("rrf", "sum"):
+        raise ValueError(f"unknown fusion [{fusion}]")
+    S = postings_docs.shape[0]
+    kk_t = min(W_text, n_pad_t)
+    out_t = min(W_text, S * n_pad_t)
+    kk_k = min(W_knn, n_pad_k)
+    out_kn = min(W_knn, S * n_pad_k)
+    UP = max(n_pad_t, n_pad_k)
+    pad_id = S * UP
+    blk, use_blocks = _knn_blocking(block, n_pad_k, kk_k)
+    rescore = st2 is not None
+    qq = _packed_queries(qv, similarity)
+    qn = torch.sum(qv * qv, dim=-1)
+    tv, td, cnt = bool_bm25_topk(
+        postings_docs, postings_impact, starts, lengths, idfw, cbits, req,
+        neg, shd, msm, n_pad=n_pad_t, L=L, k=kk_t, nc=nc)
+    kv, kd = knn_shard_scan(kvecs, kvn, kex, qq, qn, similarity=similarity,
+                            kk=kk_k, blk=blk, use_blocks=use_blocks)
+    if rescore:
+        sec_t, fnd_t = bisect_exact_scores(postings_docs, postings_impact,
+                                           st2, ln2, iw2, td, n_pad=n_pad_t)
+        # kNN rows are text docs of the same segment; only the pad differs
+        kd_t = torch.where((kv > NEG_INF) & (kd < n_pad_t), kd,
+                           torch.full_like(kd, n_pad_t))
+        sec_k, fnd_k = bisect_exact_scores(postings_docs, postings_impact,
+                                           st2, ln2, iw2, kd_t,
+                                           n_pad=n_pad_t)
+        tvals, tids, (tsec, tfnd) = _global_topk_reduce(
+            tv, td, kk=kk_t, n_pad=n_pad_t, out_k=out_t,
+            payload=(sec_t, fnd_t))
+        kvals, kids, (ksec, kfnd) = _global_topk_reduce(
+            kv, kd, kk=kk_k, n_pad=n_pad_k, out_k=out_kn,
+            payload=(sec_k, fnd_k))
+    else:
+        tvals, tids = _global_topk_reduce(tv, td, kk=kk_t, n_pad=n_pad_t,
+                                          out_k=out_t)
+        kvals, kids = _global_topk_reduce(kv, kd, kk=kk_k, n_pad=n_pad_k,
+                                          out_k=out_kn)
+    n_f = tvals.shape[1] + kvals.shape[1]
+    fv, fi, sel = fuse_rank(tvals, tids, kvals, kids, wt, wk, rc, kboost,
+                            n_pad_t=n_pad_t, n_pad_k=n_pad_k, UP=UP,
+                            pad_id=pad_id, fusion=fusion,
+                            similarity=similarity,
+                            k=n_f if rescore else k)
+    if rescore:
+        sel = sel.long()
+        sec_f = torch.gather(torch.cat([tsec, ksec], 1), 1, sel)
+        fnd_f = torch.gather(torch.cat([tfnd, kfnd], 1), 1, sel)
+        fv, fi = rescore_reorder(fv, fi, sec_f, fnd_f, qw, rw, rwin,
+                                 mode=rescore_mode, k=k, pad_id=pad_id)
+    return fv, fi, cnt.sum(1), tvals, tids, kvals, kids
+
+
+def fused_search_device(text_plane: "DistributedSearchPlane",
+                        knn_plane: "DistributedKnnPlane", fqs, *,
+                        fusion: str, rescore_mode: Optional[str] = None,
+                        stages: Optional[dict] = None, extra_docs: int = 0,
+                        extra_df: Optional[Dict[str, int]] = None):
+    """Serve a batch of planned hybrid queries through one step over both
+    planes' tensors (:func:`fused_hybrid_step`).
+
+    ``fqs``: one dict per query: ``clauses``/``msm`` (the lowered bool
+    tree), ``qv`` (query vector), ``kboost``, ``rc`` (RRF constant),
+    ``wt``/``wk`` (text and kNN rank windows), ``k`` (final size) and,
+    with ``rescore_mode``, a ``rescore`` dict (``terms``/``qw``/``rw``/
+    ``window``). Every query shares ``fusion`` and ``rescore_mode``.
+
+    Returns (rows, totals, text_rows, knn_rows): ``rows[bi]`` is the fused
+    [(score, shard, doc)] ranking cut to that query's ``k``; the text and
+    kNN rankings (cut to their windows) ride along. The planes must live
+    on one device with equal shard counts; a batch that touches a
+    dense-tier term raises ``ValueError``. ``stages`` receives
+    ``prep_ms``, ``dispatch_ms`` (synchronised), ``fetch_ms``,
+    ``h2d_bytes``, ``d2h_bytes`` and ``docs_scanned``."""
+    if text_plane.device != knn_plane.device:
+        raise ValueError("fused dispatch needs both planes on one device")
+    if text_plane.n_shards != knn_plane.n_shards:
+        raise ValueError("fused dispatch needs aligned shard counts")
+    t0 = time.perf_counter()
+    B = len(fqs)
+    dim = max(knn_plane.dim, 1)
+    bool_queries = [{"clauses": fq["clauses"], "msm": fq["msm"]}
+                    for fq in fqs]
+    Q = max(text_plane.SERVING_Q_MIN, round_up_pow2(
+        text_plane.bool_slot_count(bool_queries)))
+    (starts, lengths, idfw, cbits, req, neg, shd, msm, max_len,
+     any_dense) = text_plane.bool_inputs(bool_queries, Q,
+                                         extra_docs=extra_docs,
+                                         extra_df=extra_df)
+    if any_dense:
+        raise ValueError("fused batch touches dense-tier terms; the "
+                         "sparse-slice fused step cannot serve it")
+    L = min(text_plane.ladder_L(max_len), text_plane.L_cap)
+    np.minimum(lengths, L, out=lengths)
+    qv = np.stack([np.asarray(fq["qv"], np.float32) for fq in fqs]) \
+        if B else np.zeros((0, dim), np.float32)
+    kboost = np.asarray([fq.get("kboost", 1.0) for fq in fqs], np.float32)
+    rc = np.asarray([fq.get("rc", 60.0) for fq in fqs], np.float32)
+    wt = np.asarray([fq.get("wt", 0) for fq in fqs], np.int32)
+    wk = np.asarray([fq.get("wk", 0) for fq in fqs], np.int32)
+    W_text = round_up_pow2(max(int(wt.max(initial=0)), 1))
+    W_knn = round_up_pow2(max(int(wk.max(initial=0)), 1))
+    up = text_plane._upload
+    kvecs, kvn, kex = knn_plane._device_arrays()
+    args = dict(postings_docs=text_plane.docs_dev,
+                postings_impact=text_plane.impacts_dev, kvecs=kvecs, kvn=kvn,
+                kex=kex, starts=up(starts), lengths=up(lengths),
+                idfw=up(idfw), cbits=up(cbits), req=up(req), neg=up(neg),
+                shd=up(shd), msm=up(msm), qv=up(qv), kboost=up(kboost),
+                rc=up(rc), wt=up(wt), wk=up(wk))
+    h2d = starts.nbytes + lengths.nbytes + idfw.nbytes + cbits.nbytes \
+        + qv.nbytes + 24 * B
+    if rescore_mode is not None:
+        bags2 = [list(fq["rescore"]["terms"]) for fq in fqs]
+        Q2 = max(8, round_up_pow2(max(
+            max((len(set(b)) for b in bags2), default=1), 1)))
+        (st2, ln2, iw2, _dr, _dh, _ml2, dense2) = text_plane._lookup(
+            bags2, Q2, extra_docs=extra_docs, extra_df=extra_df)
+        if dense2:
+            raise ValueError("fused rescore touches dense-tier terms")
+        qw = np.asarray([fq["rescore"]["qw"] for fq in fqs], np.float32)
+        rw = np.asarray([fq["rescore"]["rw"] for fq in fqs], np.float32)
+        rwin = np.asarray([fq["rescore"]["window"] for fq in fqs], np.int32)
+        args.update(st2=up(st2), ln2=up(ln2), iw2=up(iw2), qw=up(qw),
+                    rw=up(rw), rwin=up(rwin))
+        h2d += st2.nbytes + ln2.nbytes + iw2.nbytes + 12 * B
+    t1 = time.perf_counter()
+    out = fused_hybrid_step(
+        **args, n_pad_t=text_plane.n_pad, n_pad_k=knn_plane.n_pad, L=L,
+        W_text=W_text, W_knn=W_knn, k=W_text + W_knn, fusion=fusion,
+        similarity=knn_plane.similarity, block=knn_plane.block,
+        rescore_mode=rescore_mode or "total")
+    if stages is not None and text_plane.device.type == "cuda":
+        torch.cuda.synchronize(text_plane.device)
+    t2 = time.perf_counter()
+    text_plane.n_dispatches += 1
+    knn_plane.n_dispatches += 1
+    fvals, fids, counts, tvals, tids, kvals, kids = (o.cpu().numpy()
+                                                     for o in out)
+    UP = max(text_plane.n_pad, knn_plane.n_pad)
+
+    def rows_of(vals, ids, n_pad, cut):
+        """[(score, shard, doc)] rows before the first −inf, cut per
+        query."""
+        hits = decode_hits(vals, ids, n_pad, cut)
+        return [[(v, s, d) for v, (s, d) in zip(vals[b].tolist(), h)]
+                for b, h in enumerate(hits)]
+
+    cut_f = np.asarray([fq.get("k") or (W_text + W_knn) for fq in fqs],
+                       np.int64)
+    rows = rows_of(fvals, fids, UP, cut_f)
+    text_rows = rows_of(tvals, tids, text_plane.n_pad, wt)
+    knn_rows = rows_of(kvals, kids, knn_plane.n_pad, wk)
+    totals = [int(c) for c in counts]
+    if stages is not None:
+        stages["prep_ms"] = (t1 - t0) * 1e3
+        stages["dispatch_ms"] = (t2 - t1) * 1e3
+        stages["fetch_ms"] = (time.perf_counter() - t2) * 1e3
+        stages["h2d_bytes"] = h2d
+        stages["d2h_bytes"] = sum(o.nbytes for o in (
+            fvals, fids, counts, tvals, tids, kvals, kids))
+        stages["docs_scanned"] = text_plane.n_docs_total \
+            + knn_plane.n_docs_total
+    return rows, totals, text_rows, knn_rows

@@ -16,7 +16,9 @@ from elasticsearch_tpu_torch.kernels import build as kb
 from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
                                                   blockmax_scan_plain)
 from elasticsearch_tpu_torch.ops.fused_query import (
-    bisect_exact_scores, bisect_exact_scores_plain)
+    bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
+    bool_bm25_topk_plain, fuse_rank, fuse_rank_plain, rescore_reorder,
+    rescore_reorder_body)
 from elasticsearch_tpu_torch.ops.knn import (
     ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, knn_shard_scan,
     knn_shard_scan_plain)
@@ -30,8 +32,9 @@ from elasticsearch_tpu_torch.parallel.dist_search import (
     total_is_lower_bound, total_value)
 from elasticsearch_tpu_torch.utils.synth import split_csr_shards
 from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
-from torch_cases import (assert_topk_close, dense_case, hit_ids, knn_tol,
-                         query_mix, sparse_case, topk_lists_case)
+from torch_cases import (assert_topk_close, bool_case, dense_case,
+                         fusion_case, hit_ids, knn_tol, query_mix,
+                         sparse_case, topk_lists_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -421,8 +424,8 @@ def _topk_ties_ascend(v, i):
 @pytest.mark.parametrize("similarity,D,B,k", [
     ("cosine", 100, 16, 100), ("dot_product", 12, 5, 10),
     ("l2_norm", 7, 37, 32), ("l2_norm", 100, 16, 100),
-    # BEIR/NQ width (the hybrid configuration's)
-    ("cosine", 768, 8, 10),
+    # BEIR/NQ width (the hybrid configuration's, and its 128-wide window)
+    ("cosine", 768, 8, 10), ("dot_product", 768, 16, 128),
     # lists past shared memory, in device memory
     ("dot_product", 16, 3, 10000)])
 def test_k6_matches_plain(cuda, similarity, D, B, k):
@@ -594,3 +597,214 @@ def test_card_pack_refuses_tf32_and_leaves_the_flag(cuda, monkeypatch):
         DistributedKnnPlane([dict(vectors=vecs)], ivf=dict(nlist=8, seed=1),
                             device=cuda)
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+# ---------------------------------------------------------------------------
+# the bool and hybrid slice: K9, K10, K11 and K3's sel
+# ---------------------------------------------------------------------------
+
+
+def _same(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        if g.dtype == np.float32:
+            g, w = g.view(np.int32), w.view(np.int32)
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed,S,L,n_pad,k", [
+    (1, 1, 48, 4096, 10), (2, 3, 48, 4096, 200),
+    # long runs: 24 runs of up to 30000 postings a shard
+    (3, 2, 30000, 1 << 16, 100),
+    # a running top-k past shared memory
+    (4, 1, 4000, 1 << 15, 30000)])
+def test_k9_bitwise_equals_plain(cuda, seed, S, L, n_pad, k):
+    c, bq = bool_case(seed, S=S, L=L, n_pad=n_pad)
+    args = [_t(c[n], cuda) for n in ("docs", "imps", "starts", "lengths")] \
+        + [_t(bq[n], cuda) for n in ("idfw", "cbits", "req", "neg", "shd",
+                                     "msm")]
+    n0 = kb.launches["bool_bm25_topk"]
+    got = bool_bm25_topk(*args, n_pad=n_pad, L=L, k=k)
+    assert kb.launches["bool_bm25_topk"] == n0 + 1
+    want = bool_bm25_topk_plain(*args, n_pad=n_pad, L=L, k=k)
+    torch.cuda.synchronize()
+    _same(got, want)
+    v = got[0].cpu().numpy()
+    fin = np.isfinite(v)
+    assert fin[0].any() and (v[0][fin[0]] == 0.0).all()   # filter-only
+    assert not fin[3].any()                                # a must, no slot
+    assert fin[2].any()                                    # msm 2, shared
+
+
+@pytest.mark.parametrize("fusion", ["rrf", "sum"])
+@pytest.mark.parametrize("W", [1, 128, 16384])
+def test_k10_bitwise_equals_plain(cuda, fusion, W):
+    """Windows 1, 100 and 10,000 (lists of 1, 128 and 16384 entries; the
+    widest sorts in device memory)."""
+    c = fusion_case(W, B=6, W=W)
+    args = [_t(c[n], cuda) for n in ("tv", "tg", "kv", "kg", "wt", "wk",
+                                     "rc", "kboost")]
+    kw = dict(n_pad_t=c["n_pad_t"], n_pad_k=c["n_pad_k"], UP=c["UP"],
+              pad_id=c["pad_id"], fusion=fusion, similarity="dot_product")
+    for k in (2 * W, min(10, 2 * W), 2 * W + 3):
+        n0 = kb.launches["fuse_rank"]
+        got = fuse_rank(*args, **kw, k=k)
+        assert kb.launches["fuse_rank"] == n0 + 1
+        want = fuse_rank_plain(*args, **kw, k=k)
+        torch.cuda.synchronize()
+        _same(got, want)
+    assert np.isfinite(got[0].cpu().numpy()).any()
+
+
+@pytest.mark.parametrize("mode", ["total", "multiply", "avg", "max", "min"])
+@pytest.mark.parametrize("n", [256, 32768])
+def test_k11_bitwise_equals_plain(cuda, mode, n):
+    rng = np.random.RandomState(n)
+    B, pad = 6, 1 << 30
+    vals = -np.sort(-rng.choice(np.arange(0, 64, dtype=np.float32) / 8,
+                                (B, n)), axis=1)
+    vals[1, n // 2:] = -np.inf
+    vals[2, :] = -np.inf
+    ids = np.stack([rng.choice(1 << 24, n, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    ids = np.where(vals > -np.inf, ids, pad).astype(np.int32)
+    sec = rng.choice(np.array([0.0, 0.5, 1.0, 3.25], np.float32), (B, n))
+    args = [_t(x, cuda) for x in (
+        vals, ids, sec, rng.rand(B, n) < 0.6,
+        np.array([0.7, 1.0, 2.0, 0.7, 0.7, 1.5], np.float32),
+        np.array([1.3, 0.5, 1.0, 1.3, 1.3, 0.25], np.float32),
+        # window 0, partial, at n, past n
+        np.array([0, 50, n, n + 7, 1, n // 3], np.int32))]
+    for k in (10, n):
+        n0 = kb.launches["rescore_reorder"]
+        got = rescore_reorder(*args, mode=mode, k=k, pad_id=pad)
+        assert kb.launches["rescore_reorder"] == n0 + 1
+        want = rescore_reorder_body(*args, mode=mode, k=k, pad_id=pad)
+        torch.cuda.synchronize()
+        _same(got, want)
+
+
+@pytest.mark.parametrize("m,k,seg", [(100, 100, False), (64, 10, True),
+                                     (15000, 10000, False)])
+def test_k3_sel_equals_plain_positions(cuda, m, k, seg):
+    c = topk_lists_case(m + 1, R=6, m=m, n_pad=1 << 20)
+    a = (_t(c["a_vals"], cuda), _t(c["a_docs"], cuda))
+    kw = dict(k=k, fill_id=1 << 20, with_sel=True)
+    if seg:
+        kw.update(seg_len=16, seg_stride=1 << 20, fill_id=(1 << 20) * 4)
+    got = topk_merge(*a, **kw)
+    want = topk_merge_plain(*a, **kw)
+    torch.cuda.synchronize()
+    _same(got, want)
+    sel = got[2].cpu().numpy()
+    v = got[0].cpu().numpy()
+    fin = np.isfinite(v)
+    av = c["a_vals"]
+    assert np.array_equal(np.take_along_axis(av, sel, 1)[fin], v[fin])
+
+
+def test_new_kernels_refuse_what_they_cannot_launch(cuda):
+    """K9 refuses a slot table past shared memory; K10 and K11 refuse a
+    method or mode code they do not know, each with the library's
+    message."""
+    Q, L = 10000, 16
+    z = torch.zeros((1, 1, Q), dtype=torch.int32, device=cuda)
+    zb = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        bool_bm25_topk(
+            torch.full((1, L), 64, dtype=torch.int32, device=cuda),
+            torch.ones((1, L), device=cuda), z, z.clone(),
+            torch.ones((1, Q), device=cuda),
+            torch.ones((1, Q), dtype=torch.int32, device=cuda), zb, zb, zb,
+            zb, n_pad=64, L=L, k=10)
+    f = torch.zeros((1, 4), device=cuda)
+    i = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    o = torch.ones(1, device=cuda)
+    with pytest.raises(RuntimeError, match="fuse_rank: launch refused: "
+                                           "unknown mode"):
+        kb.launch("fuse_rank", cuda, f.data_ptr(), i.data_ptr(), 4,
+                  f.data_ptr(), i.data_ptr(), 4, zb.data_ptr(),
+                  zb.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 8, 8, 8,
+                  16, 5, 0, 4, f.data_ptr(), i.data_ptr(), i.data_ptr(),
+                  None)
+    with pytest.raises(RuntimeError, match="rescore_reorder: launch "
+                                           "refused: unknown mode"):
+        kb.launch("rescore_reorder", cuda, f.data_ptr(), i.data_ptr(),
+                  f.data_ptr(), i.data_ptr(), o.data_ptr(), o.data_ptr(),
+                  zb.data_ptr(), 1, 4, 9, 4, 16, f.data_ptr(),
+                  i.data_ptr(), None)
+    with pytest.raises(ValueError, match="unknown fusion"):
+        fuse_rank(f, i, f, i, zb, zb, o, o, n_pad_t=8, n_pad_k=8, UP=8,
+                  pad_id=16, fusion="max", similarity="cosine", k=4)
+
+
+def _hybrid_planes(cuda, S):
+    """Text and kNN planes of one corpus on the host and, from the same
+    packed state, on the card."""
+    corpus = synthetic_csr_corpus_fast(np.random.RandomState(9), 1 << 13,
+                                       1 << 10, 24)
+    corpus["term_ids"] = {f"t{t}": t for t in range(1 << 10)}
+    shards = split_csr_shards(corpus, S) if S > 1 else [corpus]
+    for s in shards:
+        s["term_ids"] = corpus["term_ids"]
+    rng = np.random.RandomState(5)
+    vecs = rng.randint(-3, 4, size=(1 << 13, 24)).astype(np.float32)
+    per = -(-vecs.shape[0] // S)
+    cpu_t = DistributedSearchPlane(shards, "body", device="cpu",
+                                   dense_threshold=1 << 30)
+    cpu_k = DistributedKnnPlane([dict(vectors=vecs[i * per:(i + 1) * per])
+                                 for i in range(S)],
+                                similarity="dot_product", device="cpu")
+    gpu_t = DistributedSearchPlane.from_packed(cpu_t.export_packed(),
+                                               device=cuda)
+    gpu_k = DistributedKnnPlane.from_packed(cpu_k.export_packed(),
+                                            device=cuda)
+    df = corpus["df"].astype(np.float64)
+    el = np.flatnonzero(df >= 2)
+    fqs = []
+    for i in range(16):
+        terms = [f"t{t}" for t in rng.choice(el, 9, p=df[el] / df[el].sum())]
+        clauses = [("should", terms)] if i % 2 else \
+            [("must", terms[:1]), ("should", terms[1:4]),
+             ("filter", terms[4:5]), ("must_not", terms[5:6])]
+        fqs.append(dict(clauses=clauses, msm=i % 2,
+                        qv=rng.randint(-3, 4, 24).astype(np.float32),
+                        rc=60.0, wt=100, wk=100, k=10, kboost=1.0,
+                        rescore={"terms": terms[:2], "qw": 0.7, "rw": 1.3,
+                                 "window": 50}))
+    return (cpu_t, cpu_k), (gpu_t, gpu_k), fqs
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_hybrid_and_bool_on_card_match_host(cuda, S):
+    """fused_search_device and search_bool on the card against the same
+    planes on the host (integer vectors: exact kNN scores), with the
+    kernels of each path launched and no other."""
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        fused_search_device
+    from elasticsearch_tpu_torch.search.query_planner import \
+        bool_rescore_device
+    host, card, fqs = _hybrid_planes(cuda, S)
+    for fusion in ("rrf", "sum"):
+        for mode in (None, "total", "avg"):
+            kb.reset_launches()
+            got = fused_search_device(*card, fqs, fusion=fusion,
+                                      rescore_mode=mode)
+            for name in ("bool_bm25_topk", "knn_scan", "topk_merge",
+                         "fuse_rank"):
+                assert kb.launches[name] > 0, (name, kb.launches)
+            assert (kb.launches["rescore_reorder"] > 0) == (mode is not None)
+            assert kb.launches["sparse_candidates_topk"] == 0
+            want = fused_search_device(*host, fqs, fusion=fusion,
+                                       rescore_mode=mode)
+            assert got == want
+    bqs = [{"clauses": fq["clauses"], "msm": fq["msm"]} for fq in fqs]
+    assert card[0].search_bool(bqs, k=100, with_totals=True)[1:] == \
+        host[0].search_bool(bqs, k=100, with_totals=True)[1:]
+    gv = card[0].serve_bool(bqs, k=10000, with_totals=True)
+    hv = host[0].serve_bool(bqs, k=10000, with_totals=True)
+    assert gv[1:] == hv[1:] and np.array_equal(gv[0], hv[0])
+    for mode in ("multiply", "max", "min"):
+        g = bool_rescore_device(card[0], bqs, fqs, 64, mode)
+        h = bool_rescore_device(host[0], bqs, fqs, 64, mode)
+        assert g[1:] == h[1:] and np.array_equal(g[0], h[0])

@@ -93,6 +93,8 @@ def test_plane_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        bool_bm25_topk, fuse_rank, rescore_reorder)
     from elasticsearch_tpu_torch.ops.sorted_merge import \
         sparse_candidates_topk
     from elasticsearch_tpu_torch.ops.tiered_bm25 import dense_stream_topk
@@ -114,6 +116,25 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         dense_stream_topk(torch.empty(2, 1, 16, device=meta),
                           torch.empty(1, 1, 16, 64, dtype=torch.bfloat16,
                                       device=meta), k=4)
+    i3 = torch.empty(2, 1, 3, dtype=torch.int32, device=meta)
+    i1 = torch.empty(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError):
+        bool_bm25_topk(
+            torch.empty(1, 64, dtype=torch.int32, device=meta),
+            torch.empty(1, 64, device=meta), i3, i3,
+            torch.empty(2, 3, device=meta),
+            torch.empty(2, 3, dtype=torch.int32, device=meta), i1, i1, i1,
+            i1, n_pad=64, L=8, k=4)
+    v = torch.empty(2, 4, device=meta)
+    i = torch.empty(2, 4, dtype=torch.int32, device=meta)
+    f1 = torch.empty(2, device=meta)
+    with pytest.raises(ValueError):
+        fuse_rank(v, i, v, i, i1, i1, f1, f1, n_pad_t=8, n_pad_k=8, UP=8,
+                  pad_id=16, fusion="rrf", similarity="cosine", k=4)
+    with pytest.raises(ValueError):
+        rescore_reorder(v, i, v, torch.empty(2, 4, dtype=torch.bool,
+                                             device=meta), f1, f1, i1,
+                        mode="total", k=4, pad_id=16)
     assert kb.launches == before
 
 

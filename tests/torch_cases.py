@@ -63,6 +63,59 @@ def sparse_case(seed: int, *, S: int, B: int, Q: int, L: int,
                 idfw=idfw.astype(np.float32), n_pad=n_pad, L=L)
 
 
+def bool_case(seed: int, *, S: int, L: int = 48, n_pad: int = 4096):
+    """``sparse_case`` runs with clause bits and role masks per query:
+    a filter-only tree, must + should + must_not, three should clauses at
+    msm 2 with one term in two of them, a must clause with no slot, and
+    random trees."""
+    B, Q = 8, 6
+    c = sparse_case(seed, S=S, B=B, Q=Q, L=L, n_pad=n_pad)
+    rng = np.random.RandomState(seed + 100)
+    cbits = np.zeros((B, Q), np.int32)
+    idfw = c["idfw"].copy()
+    req = np.zeros(B, np.int32)
+    neg = np.zeros(B, np.int32)
+    shd = np.zeros(B, np.int32)
+    msm = np.zeros(B, np.int32)
+    # 0: one filter clause: every hit scores 0.0
+    cbits[0] = 1
+    idfw[0] = 0.0
+    req[0] = 1
+    # 1: must (c0), should (c1), must_not (c2)
+    cbits[1] = [1, 1, 2, 2, 4, 4]
+    idfw[1, 4:] = 0.0
+    req[1], neg[1], shd[1] = 1, 4, 2
+    # 2: should c0, c1, c2 at msm 2; slots 1 and 2 are one term in c0, c1
+    cbits[2] = [1, 1, 2, 2, 4, 4]
+    c["starts"][2, :, 2] = c["starts"][2, :, 1]
+    c["lengths"][2, :, 2] = c["lengths"][2, :, 1]
+    shd[2], msm[2] = 7, 2
+    # 3: a must clause (c3) that has no slot: no hits
+    cbits[3] = [1, 1, 2, 2, 4, 4]
+    req[3], shd[3], msm[3] = 8, 7, 1
+    # 4: filter (c0) + should (c1) at msm 0: filter-only docs score 0.0
+    cbits[4] = [1, 1, 1, 2, 2, 2]
+    idfw[4, :3] = 0.0
+    req[4], shd[4] = 1, 2
+    for b in range(5, B):                    # random trees of 4 clauses
+        cl = rng.randint(0, 4, size=Q)
+        cbits[b] = 1 << cl
+        roles = rng.randint(0, 4, size=4)    # must, should, filter, not
+        for ci, r in enumerate(roles):
+            bit = 1 << ci
+            if r in (0, 2):
+                req[b] |= bit
+            elif r == 3:
+                neg[b] |= bit
+            else:
+                shd[b] |= bit
+            if r >= 2:
+                idfw[b, cl == ci] = 0.0
+        msm[b] = rng.randint(0, 2)
+    return c, dict(idfw=idfw, cbits=cbits, req=req, neg=neg, shd=shd,
+                   msm=msm)
+
+
 def dense_case(seed: int, *, S: int, B: int, Q: int, T: int,
                n_pad: int = 4096, C: int = 1024, U=None,
                density: float = 0.3) -> dict:
@@ -179,3 +232,47 @@ def hit_ids(hits, n_pad: int, k: int) -> np.ndarray:
         for j, (s, d) in enumerate(row):
             out[b, j] = s * n_pad + d
     return out
+
+
+def fusion_case(seed: int, *, B: int, W: int, S: int = 2,
+                n_pad_t: int = 1 << 15, n_pad_k: int = 1 << 14) -> dict:
+    """The two ranked lists the hybrid step fuses, per query: a text list
+    f32/i32[B, W] of global ids ``s · n_pad_t + doc`` and a kNN list of
+    ``s · n_pad_k + row`` (about a third of its docs also in the text
+    list), scores descending with equal scores, −inf tails holding the
+    fill id, and per-query windows, rank constants and kNN weights."""
+    rng = np.random.RandomState(seed)
+    n_docs = min(n_pad_t, n_pad_k)
+    tv = np.full((B, W), -np.inf, np.float32)
+    kv = np.full((B, W), -np.inf, np.float32)
+    tg = np.full((B, W), S * n_pad_t, np.int32)
+    kg = np.full((B, W), S * n_pad_k, np.int32)
+    for b in range(B):
+        nt, nk = rng.randint(W // 2, W + 1), rng.randint(W // 2, W + 1)
+        key_t = rng.choice(S * n_docs, nt, replace=False)
+        pool = rng.choice(S * n_docs, nk, replace=False)
+        share = rng.rand(nk) < 0.35
+        pool[share] = rng.choice(key_t, share.sum())
+        _, first = np.unique(pool, return_index=True)
+        key_k = pool[np.sort(first)]
+        vt = -np.sort(-rng.choice(np.arange(1, 40, dtype=np.float32) / 4,
+                                  nt))
+        vk = -np.sort(-rng.choice(np.linspace(-1, 1, 97).astype(np.float32),
+                                  key_k.size))
+        # (score desc, id asc) as the reduces order them
+        s_t, d_t = np.divmod(key_t, n_docs)
+        g_t = s_t * n_pad_t + d_t
+        o = np.lexsort((g_t, -vt))
+        tv[b, :nt], tg[b, :nt] = vt, g_t[o]
+        s_k, d_k = np.divmod(key_k, n_docs)
+        g_k = s_k * n_pad_k + d_k
+        o = np.lexsort((g_k, -vk))
+        kv[b, :key_k.size], kg[b, :key_k.size] = vk, g_k[o]
+    wt = rng.randint(0, W + 2, B).astype(np.int32)
+    wk = rng.randint(0, W + 2, B).astype(np.int32)
+    wt[0] = wk[0] = W
+    return dict(tv=tv, tg=tg, kv=kv, kg=kg, wt=wt, wk=wk,
+                rc=rng.choice(np.array([60.0, 1.0, 0.5], np.float32), B),
+                kboost=rng.choice(np.array([1.0, 2.0, 0.3], np.float32), B),
+                n_pad_t=n_pad_t, n_pad_k=n_pad_k,
+                UP=max(n_pad_t, n_pad_k), pad_id=S * max(n_pad_t, n_pad_k))
