@@ -10,8 +10,9 @@ prune configuration (``lexical_10m_prune``): a 2^22-document corpus
 (mean length 16, seed 1234) with no dense tier and a block-max tier,
 served through ``plane.serve`` in batches of 16 four-term queries; bool
 trees on that plane; the kNN plane's exact and IVF routes at the
-benchmark's two kNN shapes; and the one-dispatch hybrid (BM25 + kNN +
-RRF) at BEIR/NQ's size. Phases, each fatal on failure:
+benchmark's two kNN shapes; the one-dispatch hybrid (BM25 + kNN + RRF)
+at BEIR/NQ's size; and config #3's terms + percentiles aggregation at the
+NYC-taxi rally track's size. Phases, each fatal on failure:
 
 1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
    a source, all started together);
@@ -71,7 +72,21 @@ RRF) at BEIR/NQ's size. Phases, each fatal on failure:
    refused; four queries against numpy (exact BM25 top-100, matmul +
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
    launches counted alone; each kernel's time;
-10. the ``kernels`` JSON line, the card line, and the final status line.
+10. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
+    ``nyc_taxis``), one pair a doc, 256 Zipf(1.1) ordinals, lognormal(3, 1)
+    values, pairs sorted by (ordinal, value), a fresh 25 % mask a agg:
+    33 aggs (one warm-up) through ``masked_rank_prefix`` (K12) →
+    ``top_ordinals`` → ``prefix_percentiles`` (K13), top 10 and
+    percentiles [50, 95, 99] of four of them equal to numpy; the ordinal
+    CSR, HLL pairs and histogram ids of a stand-in segment of the same
+    columns built by the port's caches (``pack_s``), and over them, for
+    three masks, K12's counts and sums, K13's register max (equal to
+    ``host_register_max``), K14's bucket counts and sums and K15; K12–K15
+    against their plain versions (integers, picks, min and max bitwise;
+    f32 sums within 2^-22 of their |v| mass); the path's launches counted
+    alone; each kernel's time beside its bound, plain version and
+    library call;
+11. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -2071,6 +2086,410 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     return kernels, out, path
 
 
+#: config #3 (``bench.py:bench_terms_percentiles``) at the NYC-taxi rally
+#: track's scale: Rally's ``nyc_taxis`` corpus holds 165,346,692 documents
+#: (2015 yellow-cab trips); one pair a doc
+AGG_DOCS = 165_346_692
+AGG_V = 256                  # keyword ordinals, Zipf(1.1) frequencies
+AGG_ZIPF = 1.1
+AGG_DENSITY = 0.25           # filter mask density, fresh a agg
+AGG_TOP = 10
+AGG_QS = (50.0, 95.0, 99.0)  # Hazen
+AGG_TIMED = 32               # timed aggs (one warm-up more)
+AGG_CHECKED = 4              # aggs held against the numpy reference
+AGG_OTHER = 3                # masks through the other kernels' calls
+#: the histogram over the fare column (lognormal(3, 1)): 573 buckets on
+#: the full-size run, 1,024 padded, under MAX_DEVICE_BUCKETS
+AGG_HIST_INTERVAL = 10.0
+
+
+def agg_columns(rng, n, V):
+    """Config #3's columns built directly in (ordinal, value) order: run
+    lengths multinomial over Zipf(1.1) ordinal frequencies, lognormal(3, 1)
+    f32 values sorted within each run, and a random permutation for the
+    docs (pair i belongs to doc ``docs[i]``), the distribution of the
+    bench's per-doc draws after its lexsort."""
+    pmf = np.arange(1, V + 1, dtype=np.float64) ** -AGG_ZIPF
+    pmf /= pmf.sum()
+    lens = rng.multinomial(n, pmf)
+    off = np.zeros(V + 1, np.int32)
+    np.cumsum(lens, out=off[1:])
+    vals = rng.lognormal(3.0, 1.0, n).astype(np.float32)
+    for v in range(V):
+        vals[off[v]:off[v + 1]].sort()
+    docs = rng.permutation(n).astype(np.int32)
+    return off, docs, vals
+
+
+def agg_reference(mask_h, ords_doc, off, docs_s, vals_s, qs):
+    """The terms top-k and exact percentiles of one mask, in numpy: counts
+    by ``np.bincount``, top ordinals by a stable argsort (ties to the lower
+    ordinal), and each run's masked values (ascending already) picked at
+    the Hazen ranks and interpolated with the f32 FMA the port uses; also
+    ``np.percentile(method="hazen")`` of the same values, in f64."""
+    import torch
+    from elasticsearch_tpu_torch.ops.blockmax import fma_f32
+    n = ords_doc.shape[0]
+    cnt = np.bincount(ords_doc[mask_h[:n]], minlength=off.shape[0] - 1)
+    top = np.argsort(-cnt, kind="stable")[:AGG_TOP]
+    qs = np.asarray(qs, np.float64)
+    picked, hazen = [], []
+    for o in top:
+        sl = slice(off[o], off[o + 1])
+        run = vals_s[sl][mask_h[docs_s[sl]]]
+        k = run.size
+        pos = np.clip(qs / 100.0 * k - 0.5, 0.0, max(k - 1.0, 0.0))
+        lo = np.floor(pos).astype(np.int64)
+        hi = np.minimum(lo + 1, max(k - 1, 0))
+        f = torch.from_numpy((pos - lo).astype(np.float32))
+        a, b = torch.from_numpy(run[lo]), torch.from_numpy(run[hi])
+        picked.append(fma_f32(f, b, (1.0 - f) * a).numpy())
+        hazen.append(np.percentile(run.astype(np.float64), qs,
+                                   method="hazen"))
+    return top, cnt[top], np.asarray(picked, np.float64), np.asarray(hazen)
+
+
+def agg_sum_tol(abs_mass):
+    """Kernel and plain version each round an f64 sum to f32 once (the
+    f64 sums' own error is below 2^-25 of the mass for < 2^28 terms)."""
+    return 2.0 ** -22 * abs_mass
+
+
+def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
+    """Phase 10: aggregations (config #3) on the card. The terms +
+    percentiles route (K12 → top_ordinals → K13) over the bench's columns,
+    and K12–K15 through the port's per-segment caches on a stand-in
+    segment of the same columns. Returns the K12–K15 rows and the path's
+    launch counts."""
+    import types
+
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import aggs
+    from elasticsearch_tpu_torch.utils.shapes import round_up_pow2
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1234)
+    t0 = time.perf_counter()
+    off, docs_s, vals_s = agg_columns(rng, n_docs, AGG_V)
+    n_pad = round_up_pow2(n_docs)
+    ords_s = np.repeat(np.arange(AGG_V, dtype=np.int32), np.diff(off))
+    ords_doc = np.empty(n_docs, np.int32)
+    ords_doc[docs_s] = ords_s
+    vals_doc = np.empty(n_docs, np.float32)
+    vals_doc[docs_s] = vals_s
+    del ords_s
+    gen_s = time.perf_counter() - t0
+    off_d, docs_d, vals_d = (torch.from_numpy(x).to(dev)
+                             for x in (off, docs_s, vals_s))
+    mask_h = np.zeros(n_pad, bool)
+
+    def draw():
+        mask_h[:n_docs] = rng.random(n_docs, dtype=np.float32) < AGG_DENSITY
+        return mask_h
+
+    print(f"# aggs (config #3): {n_docs} docs, one pair a doc, n_pad "
+          f"{n_pad}, {AGG_V} Zipf({AGG_ZIPF}) ordinals (largest run "
+          f"{int(np.diff(off).max())} pairs), lognormal(3, 1) values; "
+          f"columns in {gen_s:.1f} s", flush=True)
+
+    # ---- the route: mask upload, K12 → top_ordinals → K13 ---------------
+    kb.reset_launches()
+    lat, h2d, prefix_ms, pick_ms = [], [], [], []
+    checked = 0
+    route_in = None
+    for i in range(1 + n_timed):
+        draw()
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        mask_d = torch.from_numpy(mask_h).to(dev)
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        counts, c = aggs.masked_rank_prefix(off_d, docs_d, mask_d)
+        top_counts, top = aggs.top_ordinals(counts, AGG_TOP)
+        tc = time.perf_counter()
+        pct = aggs.prefix_percentiles(counts, c, off_d, vals_d, top, AGG_QS)
+        td = time.perf_counter()
+        if i:
+            lat.append(td - ta)
+            h2d.append(tb - ta)
+            prefix_ms.append(tc - tb)
+            pick_ms.append(td - tc)
+        if checked < AGG_CHECKED:
+            w_top, w_cnt, w_pct, w_hazen = agg_reference(
+                mask_h, ords_doc, off, docs_s, vals_s, AGG_QS)
+            if not (np.array_equal(top, w_top) and
+                    np.array_equal(top_counts, w_cnt)):
+                fail(f"aggs: top {AGG_TOP} {top.tolist()} "
+                     f"{top_counts.tolist()} != numpy {w_top.tolist()} "
+                     f"{w_cnt.tolist()}")
+            if not np.array_equal(pct, w_pct):
+                fail(f"aggs: percentiles {pct.tolist()} != numpy's picks "
+                     f"{w_pct.tolist()}")
+            if not np.allclose(pct, w_hazen, rtol=1e-6, atol=0.0):
+                fail("aggs: percentiles off np.percentile(hazen) by more "
+                     "than 1e-6")
+            checked += 1
+        if i == 0:
+            route_in = (mask_d.clone(), counts, c, top)
+    route_counts = dict(kb.launches)
+    n_aggs = 1 + n_timed
+    if route_counts["agg_masked_scan"] != n_aggs or \
+            route_counts["agg_rank_pick"] != n_aggs:
+        fail(f"aggs route: launches {route_counts} over {n_aggs} aggs")
+    lat = np.asarray(lat)
+    print(f"# aggs route: {len(lat) / lat.sum():.2f} aggs/s, p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms over {len(lat)} aggs "
+          f"(top {AGG_TOP} terms + percentiles {list(AGG_QS)}, "
+          f"{AGG_DENSITY:.0%} masks) [{card}]", flush=True)
+    print(f"# aggs route stages (mean ms): h2d_ms "
+          f"{np.mean(h2d) * 1e3:.3f} ({n_pad} mask bytes, pageable), "
+          f"dispatch_ms {(np.mean(prefix_ms) + np.mean(pick_ms)) * 1e3:.3f}"
+          f" (K12 + top_ordinals {np.mean(prefix_ms) * 1e3:.3f}, Hazen ranks"
+          f" + K13 + the result {np.mean(pick_ms) * 1e3:.3f}); fetch_ms in "
+          f"dispatch: the route synchronises on the {4 * AGG_V}-byte counts "
+          f"and the {4 * AGG_TOP * len(AGG_QS)}-byte result", flush=True)
+    print(f"# aggs route: top {AGG_TOP} and percentiles of {checked} aggs "
+          f"equal to numpy (bincount + stable argsort; Hazen picks with the "
+          f"f32 FMA, within 1e-6 of np.percentile)", flush=True)
+
+    # ---- the other kernels through the caches of a stand-in segment -------
+    t0 = time.perf_counter()
+    seg = types.SimpleNamespace(
+        n_docs=n_docs, n_pad=n_pad,
+        keyword_fields={"vendor": types.SimpleNamespace(
+            dv_docs_host=np.arange(n_docs, dtype=np.int32),
+            dv_ords_host=ords_doc,
+            ord_terms=[f"v{o:03d}" for o in range(AGG_V)])},
+        numeric_fields={"fare": types.SimpleNamespace(
+            docs_host=np.arange(n_docs, dtype=np.int32),
+            vals_host=vals_doc.astype(np.float64))})
+    k_off, k_docs, V = aggs.ordinal_csr(seg, "vendor")
+    hll = aggs.hll_sketch_pairs(seg, "fare")
+    h_ids, h_docs, n_buckets, _base = aggs.histogram_bucket_ids(
+        seg, "fare", AGG_HIST_INTERVAL, 0.0)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    if h_ids is None:
+        fail(f"aggs: {n_buckets} histogram buckets past the device cap")
+    nb = round_up_pow2(n_buckets)
+    Mp = k_docs.shape[0]
+    k_docs_h = k_docs.cpu().numpy()
+    k_vals = np.zeros(Mp, np.float32)
+    k_vals[:n_docs] = vals_doc[k_docs_h[:n_docs]]
+    h_vals = np.zeros(Mp, np.float32)
+    h_vals[:n_docs] = vals_doc
+    k_vals_d, h_vals_d = (torch.from_numpy(x).to(dev)
+                          for x in (k_vals, h_vals))
+    print(f"# aggs caches (ordinal CSR of vendor, HLL pairs of fare at p = "
+          f"{aggs.HLL_P}, histogram ids of fare at interval "
+          f"{AGG_HIST_INTERVAL}: {n_buckets} buckets, {nb} padded): pack_s "
+          f"{pack_s:.1f} ({Mp} padded pairs each)", flush=True)
+
+    kb.reset_launches()
+    other = []
+    for _ in range(AGG_OTHER):
+        mask_o = draw().copy()
+        mask_d = torch.from_numpy(mask_o).to(dev)
+        other.append(dict(
+            mask=mask_d, mask_h=mask_o,
+            counts=aggs.masked_ordinal_counts(k_off, k_docs, mask_d),
+            sums=aggs.masked_ordinal_sums(k_off, k_docs, k_vals_d, mask_d),
+            bcounts=aggs.masked_bucket_counts(h_ids, h_docs, mask_d,
+                                              n_buckets=nb),
+            bsums=aggs.masked_bucket_sums(h_ids, h_docs, h_vals_d, mask_d,
+                                          n_buckets=nb),
+            regs=aggs.masked_register_max(hll["off_dev"], hll["docs_dev"],
+                                          hll["rhos_dev"], mask_d),
+            metrics=torch.stack(aggs.masked_metrics(h_docs, h_vals_d,
+                                                    mask_d))))
+    torch.cuda.synchronize()
+    other_counts = dict(kb.launches)
+    want = {"agg_masked_scan": 3 * AGG_OTHER, "agg_rank_pick": AGG_OTHER,
+            "agg_bucket_reduce": 2 * AGG_OTHER, "agg_metrics": AGG_OTHER}
+    if any(other_counts[n] != v for n, v in want.items()):
+        fail(f"aggs kernels: launches {other_counts}, expected {want}")
+    path = {n: route_counts[n] + other_counts[n] for n in route_counts}
+
+    # ---- each kernel against its plain version -----------------------------
+    mask_d, counts, c, top = route_in
+    p_counts, p_c = aggs.masked_scan_plain(off_d, docs_d, mask_d,
+                                           mode="prefix")
+    if not (same_bits(counts, p_counts) and same_bits(c, p_c)):
+        fail("aggs: K12 (prefix) differs from its plain version")
+    errs = {}
+    for o in other:
+        if not same_bits(o["counts"], aggs.masked_scan_plain(
+                k_off, k_docs, o["mask"], mode="counts")):
+            fail("aggs: K12 (counts) differs from its plain version")
+        want_s = aggs.masked_scan_plain(k_off, k_docs, o["mask"], k_vals_d,
+                                        mode="sums")
+        mass = aggs.masked_scan_plain(k_off, k_docs, o["mask"],
+                                      k_vals_d.abs(), mode="sums").double()
+        err = (o["sums"].double() - want_s.double()).abs()
+        if (err > agg_sum_tol(mass)).any():
+            fail(f"aggs: K12 (sums) off its plain version by "
+                 f"{float(err.max())}")
+        errs["agg_masked_scan"] = max(errs.get("agg_masked_scan", 0.0),
+                                      float(err.max()))
+        hm = aggs.gather_mask(o["mask"], h_docs)
+        if not same_bits(o["bcounts"], aggs.bucket_reduce_plain(
+                h_ids, h_docs, o["mask"], n_buckets=nb)):
+            fail("aggs: K14 (counts) differs from its plain version")
+        want_b = aggs.bucket_reduce_plain(h_ids, h_docs, o["mask"], h_vals_d,
+                                          n_buckets=nb)
+        ok = hm & (h_ids >= 0) & (h_ids < nb)
+        bmass = torch.zeros(nb + 1, dtype=torch.float64, device=dev) \
+            .index_add_(0, torch.where(ok, h_ids.long(), nb),
+                        torch.where(ok, h_vals_d.double().abs(), 0.0))[:nb]
+        err = (o["bsums"].double() - want_b.double()).abs()
+        if (err > agg_sum_tol(bmass)).any():
+            fail(f"aggs: K14 (sums) off its plain version by "
+                 f"{float(err.max())}")
+        errs["agg_bucket_reduce"] = max(errs.get("agg_bucket_reduce", 0.0),
+                                        float(err.max()))
+        want_r = aggs.masked_scan_plain(hll["off_dev"], hll["docs_dev"],
+                                        o["mask"], mode="prefix")[1]
+        if not same_bits(o["regs"], aggs.register_max_plain(
+                want_r, hll["off_dev"], hll["rhos_dev"])):
+            fail("aggs: K13 (registers) differs from its plain version")
+        regs_h = o["regs"].cpu().numpy()
+        if not np.array_equal(regs_h[:hll["m"]],
+                              aggs.host_register_max(hll, o["mask_h"])) or \
+                regs_h[hll["m"]:].any():
+            fail("aggs: HLL registers differ from host_register_max")
+        want_m = aggs.metrics_plain(h_docs, h_vals_d, o["mask"])
+        if not same_bits(o["metrics"][[0, 2, 3]], want_m[[0, 2, 3]]):
+            fail("aggs: K15 count/min/max differ from its plain version")
+        err = abs(float(o["metrics"][1]) - float(want_m[1]))
+        if err > agg_sum_tol(float(torch.where(
+                hm, h_vals_d.double().abs(), 0.0).sum())):
+            fail(f"aggs: K15 sum off its plain version by {err}")
+        errs["agg_metrics"] = max(errs.get("agg_metrics", 0.0), err)
+    lo, hi, frac = aggs.hazen_ranks(counts.cpu().numpy()[top], AGG_QS)
+    k13_args = (c, off_d, vals_d, torch.from_numpy(top).to(dev),
+                torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev),
+                torch.from_numpy(frac).to(dev))
+    if not same_bits(aggs.rank_pick(*k13_args),
+                     aggs.rank_pick_plain(*k13_args)):
+        fail("aggs: K13 (pick) differs from its plain version")
+    print(f"# aggs kernels == plain: K12 prefix/counts, K13 pick/registers, "
+          f"K14 counts, K15 count/min/max bitwise (registers == "
+          f"host_register_max); f32 sums within 2^-22 of their |v| mass: "
+          f"K12 {errs['agg_masked_scan']:.3g}, K14 "
+          f"{errs['agg_bucket_reduce']:.3g}, K15 {errs['agg_metrics']:.3g} "
+          f"(largest |kernel - plain|); launches on the path "
+          f"{ {n: v for n, v in path.items() if v} }", flush=True)
+
+    # ---- times -------------------------------------------------------------
+    o = other[0]
+    md = o["mask"]
+    log_c = int(np.ceil(np.log2(n_docs + 1))) + 1
+
+    def lib_k12():
+        cc = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                        torch.cumsum(mask_d[docs_d.long()], 0,
+                                     dtype=torch.int32)])
+        return cc[off_d[1:].long()] - cc[off_d[:-1].long()], cc
+
+    def lib_k13():
+        st = c[off_d[k13_args[3].long()].long()][:, None]
+        tgt = torch.cat([st + k13_args[4] + 1, st + k13_args[5] + 1], 1)
+        idx = torch.searchsorted(c, tgt.contiguous()) - 1
+        idx = idx.clamp(0, n_docs - 1)
+        return vals_d[idx]
+
+    # the library calls take the real pairs (the padded ones add nothing)
+    r_ids, r_docs, r_vals = (x[:n_docs] for x in (h_ids, h_docs, h_vals_d))
+
+    def lib_k14():
+        mm = md[r_docs.long()] & (r_ids >= 0) & (r_ids < nb)
+        return torch.bincount(torch.where(mm, r_ids, nb), minlength=nb + 1)
+
+    def lib_k15():
+        mm = md[r_docs.long()]
+        return (torch.aminmax(torch.where(mm, r_vals, float("inf"))),
+                torch.where(mm, r_vals, 0.0).sum(), mm.sum())
+
+    B, R = lo.shape
+    # bounds count what this run's data needs: every pair's doc (and id),
+    # each mask byte a real doc touches once (one pair a doc: n_docs of the
+    # n_pad), values only of the pairs the kernel keeps
+    n_in = int(((h_ids >= 0) & (h_ids < nb)).sum())
+    n_match = int(aggs.gather_mask(md, h_docs).sum())
+    rows = []
+    specs = [
+        ("agg_masked_scan", "csrc/agg_masked_scan.cu",
+         "elasticsearch_tpu/ops/aggs.py:113",
+         lambda: aggs.masked_rank_prefix(off_d, docs_d, mask_d),
+         lambda: aggs.masked_scan_plain(off_d, docs_d, mask_d, mode="prefix"),
+         lib_k12, "torch.cumsum + gather",
+         # offsets, pair docs, mask bytes, counts, prefix
+         (AGG_V + 1) * 4 + n_docs * 4 + n_docs + AGG_V * 4
+         + (n_docs + 1) * 4, n_docs, {
+             f"counts (CSR, {Mp} pairs)": lambda: aggs.masked_ordinal_counts(
+                 k_off, k_docs, md),
+             f"sums (CSR, {Mp} pairs)": lambda: aggs.masked_ordinal_sums(
+                 k_off, k_docs, k_vals_d, md)}),
+        ("agg_rank_pick", "csrc/agg_rank_pick.cu",
+         "elasticsearch_tpu/ops/aggs.py:138",
+         lambda: aggs.rank_pick(*k13_args),
+         lambda: aggs.rank_pick_plain(*k13_args),
+         lib_k13, "torch.searchsorted + gather",
+         # ordinals, offsets and bases, lo/hi/frac, the probes of two
+         # binary searches, two gathered values, the result
+         B * 12 + B * R * 12 + 2 * B * R * log_c * 4 + B * R * 12,
+         2 * B * R * log_c, {
+             f"registers ({hll['m']}, K12 prefix first)": lambda:
+             aggs.masked_register_max(hll["off_dev"], hll["docs_dev"],
+                                      hll["rhos_dev"], md)}),
+        ("agg_bucket_reduce", "csrc/agg_bucket_reduce.cu",
+         "elasticsearch_tpu/ops/aggs.py:73",
+         lambda: aggs.masked_bucket_counts(h_ids, h_docs, md, n_buckets=nb),
+         lambda: aggs.bucket_reduce_plain(h_ids, h_docs, md, n_buckets=nb),
+         lib_k14, "torch.bincount (after the mask gather)",
+         # ids, docs of in-range pairs, mask bytes, counts
+         Mp * 4 + n_in * 4 + n_docs + nb * 4, Mp, {
+             "sums": lambda: aggs.masked_bucket_sums(
+                 h_ids, h_docs, h_vals_d, md, n_buckets=nb)}),
+        ("agg_metrics", "csrc/agg_metrics.cu",
+         "elasticsearch_tpu/ops/aggs.py:100",
+         lambda: aggs.masked_metrics(h_docs, h_vals_d, md),
+         lambda: aggs.metrics_plain(h_docs, h_vals_d, md),
+         lib_k15, "torch.aminmax + sum (after the mask gather)",
+         # docs, mask bytes, values of matched pairs, the four results
+         Mp * 4 + n_docs + n_match * 4 + 16, Mp + 3 * n_match, {}),
+    ]
+    for (name, src, replaces, kern, plain, lib, lib_name, nbytes, nops,
+         modes) in specs:
+        ms = timed(kern, reps)
+        plain_ms = timed(plain, 2)
+        lib_ms = timed(lib, reps)
+        bms, bby = bound(nbytes, nops)
+        by_mode = {key: timed(fn, reps) for key, fn in modes.items()}
+        rows.append(dict(
+            name=name, route="cuda", source=f"elasticsearch_tpu_torch/{src}",
+            replaces=replaces, max_abs_err=errs.get(name, 0.0), ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=lib_ms,
+            library_call=lib_name, ms_by_mode=by_mode))
+        # the route's pairs reach their docs in random order: a gathered
+        # byte costs a 32-byte sector of a mask larger than L2 (the
+        # histogram pairs walk the mask in doc order)
+        sector = "" if name != "agg_masked_scan" else (
+            f"; a 32-byte sector a gathered pair would make it "
+            f"{(nbytes - n_docs + 32 * n_docs) / HBM_BPS * 1e3:.4f} ms")
+        print(f"# {name}: {ms:.4f} ms (bound {bms:.5f} ms by {bby}, "
+              f"{nbytes} bytes{sector}), plain {plain_ms:.3f} ms, library "
+              f"({lib_name}) "
+              f"{lib_ms:.4f} ms; "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in by_mode.items())
+              + f" [{card}]", flush=True)
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return rows, path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2109,13 +2528,17 @@ def main() -> int:
     hy_rows, hy_times, hy_counts = run_hybrid(card)
     torch.cuda.empty_cache()
     print(f"# hybrid phase {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    agg_rows, agg_counts = run_aggs(card)
+    torch.cuda.empty_cache()
+    print(f"# aggs phase {time.perf_counter() - t1:.1f} s", flush=True)
     k9_row["ms_by_path"]["hybrid"] = hy_times["k9"]["ms"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
-    kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows
+    kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
                        knn_ivf=ivf_counts, bool=bool_counts,
-                       hybrid=hy_counts)
+                       hybrid=hy_counts, aggs=agg_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],

@@ -40,7 +40,8 @@ BUILD_DIR = PKG_DIR / "_build"
 #: one entry per kernel source (csrc/<name>.cu)
 KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
            "blockmax_scan", "bisect_exact_scores", "knn_scan", "ivf_scan",
-           "ivf_rerank", "fuse_rank", "rescore_reorder")
+           "ivf_rerank", "fuse_rank", "rescore_reorder", "agg_masked_scan",
+           "agg_rank_pick", "agg_bucket_reduce", "agg_metrics")
 
 #: kernel entries built from another kernel's source: entry -> source
 ENTRY_SOURCE = {"bool_bm25_topk": "sparse_candidates_topk"}
@@ -119,6 +120,24 @@ _SIGNATURES = {
     "rescore_reorder": (
         "es_rescore_reorder",
         [_P] * 7 + [_I] * 5 + [_P] * 4),
+    # offsets, Vp, pair_docs, pair_vals, Mp, mask, n_pad, mode, out_counts,
+    # out_c, out_sums, workspace, stream
+    "agg_masked_scan": (
+        "es_agg_masked_scan",
+        [_P, _I, _P, _P, _I, _P, _I, _I] + [_P] * 5),
+    # c, n_c, offsets, V, vals, M, ordinals, lo, hi, frac, B, R, mode, out,
+    # stream
+    "agg_rank_pick": (
+        "es_agg_rank_pick",
+        [_P, _I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 2),
+    # ids, docs, vals, Mp, mask, n_pad, nb, sums, out, workspace, stream
+    "agg_bucket_reduce": (
+        "es_agg_bucket_reduce",
+        [_P] * 3 + [_I, _P] + [_I] * 3 + [_P] * 3),
+    # docs, vals, Mp, mask, n_pad, out, workspace, stream
+    "agg_metrics": (
+        "es_agg_metrics",
+        [_P, _P, _I, _P, _I] + [_P] * 3),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -143,6 +162,19 @@ _QUERIES = {
     "rescore_reorder": {
         # (n, B) -> workspace bytes, 0 when a row's sort fits
         "es_rescore_reorder_workspace_bytes": ([_I] * 2, ctypes.c_longlong),
+    },
+    "agg_masked_scan": {
+        # (Vp, Mp, mode) -> workspace bytes
+        "es_agg_masked_scan_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
+    },
+    "agg_bucket_reduce": {
+        # (Mp, n_buckets, sums) -> workspace bytes, 0 for counts
+        "es_agg_bucket_reduce_workspace_bytes": ([_I] * 3,
+                                                 ctypes.c_longlong),
+    },
+    "agg_metrics": {
+        # (Mp) -> workspace bytes
+        "es_agg_metrics_workspace_bytes": ([_I], ctypes.c_longlong),
     },
 }
 

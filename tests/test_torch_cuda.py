@@ -32,9 +32,10 @@ from elasticsearch_tpu_torch.parallel.dist_search import (
     total_is_lower_bound, total_value)
 from elasticsearch_tpu_torch.utils.synth import split_csr_shards
 from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
-from torch_cases import (assert_topk_close, bool_case, dense_case,
-                         fusion_case, hit_ids, knn_tol, query_mix,
-                         sparse_case, topk_lists_case)
+from elasticsearch_tpu_torch.ops import aggs
+from torch_cases import (agg_pairs_case, assert_topk_close, bool_case,
+                         dense_case, fusion_case, hit_ids, knn_tol,
+                         query_mix, sparse_case, topk_lists_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -808,3 +809,153 @@ def test_hybrid_and_bool_on_card_match_host(cuda, S):
         g = bool_rescore_device(card[0], bqs, fqs, 64, mode)
         h = bool_rescore_device(host[0], bqs, fqs, 64, mode)
         assert g[1:] == h[1:] and np.array_equal(g[0], h[0])
+
+
+# ---------------------------------------------------------------------------
+# the aggregation kernels (K12–K15)
+# ---------------------------------------------------------------------------
+
+#: (seed, pairs, runs, n_pad, mask density, doc draw): a few tiles, many
+#: tiles with a ragged last word, many empty runs, wrapped docs, no pairs
+AGG_CASES = [(0, 1 << 10, 5, 1 << 10, 0.5, "perm"),
+             (1, (1 << 20) - 77, 300, 1 << 21, 0.25, "perm"),
+             (2, 1 << 18, 4000, 1 << 16, 0.3, "wild"),
+             (3, 1 << 16, 7, 1 << 16, 1.0, "wild"),
+             (4, 1 << 16, 64, 1 << 16, 0.0, "perm")]
+
+
+def _agg_inputs(cuda, case):
+    c = agg_pairs_case(*case)
+    return c, {n: _t(c[n], cuda) for n in ("off", "docs", "vals", "mask")}
+
+
+def _sum_tol(abs_mass):
+    """Kernel and plain version both round an f64 sum to f32 once."""
+    return 2.0 ** -22 * abs_mass
+
+
+@pytest.mark.parametrize("case", AGG_CASES)
+def test_k12_matches_plain(cuda, case):
+    c, t = _agg_inputs(cuda, case)
+    for mode in ("counts", "prefix"):
+        n0 = kb.launches["agg_masked_scan"]
+        got = aggs.masked_scan(t["off"], t["docs"], t["mask"], mode=mode)
+        assert kb.launches["agg_masked_scan"] == n0 + 1
+        want = aggs.masked_scan_plain(t["off"], t["docs"], t["mask"],
+                                      mode=mode)
+        torch.cuda.synchronize()
+        _same_bits(*((got, want) if mode == "prefix" else
+                     ((got,), (want,))))
+    got = aggs.masked_ordinal_sums(t["off"], t["docs"], t["vals"], t["mask"])
+    again = aggs.masked_ordinal_sums(t["off"], t["docs"], t["vals"],
+                                     t["mask"])
+    want = aggs.masked_scan_plain(t["off"], t["docs"], t["mask"], t["vals"],
+                                  mode="sums")
+    m = aggs.gather_mask(t["mask"], t["docs"]).cpu().numpy()
+    absmv = np.where(m, np.abs(c["vals"]).astype(np.float64), 0.0)
+    off = c["off"]
+    mass = np.array([absmv[off[v]:off[v + 1]].sum()
+                     for v in range(len(off) - 1)])
+    err = np.abs(got.cpu().numpy().astype(np.float64) -
+                 want.cpu().numpy())
+    assert (err <= _sum_tol(mass)).all()
+    _same_bits((got,), (again,))
+
+
+@pytest.mark.parametrize("case", AGG_CASES[:4])
+@pytest.mark.parametrize("B,R", [(10, 3), (64, 7), (300, 101)])
+def test_k13_matches_plain(cuda, case, B, R):
+    c, t = _agg_inputs(cuda, case)
+    counts, pre = aggs.masked_rank_prefix(t["off"], t["docs"], t["mask"])
+    rng = np.random.RandomState(B + R)
+    V = c["off"].shape[0] - 1
+    ords = rng.randint(0, V, B).astype(np.int32)
+    n = counts.cpu().numpy()[ords]
+    lo = np.stack([rng.randint(0, max(k, 1), R) for k in n]).astype(np.int32)
+    hi = np.minimum(lo + 1, np.maximum(n[:, None] - 1, 0)).astype(np.int32)
+    frac = rng.rand(B, R).astype(np.float32)
+    frac[:, 0] = 0.0
+    args = (pre, t["off"], t["vals"], _t(ords, cuda), _t(lo, cuda),
+            _t(hi, cuda), _t(frac, cuda))
+    n0 = kb.launches["agg_rank_pick"]
+    got = aggs.rank_pick(*args)
+    assert kb.launches["agg_rank_pick"] == n0 + 1
+    _same_bits((got,), (aggs.rank_pick_plain(*args),))
+    rhos = np.minimum(np.arange(c["M"]) % 53 + 1, 51).astype(np.int32)
+    for v in range(V):
+        rhos[c["off"][v]:c["off"][v + 1]].sort()
+    rh = _t(rhos, cuda)
+    got = aggs.masked_register_max(t["off"], t["docs"], rh, t["mask"])
+    _same_bits((got,), (aggs.register_max_plain(pre, t["off"], rh),))
+
+
+@pytest.mark.parametrize("case", AGG_CASES)
+@pytest.mark.parametrize("n_buckets", [8, 1024, 4096])
+def test_k14_matches_plain(cuda, case, n_buckets):
+    c, t = _agg_inputs(cuda, case)
+    rng = np.random.RandomState(n_buckets)
+    ids = rng.randint(-1, n_buckets - 2, c["M"]).astype(np.int32)
+    ids[rng.rand(c["M"]) < 0.02] = n_buckets + 5
+    ids[: c["M"] // 3] = 1                  # one heavy bucket
+    ti = _t(ids, cuda)
+    n0 = kb.launches["agg_bucket_reduce"]
+    got = aggs.masked_bucket_counts(ti, t["docs"], t["mask"],
+                                    n_buckets=n_buckets)
+    assert kb.launches["agg_bucket_reduce"] == n0 + 1
+    _same_bits((got,), (aggs.bucket_reduce_plain(
+        ti, t["docs"], t["mask"], n_buckets=n_buckets),))
+    got = aggs.masked_bucket_sums(ti, t["docs"], t["vals"], t["mask"],
+                                  n_buckets=n_buckets)
+    again = aggs.masked_bucket_sums(ti, t["docs"], t["vals"], t["mask"],
+                                    n_buckets=n_buckets)
+    want = aggs.bucket_reduce_plain(ti, t["docs"], t["mask"], t["vals"],
+                                    n_buckets=n_buckets)
+    m = aggs.gather_mask(t["mask"], t["docs"]).cpu().numpy()
+    ok = m & (ids >= 0) & (ids < n_buckets)
+    mass = np.bincount(np.where(ok, ids, n_buckets),
+                       weights=np.where(ok, np.abs(c["vals"]), 0.0),
+                       minlength=n_buckets + 1)[:n_buckets]
+    err = np.abs(got.cpu().numpy().astype(np.float64) -
+                 want.cpu().numpy())
+    assert (err <= _sum_tol(mass)).all()
+    _same_bits((got,), (again,))
+
+
+@pytest.mark.parametrize("case", AGG_CASES)
+def test_k15_matches_plain(cuda, case):
+    c, t = _agg_inputs(cuda, case)
+    n0 = kb.launches["agg_metrics"]
+    got = torch.stack(aggs.masked_metrics(t["docs"], t["vals"], t["mask"]))
+    assert kb.launches["agg_metrics"] == n0 + 1
+    again = torch.stack(aggs.masked_metrics(t["docs"], t["vals"],
+                                            t["mask"]))
+    want = aggs.metrics_plain(t["docs"], t["vals"], t["mask"])
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    _same_bits((got[[0, 2, 3]],), (want[[0, 2, 3]],))
+    m = aggs.gather_mask(t["mask"], t["docs"]).cpu().numpy()
+    assert abs(float(g[1]) - float(w[1])) <= _sum_tol(
+        np.abs(c["vals"][m]).astype(np.float64).sum())
+    _same_bits((got,), (again,))
+
+
+def test_agg_kernels_take_no_pairs_and_refuse_bad_sizes(cuda):
+    off = torch.zeros(9, dtype=torch.int32, device=cuda)
+    docs = torch.zeros(0, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(0, device=cuda)
+    mask = torch.ones(8, dtype=torch.bool, device=cuda)
+    counts, pre = aggs.masked_rank_prefix(off, docs, mask)
+    assert not counts.any() and pre.cpu().tolist() == [0]
+    assert not aggs.masked_ordinal_sums(off, docs, vals, mask).any()
+    assert not aggs.masked_bucket_counts(docs, docs, mask,
+                                         n_buckets=8).any()
+    m = torch.stack(aggs.masked_metrics(docs, vals, mask)).cpu().tolist()
+    assert m == [0.0, 0.0, float("inf"), float("-inf")]
+    with pytest.raises(RuntimeError, match="agg_bucket_reduce: launch "
+                                           "refused: unknown mode"):
+        kb.launch("agg_bucket_reduce", cuda, docs.data_ptr(),
+                  docs.data_ptr(), None, 0, mask.data_ptr(), 8, 8192, 0,
+                  off.data_ptr(), None)
+    with pytest.raises(TypeError):
+        aggs.masked_ordinal_counts(off.long(), docs, mask)
+    with pytest.raises(ValueError):
+        aggs.masked_ordinal_counts(off, docs, mask.cpu())

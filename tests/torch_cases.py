@@ -276,3 +276,39 @@ def fusion_case(seed: int, *, B: int, W: int, S: int = 2,
                 kboost=rng.choice(np.array([1.0, 2.0, 0.3], np.float32), B),
                 n_pad_t=n_pad_t, n_pad_k=n_pad_k,
                 UP=max(n_pad_t, n_pad_k), pad_id=S * max(n_pad_t, n_pad_k))
+
+
+def agg_pairs_case(seed, M, V, n_pad, density, docs_kind):
+    """An ordinal CSR of M pairs in V runs (zero-length runs included), as
+    the aggregation kernels (K12–K15) take it, padded to powers of two as
+    the caches pad: offsets repeat their last value, docs carry the
+    ``n_pad`` sentinel, values are 0. Docs are drawn from the real docs
+    ("perm") or also hold ids in [-n_pad, 0) that wrap and ids past either
+    end that gather False ("wild")."""
+    rng = np.random.RandomState(seed)
+    weights = rng.dirichlet(np.full(V, 0.3))
+    weights[rng.rand(V) < 0.2] = 0.0
+    weights /= weights.sum()
+    lens = rng.multinomial(M, weights)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    docs = rng.randint(0, n_pad, M).astype(np.int32)
+    if docs_kind == "wild":
+        pick = rng.rand(M)
+        docs[pick < 0.2] = -rng.randint(1, n_pad + 1, (pick < 0.2).sum())
+        docs[(pick >= 0.2) & (pick < 0.25)] = n_pad + 3
+        docs[(pick >= 0.25) & (pick < 0.3)] = -n_pad - 2
+    vals = rng.lognormal(3.0, 1.0, M).astype(np.float32)
+    vals[rng.rand(M) < 0.1] = 7.25              # duplicate values
+    for v in range(V):                           # ascending within a run
+        vals[off[v]:off[v + 1]].sort()
+    mask = rng.rand(n_pad) < density
+    Mp = 1 << max(M - 1, 0).bit_length()
+
+    def pad(a, size, fill):
+        out = np.full(size, fill, a.dtype)
+        out[:a.shape[0]] = a
+        return out
+
+    return dict(off=pad(off, 1 << V.bit_length(), off[-1]),
+                docs=pad(docs, Mp, n_pad), vals=pad(vals, Mp, 0.0),
+                mask=mask, M=Mp, n_pad=n_pad)
