@@ -11,8 +11,10 @@ prune configuration (``lexical_10m_prune``): a 2^22-document corpus
 served through ``plane.serve`` in batches of 16 four-term queries; bool
 trees on that plane; the kNN plane's exact and IVF routes at the
 benchmark's two kNN shapes; the one-dispatch hybrid (BM25 + kNN + RRF)
-at BEIR/NQ's size; and config #3's terms + percentiles aggregation at the
-NYC-taxi rally track's size. Phases, each fatal on failure:
+at BEIR/NQ's size; config #3's terms + percentiles aggregation at the
+NYC-taxi rally track's size; and, between the headline and the pruned
+route, the per-segment search path (``ShardSearcher``) over the headline
+corpus as one segment. Phases, each fatal on failure:
 
 1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
    a source, all started together);
@@ -28,14 +30,30 @@ NYC-taxi rally track's size. Phases, each fatal on failure:
    neighbours differ by more than 1 %, totals exact);
 4. per-kernel times (CUDA events) beside their bounds, plain versions and
    library calls;
-5. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
+5. the per-segment search path (:func:`run_segment`): phase 1's corpus as
+   one force-merged segment (the ``body`` text field, terms ``w{tid}``)
+   with a ``tag`` keyword (256 Zipf(1.1) ordinals) and a ``price`` double
+   (lognormal(3, 1)), one value a doc, n_pad 2^23, no cut; requests one at
+   a time through ``ShardSearcher.search``: (e) ``match`` of four terms
+   ∝ df, size 10; (f) the same with ``operator: and``; (g) a ``bool`` of
+   (e)'s match, a ``terms`` filter on three tags, a ``range`` filter on
+   price's 25th-75th percentiles and a ``must_not`` tag term; (h) a
+   keyword ``range`` on tag and the ``count`` of (g); (i) (e) from 990
+   and from 9,990: each mix's launches counted alone, every K16–K19 call
+   of its first request held against its plain version (K16's scores
+   bitwise and counts exact, K17 and K18 exact, K19 bitwise), three
+   requests of each against numpy (scores within 1 %, docs at separated
+   ranks, totals exact), (e)'s top 10 against ``plane.search`` of an f32
+   plane (no dense tier) of the same corpus, q/s and p50/p99 per mix,
+   K16–K19's times;
+6. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
    plain versions, and K3 exact, on one batch of each traffic mix; each
    mix driven through ``serve`` with its launch counts zeroed before and
    read after (K4, K5 and K3 on every pruned dispatch, K1 iff a query was
    unsafe); pruned == eager on three batches of the benchmark mix; three
    queries of each mix against the exact reference; K1 against its plain
    version at the eager fallback's shape; K4's and K5's times;
-6. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
+7. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
    pruned phase's plane, batches of 16 at k = 10 in two mixes: (c) one
    8-term should clause (``bench_bool_disjunction``'s draws), (d) must /
    should (3 terms) / filter / must_not: K9 bitwise and K3 exact against
@@ -46,14 +64,14 @@ NYC-taxi rally track's size. Phases, each fatal on failure:
    rescore stage (``bool_rescore_device``) for each of the five score
    modes with K5, K3's selection, the payload gather and K11 bitwise;
    each mix's launches counted alone; K9's and K11's times;
-7. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
+8. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
    GloVe shape: 1.2M x 100 ``randn`` rows (seed 1234), one shard, cosine,
    k = 100, 32 timed batches of 16 through ``plane.serve``: K6 within the
    parity bar of its plain version and every K3 call of the step bitwise,
    K6 also at 2^18 rows for dot_product and l2_norm with duplicates and
    ``exists`` holes, every query of one batch against numpy (matmul +
    lexsort), the path's launches counted alone, K6's times;
-8. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
+9. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
    shape: 2^20 x 64 rows around 2048 centers (noise 0.35), nlist 1024,
    seed 7, queries perturbed corpus rows (noise 0.15), k = 10 at the
    tier's default nprobe and rerank, 24 timed batches through ``serve``:
@@ -62,7 +80,7 @@ NYC-taxi rally track's size. Phases, each fatal on failure:
    not be lower), K7/K8 within the parity bar and K3 bitwise, the card's
    and numpy's cluster assignments compared, the path's launches counted
    alone, K7's and K8's times;
-9. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
+10. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
    length 79) and as many 768-d ``standard_normal`` rows, one shard each,
    batches of 16 queries (9 sparse-tier terms in one should clause, a
    randn vector; RRF, rank constant 60, windows 100, k = 10) through
@@ -72,7 +90,7 @@ NYC-taxi rally track's size. Phases, each fatal on failure:
    refused; four queries against numpy (exact BM25 top-100, matmul +
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
    launches counted alone; each kernel's time;
-10. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
+11. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
     ``nyc_taxis``), one pair a doc, 256 Zipf(1.1) ordinals, lognormal(3, 1)
     values, pairs sorted by (ordinal, value), a fresh 25 % mask a agg:
     33 aggs (one warm-up) through ``masked_rank_prefix`` (K12) →
@@ -86,7 +104,7 @@ NYC-taxi rally track's size. Phases, each fatal on failure:
     f32 sums within 2^-22 of their |v| mass); the path's launches counted
     alone; each kernel's time beside its bound, plain version and
     library call;
-11. the ``kernels`` JSON line, the card line, and the final status line.
+12. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -147,17 +165,22 @@ def sample_queries(rng, corpus, n_batches, batch=BATCH, weighted=True):
             for _ in range(n_batches)]
 
 
-def exact_bm25(corpus, terms, k):
-    """Numpy term-at-a-time BM25 over the whole corpus (f32 impacts):
-    (top k+1 docs, their scores, number of matching docs)."""
+def exact_bm25(corpus, terms, k, *, and_=False, mask=None, avgdl=None):
+    """Numpy term-at-a-time BM25 over the whole corpus (f32 impacts) at
+    ``avgdl`` (by default the mean over all docs): (top k+1 docs by
+    (score desc, doc asc), their scores, number of matching docs). A doc
+    matches on any term (on every term with ``and_``) and only inside
+    ``mask``; docs that do not match score -inf."""
     offsets, docs, tf = corpus["offsets"], corpus["docs"], corpus["tf"]
     dl = corpus["doc_len"]
     n_docs = dl.shape[0]
-    avgdl = dl.mean()
+    if avgdl is None:
+        avgdl = dl.mean()
     df = corpus["df"]
     scores = np.zeros(n_docs, np.float32)
-    hit = np.zeros(n_docs, bool)
-    for t in set(terms):
+    cnt = np.zeros(n_docs, np.int32)
+    uniq = sorted(set(terms))
+    for t in uniq:
         tid = int(t[1:])
         st, en = offsets[tid], offsets[tid + 1]
         if en == st:
@@ -168,7 +191,11 @@ def exact_bm25(corpus, terms, k):
         w = terms.count(t)
         norm = run_tf + K1 * (1 - B_BM25 + B_BM25 * dl[run_docs] / avgdl)
         scores[run_docs] += w * idf * (K1 + 1) * run_tf / norm
-        hit[run_docs] = True
+        cnt[run_docs] += 1
+    hit = cnt >= (len(uniq) if and_ else 1)
+    if mask is not None:
+        hit &= mask
+    scores[~hit] = -np.inf
     top = np.argpartition(-scores, k + 1)[:k + 1]
     top = top[np.lexsort((top, -scores[top]))]
     return top, scores[top], int(hit.sum())
@@ -232,9 +259,10 @@ def max_abs_err(pairs):
     return err
 
 
-def check_topk(v1, d1, v2, d2, v_next, rtol, atol, what):
+def check_topk(v1, d1, v2, d2, v_next, rtol, atol, what, sep_rtol=None):
     """Values within tolerance slot by slot; docs equal wherever the
-    reference's neighbouring values differ by more than the tolerance."""
+    reference's neighbouring values differ by more than the tolerance
+    (``sep_rtol`` in place of ``rtol`` there, where given)."""
     v1, v2 = np.asarray(v1, np.float64), np.asarray(v2, np.float64)
     if not np.array_equal(np.isfinite(v1), np.isfinite(v2)):
         fail(f"{what}: finite slots differ")
@@ -244,7 +272,7 @@ def check_topk(v1, d1, v2, d2, v_next, rtol, atol, what):
     R = v2.shape[0]
     ext = np.concatenate([np.full((R, 1), np.inf), v2,
                           np.asarray(v_next, np.float64)[:, None]], 1)
-    tol = atol + rtol * np.abs(v2)
+    tol = atol + (rtol if sep_rtol is None else sep_rtol) * np.abs(v2)
     with np.errstate(invalid="ignore"):
         sep = (np.abs(ext[:, :-2] - v2) > tol) & \
             (np.abs(v2 - ext[:, 2:]) > tol) & f
@@ -593,7 +621,7 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
           f"weights, U={prep['U']}, {n_tiles} tiles of {per} docs")
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return kernels, card
+    return kernels, card, corpus
 
 
 def check_pruned_kernels(plane, queries, label):
@@ -990,13 +1018,16 @@ def check_lists(v1, i1, v2, i2, tol, what):
 
 
 @contextlib.contextmanager
-def recording(calls, names):
-    """Record every call of the named kernel wrappers that the bool and
-    hybrid steps (and the kNN scan) make, as (name, args, kwargs, out)."""
-    from elasticsearch_tpu_torch.ops import knn
-    from elasticsearch_tpu_torch.parallel import dist_search
+def recording(calls, names, mods=None):
+    """Record every call of the named kernel wrappers made through the
+    modules ``mods`` (by default those of the bool and hybrid steps and the
+    kNN scan), as (name, args, kwargs, out)."""
+    if mods is None:
+        from elasticsearch_tpu_torch.ops import knn
+        from elasticsearch_tpu_torch.parallel import dist_search
+        mods = (dist_search, knn)
     saved = []
-    for mod in (dist_search, knn):
+    for mod in mods:
         for name in names:
             if not hasattr(mod, name):
                 continue
@@ -2490,6 +2521,501 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
     return rows, path
 
 
+# ---------------------------------------------------------------------------
+# the per-segment search path (K16–K19)
+# ---------------------------------------------------------------------------
+
+#: config #1's corpus as one force-merged segment, plus a ``tag`` keyword
+#: (256 ordinals, Zipf(1.1) frequencies) and a ``price`` double
+#: (lognormal(3, 1)), one value a doc, numpy seed 1234
+SEG_TAGS = 256
+SEG_TAG_ZIPF = 1.1
+SEG_TIMED = 256              # timed requests a mix (one warm-up more)
+SEG_REF = 3                  # requests of a mix held against numpy
+SEG_PAGES = (990, 9990)      # deep pages of (e), size 10
+SEG_PLANE_RTOL = 1e-6        # (e) against the f32 plane: ties within this
+SEG_PROFILED = 64            # requests a mix under torch.profiler
+#: the K16–K19 wrappers the per-segment path calls, by their kernel entry
+SEG_KERNELS = {"bm25_score": "bm25_scatter",
+               "postings_match": "postings_match",
+               "range_mask": "range_mask", "masked_topk": "segment_topk"}
+
+
+def timed_requests(call, n):
+    """Requests 1..n of ``call``, one at a time (each ends with its result
+    on the host): (host-clock seconds each, the outputs)."""
+    lat, out = np.zeros(n), []
+    for i in range(n):
+        t1 = time.perf_counter()
+        out.append(call(i + 1))
+        lat[i] = time.perf_counter() - t1
+    return lat, out
+
+
+def latency_stats(lat, n_req):
+    """Requests/s (``n_req`` requests a call), mean, p50, p99 and max."""
+    return dict(
+        qps=n_req * lat.size / float(lat.sum()),
+        p50_ms=float(np.percentile(lat, 50)) * 1e3,
+        p99_ms=float(np.percentile(lat, 99)) * 1e3,
+        mean_ms=float(lat.mean()) * 1e3, max_ms=float(lat.max()) * 1e3,
+        requests=int(lat.size))
+
+
+def device_busy(call, first, n):
+    """(ms the card was busy, wall ms, device events) over requests
+    first..first+n-1 of ``call`` under ``torch.profiler``: busy is the
+    union of the device events' intervals, None when the profiler recorded
+    no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(first, first + n):
+            call(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None, wall, 0
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3, wall, len(spans)
+
+
+def segment_plain(name, args, kw):
+    """The plain version of a recorded K16–K19 wrapper call, on the same
+    inputs."""
+    from elasticsearch_tpu_torch.ops.bm25 import bm25_score_plain
+    from elasticsearch_tpu_torch.ops.masks import (postings_match_plain,
+                                                   range_mask_plain)
+    from elasticsearch_tpu_torch.ops.topk import masked_topk_plain
+    if name == "bm25_score":
+        return bm25_score_plain(*args, **kw)
+    if name == "postings_match":
+        return (postings_match_plain(*args, **kw),)
+    if name == "range_mask":
+        v, d, lo, hi = args
+        conv = float if v.is_floating_point() else int
+        return (range_mask_plain(v, d, conv(lo), conv(hi), **kw),)
+    return masked_topk_plain(*args, **kw)
+
+
+def segment_columns(n_docs):
+    """The ``tag`` ordinals and ``price`` values, one a doc (seed 1234)."""
+    rng = np.random.RandomState(1234)
+    p = np.arange(1, SEG_TAGS + 1, dtype=np.float64) ** -SEG_TAG_ZIPF
+    tag = rng.choice(SEG_TAGS, n_docs, p=p / p.sum()).astype(np.int32)
+    price = rng.lognormal(3.0, 1.0, n_docs)
+    return tag, price
+
+
+def segment_index(corpus, tag, price, dev):
+    """Config #1's CSR as the ``body`` field of one segment (terms
+    ``w{tid}``, which the standard analyzer keeps), with the ``tag`` and
+    ``price`` columns, built directly as a host state. Positions are zero
+    placeholders (no positional query runs)."""
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import segment_from_host_state
+    n = corpus["doc_len"].shape[0]
+    P = corpus["docs"].shape[0]
+    dl = corpus["doc_len"]
+    body = dict(
+        term_ids={f"w{t}": t for t in range(VOCAB)}, df=corpus["df"],
+        offsets=corpus["offsets"], docs_host=corpus["docs"],
+        tf_host=corpus["tf"], doc_len_host=dl, sum_dl=float(dl.sum()),
+        field_doc_count=int(np.count_nonzero(dl)),
+        total_term_freq=np.zeros(VOCAB, np.int64),
+        pos_offsets=np.zeros(P + 1, np.int64),
+        pos_flat=np.zeros(0, np.int32))
+    df = np.bincount(tag, minlength=SEG_TAGS).astype(np.int32)
+    offsets = np.zeros(SEG_TAGS + 1, np.int64)
+    np.cumsum(df, out=offsets[1:])
+    names = [f"tag{o:03d}" for o in range(SEG_TAGS)]
+    kw = dict(
+        ord_terms=names, term_ords={t: o for o, t in enumerate(names)},
+        df=df, offsets=offsets,
+        docs_host=np.argsort(tag, kind="stable").astype(np.int32),
+        dv_ords_host=tag, dv_docs_host=np.arange(n, dtype=np.int32))
+    num = dict(base=float(price.min()), vals_host=price,
+               docs_host=np.arange(n, dtype=np.int32))
+    seg = segment_from_host_state(dict(
+        seg_id="_0", n_docs=n, doc_uids=[str(i) for i in range(n)],
+        sources=[None] * n, seq_nos=np.arange(n, dtype=np.int64),
+        text_fields={"body": body}, keyword_fields={"tag": kw},
+        numeric_fields={"price": num}), device=dev)
+    mapper = MapperService({"properties": {
+        "body": {"type": "text"}, "tag": {"type": "keyword"},
+        "price": {"type": "double"}}})
+    return seg, mapper
+
+
+def check_page(res, ref, start, size, what, rtol=REF_RTOL):
+    """A page of hits against the reference's ranking ``ref`` (as
+    ``exact_bm25`` gives it, ranked past ``start + size``) from ``start``:
+    the number of hits and the total exact, then ``check_topk``; the
+    reference's hit before the page rides along, so that the page's first
+    hit is judged separated against it."""
+    top, sc, total = ref
+    n = max(0, min(size, total - start))
+    if res.total != total or res.total_relation != "eq":
+        fail(f"{what}: total {res.total} ({res.total_relation}) != {total}")
+    if len(res.hits) != n:
+        fail(f"{what}: {len(res.hits)} hits, expected {n}")
+    if not n:
+        return
+    lo = max(start - 1, 0)
+    got_d = np.asarray(list(top[lo:start]) + [h.local_doc for h in res.hits])
+    got_s = np.asarray(list(sc[lo:start]) + [h.score for h in res.hits])
+    check_topk(got_s[None], got_d[None], sc[None, lo:start + n],
+               top[None, lo:start + n], sc[start + n:start + n + 1], rtol,
+               0.0, what)
+
+
+def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
+    """Phase 5: the per-segment search path (``ShardSearcher.search`` on one
+    force-merged segment of config #1's corpus) with K16–K19. Returns their
+    rows and the path's launch counts."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.bm25 import (bm25_score,
+                                                  bm25_score_plain)
+    from elasticsearch_tpu_torch.ops.masks import (
+        postings_match, postings_match_plain, range_mask, range_mask_plain)
+    from elasticsearch_tpu_torch.ops.topk import (masked_topk,
+                                                  masked_topk_plain)
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        DistributedSearchPlane
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+
+    dev = torch.device("cuda")
+    n_docs = corpus["doc_len"].shape[0]
+    t0 = time.perf_counter()
+    tag, price = segment_columns(n_docs)
+    seg, mapper = segment_index(corpus, tag, price, dev)
+    searcher = ShardSearcher([seg], mapper)
+    torch.cuda.synchronize()
+    seg_bytes = sum(t.nbytes for f in (*seg.text_fields.values(),
+                                       *seg.keyword_fields.values(),
+                                       *seg.numeric_fields.values())
+                    for t in vars(f).values()
+                    if isinstance(t, torch.Tensor)) + seg.live_dev.nbytes
+    print(f"# segment (config #1 force-merged): {n_docs} docs, n_pad "
+          f"{seg.n_pad}, {corpus['docs'].shape[0]} postings, tag "
+          f"{SEG_TAGS} Zipf({SEG_TAG_ZIPF}) ordinals, price lognormal(3, 1);"
+          f" {seg_bytes / 2**30:.3f} GiB on {dev} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # ---- traffic: four terms ∝ df (phase 1's sampler) and the filters ---
+    rng = np.random.RandomState(4321)
+    bags = [[f"w{t[1:]}" for t in q] for q in
+            sample_queries(rng, corpus, 1, batch=n_timed + 1)[0]]
+    p25, p75 = (float(x) for x in np.percentile(price, [25, 75]))
+    top_tags = np.argsort(-np.bincount(tag, minlength=SEG_TAGS))[:32]
+    names = [f"tag{o:03d}" for o in range(SEG_TAGS)]
+
+    def bool_parts(i):
+        r = np.random.RandomState(100 + i)
+        three = [int(x) for x in r.choice(top_tags, 3, replace=False)]
+        return three, three[2]
+
+    def match(i, **opts):
+        return {"match": {"body": dict(query=" ".join(bags[i]), **opts)}}
+
+    def bool_body(i):
+        three, excl = bool_parts(i)
+        return {"bool": {
+            "must": match(i),
+            "filter": [{"terms": {"tag": [names[o] for o in three]}},
+                       {"range": {"price": {"gte": p25, "lt": p75}}}],
+            "must_not": {"term": {"tag": names[excl]}}}}
+
+    def tag_range(i):
+        r = np.random.RandomState(200 + i)
+        lo = int(r.randint(0, SEG_TAGS - 40))
+        return lo, lo + int(r.randint(1, 40))
+
+    def bool_mask(i):
+        three, excl = bool_parts(i)
+        return (np.isin(tag, three) & (tag != excl) & (price >= p25)
+                & (price < p75))
+
+    mixes = {
+        "e": lambda i: searcher.search({"query": match(i), "size": 10}),
+        "f": lambda i: searcher.search(
+            {"query": match(i, operator="and"), "size": 10}),
+        "g": lambda i: searcher.search({"query": bool_body(i), "size": 10}),
+        "h": lambda i: (searcher.search({"query": {"range": {"tag": {
+            "gte": names[tag_range(i)[0]], "lt": names[tag_range(i)[1]]}}},
+            "size": 10}), searcher.count({"query": bool_body(i)})),
+        "i": lambda i: (
+            searcher.search({"query": match(i), "from": SEG_PAGES[0],
+                             "size": 10}),
+            searcher.search({"query": match(i), "from": SEG_PAGES[1],
+                             "size": 10})),
+    }
+    seg_k = tuple(SEG_KERNELS.values())
+    required = {"e": ("bm25_scatter", "segment_topk"),
+                "f": ("bm25_scatter", "segment_topk"),
+                "g": seg_k, "h": seg_k,
+                "i": ("bm25_scatter", "segment_topk")}
+    from elasticsearch_tpu_torch.ops import bm25 as bm25_mod
+    from elasticsearch_tpu_torch.ops import masks as masks_mod
+    from elasticsearch_tpu_torch.ops import topk as topk_mod
+    seg_mods = (bm25_mod, masks_mod, topk_mod)
+    n_req = {name: 2 if name in ("h", "i") else 1 for name in mixes}
+    counts, results, calls, stats = {}, {}, {}, {}
+    for name, call in mixes.items():
+        kb.reset_launches()
+        rec = []
+        with recording(rec, SEG_KERNELS, seg_mods):
+            call(0)                                   # warm-up, recorded
+        torch.cuda.synchronize()
+        lat, out = timed_requests(call, n_timed)
+        c = {k: v for k, v in kb.launches.items() if v}
+        missing = [k for k in required[name] if not c.get(k)]
+        if missing:
+            fail(f"segment mix ({name}): {missing} never launched: {c}")
+        counts[name], results[name], calls[name] = c, out, rec
+        st = latency_stats(lat, n_req[name])
+        st["launches_per_request"] = {
+            k: v / ((n_timed + 1) * n_req[name]) for k, v in c.items()}
+        stats[name] = st
+        unit = "request pairs" if n_req[name] == 2 else "requests"
+        print(f"# segment ({name}): {st['qps']:.1f} q/s, p50 "
+              f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, max "
+              f"{st['max_ms']:.3f} ms over {st['requests']} {unit}; "
+              f"launches a request {st['launches_per_request']} [{card}]",
+              flush=True)
+
+    # ---- where a request's time goes --------------------------------------
+    for name, call in mixes.items():
+        busy, wall, events = device_busy(call, 1, SEG_PROFILED)
+        stats[name]["profiled"] = dict(
+            requests=SEG_PROFILED, device_busy_ms=busy, wall_ms=wall,
+            device_events=events)
+        if busy is None:
+            share = "not measured"
+        else:
+            unprof = SEG_PROFILED * stats[name]["mean_ms"]
+            share = (f"{busy:.3f} ms busy over {SEG_PROFILED} requests; "
+                     f"busy share {busy / wall:.3f} of the profiled wall, "
+                     f"{busy / unprof:.3f} of {SEG_PROFILED} x the "
+                     f"unprofiled mean; device events a request "
+                     f"{events / SEG_PROFILED:.1f}")
+        print(f"# segment ({name}): {share} (torch.profiler) [{card}]",
+              flush=True)
+    uniq = seg.numeric_fields["price"].uniq_vals
+    t1 = time.perf_counter()
+    for _ in range(5):
+        int(np.isnan(uniq).sum())
+    nan_ms = (time.perf_counter() - t1) / 5 * 1e3
+    print(f"# segment host: a numeric range's NaN count over the "
+          f"{uniq.size} distinct prices {nan_ms:.3f} ms a request",
+          flush=True)
+    stats["host"] = dict(range_nan_count_ms=nan_ms)
+
+    # ---- each recorded kernel call against its plain version -------------
+    errs = {k: 0.0 for k in seg_k}
+    n_checked = {k: 0 for k in seg_k}
+    for name, rec in calls.items():
+        for wrapper, args, kw, out in rec:
+            entry = SEG_KERNELS[wrapper]
+            got = out if isinstance(out, tuple) else (out,)
+            want = segment_plain(wrapper, args, kw)
+            errs[entry] = max(errs[entry], check_bitwise(
+                got, want, f"segment ({name}): {entry}"))
+            n_checked[entry] += 1
+    if not all(n_checked.values()):
+        fail(f"a segment kernel was never checked: {n_checked}")
+    print(f"# segment kernels equal their plain versions on every call of "
+          f"each mix's first request: {n_checked} (K16 scores bitwise and "
+          f"counts exact, K17 and K18 exact, K19 bitwise)", flush=True)
+
+    # ---- the hits against numpy, (e) against the f32 plane ---------------
+    dl = corpus["doc_len"]
+    avgdl = float(dl.sum()) / int(np.count_nonzero(dl))
+    for name in "efghi":
+        for i in range(1, SEG_REF + 1):
+            res = results[name][i - 1]
+            what = f"segment ({name}) request {i}"
+            if name == "h":
+                lo, hi = tag_range(i)
+                hit = (tag >= lo) & (tag < hi)
+                # constant scores: the first docs in order
+                docs = np.flatnonzero(hit)[:11]
+                sc = np.where(np.arange(11) < docs.size, 1.0, -np.inf)
+                docs = np.concatenate([docs, np.zeros(11 - docs.size, int)])
+                check_page(res[0], (docs, sc, int(hit.sum())), 0, 10, what)
+                if [h.local_doc for h in res[0].hits] != \
+                        docs[:len(res[0].hits)].tolist():
+                    fail(f"{what}: equal scores not in doc order")
+                _, _, n_b = exact_bm25(corpus, bags[i], 10, avgdl=avgdl,
+                                       mask=bool_mask(i))
+                if res[1] != n_b:
+                    fail(f"{what}: count {res[1]} != {n_b}")
+                continue
+            deep = SEG_PAGES[-1] + 10 if name == "i" else 10
+            ref = exact_bm25(corpus, bags[i], deep, and_=name == "f",
+                             mask=bool_mask(i) if name == "g" else None,
+                             avgdl=avgdl)
+            if name == "i":
+                for page, start in zip(res, SEG_PAGES):
+                    check_page(page, ref, start, 10, f"{what} from {start}")
+            else:
+                check_page(res, ref, 0, 10, what)
+    print(f"# segment: {SEG_REF} requests of each mix agree with the numpy "
+          f"exact reference (scores within {REF_RTOL:.0%}, docs at "
+          f"separated ranks, totals and counts exact)", flush=True)
+
+    t1 = time.perf_counter()
+    plane = DistributedSearchPlane([corpus], "body", device=dev,
+                                   dense_threshold=n_docs + 1)
+    if plane.T_pad:
+        fail("the f32 plane has a dense tier")
+    pv, ph = [], []
+    for b0 in range(1, n_timed + 1, BATCH):
+        v, h = plane.search([[f"t{t[1:]}" for t in b]
+                             for b in bags[b0:min(b0 + BATCH, n_timed + 1)]],
+                            k=11)
+        pv += list(v)
+        ph += list(h)
+    for i, res in enumerate(results["e"]):
+        n = min(10, len(ph[i]))
+        d2 = np.asarray([d for _, d in ph[i]])
+        v2 = np.asarray(pv[i][:len(ph[i])], np.float64)
+        if len(res.hits) != n:
+            fail(f"segment (e) request {i + 1}: {len(res.hits)} hits, the "
+                 f"plane's {n}")
+        check_topk(np.asarray([[h.score for h in res.hits]]),
+                   np.asarray([[h.local_doc for h in res.hits]]),
+                   v2[None, :n], d2[None, :n],
+                   v2[n:n + 1] if v2.size > n else [-np.inf], 1e-5, 0.0,
+                   f"segment (e) request {i + 1} against the plane",
+                   sep_rtol=SEG_PLANE_RTOL)
+    del plane
+    torch.cuda.empty_cache()
+    print(f"# segment (e): {n_timed} requests' top 10 equal the f32 plane's "
+          f"search (no dense tier) where scores are separated by more than "
+          f"{SEG_PLANE_RTOL:g} ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+
+    # ---- times -------------------------------------------------------------
+    def first(name, wrapper, pick=None):
+        for w, args, kw, out in calls[name]:
+            if w == wrapper and (pick is None or pick(kw, args)):
+                return kw, args, out
+        fail(f"no {wrapper} call recorded in mix ({name})")
+
+    n_pad = seg.n_pad
+    rows = []
+    # K16: (e)'s match (text field)
+    kw, a, out = first("e", "bm25_score")
+    lens = np.minimum(np.asarray(a[4]), kw["L"])
+    V = int(lens.sum())
+    D = int(torch.count_nonzero(out[1]))
+    st = np.asarray(a[3])
+    flat = torch.cat([a[0][int(s):int(s) + int(n)]
+                      for s, n in zip(st, lens)]).long()
+    contrib = torch.rand(V, device=dev)
+    acc = torch.zeros(n_pad, device=dev)
+
+    def lib_k16():
+        acc.index_add_(0, flat, contrib)
+    # docs, tf and a doc length a valid posting; the doc lengths of the
+    # docs touched; scores and counts written once
+    specs = [("bm25_scatter", "csrc/bm25_scatter.cu",
+              "elasticsearch_tpu/ops/bm25.py:40",
+              lambda a=a, kw=kw: bm25_score(*a, **kw),
+              lambda a=a, kw=kw: bm25_score_plain(*a, **kw), lib_k16,
+              "index_add_ of precomputed contributions",
+              8 * V + 4 * D + 8 * n_pad, 10 * V, {})]
+    # K17: (g)'s terms filter
+    kw, a, out = first("g", "postings_match")
+    lens = np.minimum(np.asarray(a[2]), kw["L"])
+    V17 = int(lens.sum())
+    flat17 = torch.cat([a[0][int(s):int(s) + int(n)]
+                        for s, n in zip(np.asarray(a[1]), lens)]).long()
+    specs.append(("postings_match", "csrc/postings_match.cu",
+                  "elasticsearch_tpu/ops/masks.py:16",
+                  lambda a=a, kw=kw: postings_match(*a, **kw),
+                  lambda a=a, kw=kw: postings_match_plain(*a, **kw),
+                  lambda: torch.bincount(flat17, minlength=n_pad),
+                  "torch.bincount", 4 * V17 + 4 * n_pad, V17, {}))
+    # K18: (g)'s price range (i32 ranks); (h)'s tag range (f32 ordinals)
+    kw, a, out = first("g", "range_mask")
+    kwh, ah, _ = first("h", "range_mask",
+                       lambda k, x: x[0].is_floating_point())
+    M = a[0].shape[0]
+    hit18 = (a[0] >= int(a[2])) & (a[0] <= int(a[3]))
+    m18 = torch.zeros(n_pad, dtype=torch.uint8, device=dev)
+    d18 = a[1].long()
+
+    def lib_k18():
+        m18.scatter_reduce_(0, d18, hit18.to(torch.uint8), "amax")
+    specs.append(("range_mask", "csrc/range_mask.cu",
+                  "elasticsearch_tpu/ops/masks.py:34",
+                  lambda a=a, kw=kw: range_mask(*a, **kw),
+                  lambda a=a, kw=kw: range_mask_plain(
+                      a[0], a[1], int(a[2]), int(a[3]), **kw),
+                  lib_k18, "scatter_reduce_ amax (after the compare)",
+                  8 * M + n_pad, 2 * M,
+                  {"keyword f32 (h)": lambda: range_mask(*ah, **kwh)}))
+    # K19: (e)'s k = 10; the deep pages' k = 1,000 and 10,000
+    _, a, out = first("e", "masked_topk")
+    k = a[2]
+    by_k = {}
+    for start in SEG_PAGES:
+        _, ak, _ = first("i", "masked_topk",
+                         lambda kw, x, kk=start + 10: x[2] == kk)
+        by_k[f"k={start + 10}"] = lambda x=ak: masked_topk(*x)
+    specs.append(("segment_topk", "csrc/segment_topk.cu",
+                  "elasticsearch_tpu/ops/topk.py:23",
+                  lambda a=a: masked_topk(*a),
+                  lambda a=a: masked_topk_plain(*a),
+                  lambda a=a: torch.topk(torch.where(
+                      a[1], a[0], torch.full_like(a[0], -np.inf)), a[2]),
+                  "torch.topk (after the where)",
+                  5 * n_pad + 8 * k, n_pad, by_k))
+    for (name, src, replaces, kern, plain, lib, lib_name, nbytes, nops,
+         modes) in specs:
+        ms = timed(kern, reps)
+        plain_ms = timed(plain, 2)
+        lib_ms = timed(lib, reps)
+        bms, bby = bound(nbytes, nops)
+        by_mode = {key: timed(f, reps) for key, f in modes.items()}
+        rows.append(dict(
+            name=name, route="cuda", source=f"elasticsearch_tpu_torch/{src}",
+            replaces=replaces, max_abs_err=errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=lib_ms,
+            library_call=lib_name, ms_by_mode=by_mode))
+        print(f"# {name}: {ms:.4f} ms (bound {bms:.5f} ms by {bby}, "
+              f"{nbytes} bytes), plain {plain_ms:.3f} ms, library "
+              f"({lib_name}) {lib_ms:.4f} ms"
+              + "".join(f", {k} {v:.4f} ms" for k, v in by_mode.items())
+              + f" [{card}]", flush=True)
+    print(f"# K16 inputs: {V} valid postings over {D} docs; K17: {V17} "
+          f"postings; K18: {M} pairs")
+    print(f"# segment mixes: {json.dumps(stats)}")
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    path = {k: 0 for k in kb.launches}
+    for c in counts.values():
+        for k, v in c.items():
+            path[k] += v
+    return rows, path
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2505,9 +3031,14 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    kernels, card = run()
+    kernels, card, corpus = run()
     torch.cuda.empty_cache()
     print(f"# eager phases {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    seg_rows, seg_counts = run_segment(card, corpus)
+    del corpus
+    torch.cuda.empty_cache()
+    print(f"# segment phase {time.perf_counter() - t1:.1f} s", flush=True)
     pruned_rows, pruned_counts, k1_fallback, errs, (pplane, pcorpus) = \
         run_pruned(card)
     kernels += pruned_rows
@@ -2535,10 +3066,12 @@ def main() -> int:
     k9_row["ms_by_path"]["hybrid"] = hy_times["k9"]["ms"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
-    kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows
+    kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows \
+        + seg_rows
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
                        knn_ivf=ivf_counts, bool=bool_counts,
-                       hybrid=hy_counts, aggs=agg_counts)
+                       hybrid=hy_counts, aggs=agg_counts,
+                       segment=seg_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],

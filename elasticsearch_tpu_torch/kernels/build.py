@@ -41,7 +41,8 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
            "blockmax_scan", "bisect_exact_scores", "knn_scan", "ivf_scan",
            "ivf_rerank", "fuse_rank", "rescore_reorder", "agg_masked_scan",
-           "agg_rank_pick", "agg_bucket_reduce", "agg_metrics")
+           "agg_rank_pick", "agg_bucket_reduce", "agg_metrics",
+           "bm25_scatter", "postings_match", "range_mask", "segment_topk")
 
 #: kernel entries built from another kernel's source: entry -> source
 ENTRY_SOURCE = {"bool_bm25_topk": "sparse_candidates_topk"}
@@ -59,6 +60,8 @@ ptxas_report: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 
 #: C signatures: pointers and the stream are void*, sizes int
 _SIGNATURES = {
@@ -138,6 +141,24 @@ _SIGNATURES = {
     "agg_metrics": (
         "es_agg_metrics",
         [_P, _P, _I, _P, _I] + [_P] * 3),
+    # docs, tf, P, doc_len, n_dl, starts, lengths, idf, w, Q, L, seg_pad,
+    # avgdl, k1, b, out_scores, out_matched, stream
+    "bm25_scatter": (
+        "es_bm25_scatter",
+        [_P, _P, _L, _P, _I] + [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P] * 3),
+    # docs, P, starts, lengths, Q, L, seg_pad, out_matched, stream
+    "postings_match": (
+        "es_postings_match",
+        [_P, _L, _P, _P] + [_I] * 3 + [_P] * 2),
+    # vals, is_f32, lo_i, hi_i, lo_f, hi_f, docs, M, seg_pad, out_mask,
+    # stream
+    "range_mask": (
+        "es_range_mask",
+        [_P] + [_I] * 3 + [_F] * 2 + [_P, _L, _I] + [_P] * 2),
+    # scores, mask, n, k, out_vals, out_idx, workspace, stream
+    "segment_topk": (
+        "es_segment_topk",
+        [_P, _P, _L, _I] + [_P] * 4),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -175,6 +196,10 @@ _QUERIES = {
     "agg_metrics": {
         # (Mp) -> workspace bytes
         "es_agg_metrics_workspace_bytes": ([_I], ctypes.c_longlong),
+    },
+    "segment_topk": {
+        # (n, k) -> workspace bytes
+        "es_segment_topk_workspace_bytes": ([_L, _I], ctypes.c_longlong),
     },
 }
 
@@ -260,6 +285,15 @@ def library(name: str) -> ctypes.CDLL:
 def query(name: str, fname: str, *args):
     """Call one of kernel ``name``'s other C functions (``_QUERIES``)."""
     return getattr(library(name), fname)(*args)
+
+
+def wrapper_device(name: str, t: torch.Tensor) -> torch.device:
+    """The device a kernel wrapper runs on: the CPU (its plain version) or
+    CUDA (the kernel); any other device raises."""
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

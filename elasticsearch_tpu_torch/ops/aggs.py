@@ -75,6 +75,7 @@ from ..device import resolve_device
 from ..kernels import build as _kb
 from ..utils.shapes import round_up_pow2
 from .blockmax import fma_f32
+from .bm25 import take_fill
 
 #: below this many doc-values pairs the host numpy path wins (dispatch
 #: overhead dominates); aggregations consult this before shipping to device
@@ -88,23 +89,10 @@ HLL_P = 14  #: register precision: m = 2^p registers, ~1.04/sqrt(m) error
 _KERNEL_MODES = {"counts": 0, "prefix": 1, "sums": 2}
 
 
-def _device_of(name: str, t: torch.Tensor) -> torch.device:
-    dev = t.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev
-
-
 def gather_mask(mask: torch.Tensor, pair_docs: torch.Tensor) -> torch.Tensor:
     """``mask[pair_docs]`` with the reference's fill rule: an index in
     ``[-n, 0)`` wraps, any other index outside ``[0, n)`` gives False."""
-    n = mask.shape[0]
-    d = pair_docs.long()
-    d = torch.where(d < 0, d + n, d)
-    ok = (d >= 0) & (d < n)
-    if n == 0:
-        return ok
-    return mask[torch.where(ok, d, 0)] & ok
+    return take_fill(mask, pair_docs.long(), False)
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +138,7 @@ def masked_scan(offsets, pair_docs, mask, pair_vals=None, *, mode: str):
         raise ValueError(f"masked_scan: unknown mode [{mode}]")
     if (pair_vals is None) != (mode != "sums"):
         raise ValueError("masked_scan: pair_vals goes with mode='sums' only")
-    dev = _device_of("masked_scan", offsets)
+    dev = _kb.wrapper_device("masked_scan", offsets)
     if dev.type == "cpu":
         return masked_scan_plain(offsets, pair_docs, mask, pair_vals,
                                  mode=mode)
@@ -268,7 +256,7 @@ def rank_pick(c, offsets, pair_vals, ordinals, lo, hi, frac):
 
     A CPU tensor runs the plain version; a CUDA tensor launches K13.
     """
-    dev = _device_of("rank_pick", c)
+    dev = _kb.wrapper_device("rank_pick", c)
     if dev.type == "cpu":
         return rank_pick_plain(c, offsets, pair_vals, ordinals, lo, hi, frac)
     n_c, V1, M = _k13_checks(c, offsets, pair_vals, torch.float32, dev)
@@ -296,7 +284,7 @@ def register_max(c, offsets, pair_rhos):
 
     A CPU tensor runs the plain version; a CUDA tensor launches K13.
     """
-    dev = _device_of("register_max", c)
+    dev = _kb.wrapper_device("register_max", c)
     if dev.type == "cpu":
         return register_max_plain(c, offsets, pair_rhos)
     n_c, V1, M = _k13_checks(c, offsets, pair_rhos, torch.int32, dev)
@@ -402,7 +390,7 @@ def bucket_reduce(bucket_ids, pair_docs, mask, pair_vals=None, *,
     if not 0 < n_buckets <= MAX_DEVICE_BUCKETS:
         raise ValueError(f"bucket_reduce: n_buckets={n_buckets} outside "
                          f"(0, {MAX_DEVICE_BUCKETS}]")
-    dev = _device_of("bucket_reduce", bucket_ids)
+    dev = _kb.wrapper_device("bucket_reduce", bucket_ids)
     if dev.type == "cpu":
         return bucket_reduce_plain(bucket_ids, pair_docs, mask, pair_vals,
                                    n_buckets=n_buckets)
@@ -465,7 +453,7 @@ def masked_metrics(pair_docs, pair_vals, mask):
 
     A CPU tensor runs the plain version; a CUDA tensor launches K15.
     """
-    dev = _device_of("masked_metrics", pair_docs)
+    dev = _kb.wrapper_device("masked_metrics", pair_docs)
     if dev.type == "cpu":
         return tuple(metrics_plain(pair_docs, pair_vals, mask))
     Mp, n_pad = pair_docs.shape[0], mask.shape[0]

@@ -1,5 +1,6 @@
-"""Tie-stable top-k (port of ``elasticsearch_tpu/ops/topk.py``) and the
-wrapper of kernel K3 (``csrc/topk_merge.cu``).
+"""Tie-stable top-k (port of ``elasticsearch_tpu/ops/topk.py``), the
+wrapper of kernel K3 (``csrc/topk_merge.cu``) and the masked segment top-k,
+kernel K19 (``csrc/segment_topk.cu``).
 
 Every top-k in the engine orders hits (score desc, doc asc): ``lax.top_k``
 returns the lowest index among equal values, and candidate lists are laid
@@ -10,6 +11,7 @@ so nothing here uses it: the plain versions select with
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -146,3 +148,64 @@ def topk_merge(a_vals, a_ids, b_vals=None, b_ids=None, *, k: int,
                None if sel is None else sel.data_ptr(),
                None if ws is None else ws.data_ptr())
     return outs
+
+
+# ---------------------------------------------------------------------------
+# K19: the masked top-k over one segment's scores
+# ---------------------------------------------------------------------------
+
+
+def _order_keys(x: torch.Tensor) -> torch.Tensor:
+    """Int64 keys that order f32 values as ``lax.top_k`` does: by their
+    bits' total order (+NaN > +inf > ... > +0 > -0 > ... > -inf > -NaN)."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+
+
+def masked_topk_plain(scores, mask, k: int):
+    """Plain version of K19 (see :func:`masked_topk`)."""
+    masked = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    order = torch.sort(_order_keys(masked), descending=True,
+                       stable=True).indices[:k]
+    return masked[order], order.to(torch.int32)
+
+
+def masked_topk(scores, mask, k: int):
+    """``where(mask, scores, -inf)``, then its k largest values (k <= n) in
+    the reference's order: values by their bits' total order, descending,
+    equal values (the masked slots' -inf among them) in ascending index
+    order. Returns (f32[k] values, i32[k] indices).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K19.
+    """
+    dev = _kb.wrapper_device("masked_topk", scores)
+    n = scores.shape[0]
+    if not 0 <= k <= n:
+        raise ValueError(f"masked_topk: k={k} outside [0, {n}]")
+    if dev.type == "cpu":
+        return masked_topk_plain(scores, mask, k)
+    _kb.check(scores, "scores", torch.float32, (n,), dev)
+    _kb.check(mask, "mask", torch.bool, (n,), dev)
+    vals = torch.empty(k, dtype=torch.float32, device=dev)
+    idx = torch.empty(k, dtype=torch.int32, device=dev)
+    if k == 0:
+        return vals, idx
+    ws = torch.empty(_kb.query("segment_topk",
+                               "es_segment_topk_workspace_bytes", n, k),
+                     dtype=torch.uint8, device=dev)
+    _kb.launch("segment_topk", dev, scores.data_ptr(), mask.data_ptr(), n, k,
+               vals.data_ptr(), idx.data_ptr(), ws.data_ptr())
+    return vals, idx
+
+
+def _topk_on(scores, mask, *, n: int, k: int):
+    if scores.shape[0] != n:
+        raise ValueError(f"topk kernel for n={n} got {scores.shape[0]} "
+                         f"scores")
+    return masked_topk(scores, mask, k)
+
+
+def get_topk_kernel(n: int, k: int):
+    """:func:`masked_topk` at one (n, k) shape, called as the reference
+    calls ``get_topk_kernel(n_pad, k)(scores, mask)``."""
+    return functools.partial(_topk_on, n=n, k=k)

@@ -33,9 +33,17 @@ from elasticsearch_tpu_torch.parallel.dist_search import (
 from elasticsearch_tpu_torch.utils.synth import split_csr_shards
 from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
 from elasticsearch_tpu_torch.ops import aggs
+from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+from elasticsearch_tpu_torch.ops.bm25 import bm25_score, bm25_score_plain
+from elasticsearch_tpu_torch.ops.masks import (
+    postings_match, postings_match_plain, range_mask, range_mask_plain)
+from elasticsearch_tpu_torch.ops.topk import masked_topk, masked_topk_plain
+from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
 from torch_cases import (agg_pairs_case, assert_topk_close, bool_case,
-                         dense_case, fusion_case, hit_ids, knn_tol,
-                         query_mix, sparse_case, topk_lists_case)
+                         build_segments, csr_case, dense_case, fusion_case,
+                         hit_ids, knn_tol, pairs_case, query_mix,
+                         sparse_case, topk_lists_case, topk_scores)
 
 pytestmark = pytest.mark.cuda
 
@@ -959,3 +967,134 @@ def test_agg_kernels_take_no_pairs_and_refuse_bad_sizes(cuda):
         aggs.masked_ordinal_counts(off.long(), docs, mask)
     with pytest.raises(ValueError):
         aggs.masked_ordinal_counts(off, docs, mask.cpu())
+
+
+# ---------------------------------------------------------------------------
+# the per-segment path: K16–K19
+# ---------------------------------------------------------------------------
+
+
+def _pow2(n):
+    return 1 << int(np.ceil(np.log2(max(n, 8))))
+
+
+@pytest.mark.parametrize("seed,n_pad,Q,L,wild", [
+    (1, 64, 3, 16, False), (2, 4096, 9, 1024, True),
+    (3, 1 << 20, 5, 1 << 18, True), (4, 1 << 16, 300, 256, False)])
+@pytest.mark.parametrize("keyword", [False, True])
+def test_k16_bitwise_equals_plain(cuda, seed, n_pad, Q, L, wild, keyword):
+    docs, tf, dl, starts, lengths, idf, w = csr_case(
+        seed, n_pad=n_pad, Q=Q, L=L, P_pad=_pow2(2 * L * Q), wild=wild)
+    if keyword:
+        tf, dl = np.ones_like(tf), np.zeros_like(dl)
+        sc = (np.float32(1.0), np.float32(1.2), np.float32(0.0))
+    else:
+        sc = (np.float32(31.7), np.float32(1.2), np.float32(0.75))
+    args = (_t(docs, cuda), _t(tf, cuda), _t(dl, cuda), starts, lengths,
+            idf, w, *sc)
+    n0 = kb.launches["bm25_scatter"]
+    got = bm25_score(*args, segment_pad=n_pad, L=L)
+    assert kb.launches["bm25_scatter"] == n0 + 1
+    want = bm25_score_plain(*args, segment_pad=n_pad, L=L)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("seed,n_pad,Q,L,wild,prefix", [
+    (11, 64, 3, 16, False, False), (12, 4096, 7, 1024, True, False),
+    (13, 1 << 20, 6, 1 << 16, True, True), (14, 1 << 12, 70000, 8, False,
+                                            False)])
+def test_k17_equals_plain(cuda, seed, n_pad, Q, L, wild, prefix):
+    """Exact counts; ``prefix`` passes one run over several runs (docs
+    repeat in it); 70,000 slots take two launches' worth of grid rows."""
+    docs, _, _, starts, lengths, _, _ = csr_case(
+        seed, n_pad=n_pad, Q=Q, L=L, P_pad=_pow2(2 * L * Q), wild=wild)
+    if prefix:
+        total = int(lengths.sum())
+        starts = np.asarray([0], np.int32)
+        lengths = np.asarray([total], np.int32)
+        L = _pow2(total)
+    d = _t(docs, cuda)
+    n0 = kb.launches["postings_match"]
+    got = postings_match(d, starts, lengths, segment_pad=n_pad, L=L)
+    assert kb.launches["postings_match"] == n0 + 1
+    want = postings_match_plain(d, starts, lengths, segment_pad=n_pad, L=L)
+    torch.cuda.synchronize()
+    _same_bits((got,), (want,))
+
+
+@pytest.mark.parametrize("seed,n_pad,M,M_pad", [
+    (21, 64, 40, 64), (22, 1 << 16, 50000, 1 << 16),
+    (23, 1 << 20, 3000000, 1 << 22)])
+@pytest.mark.parametrize("f32", [False, True])
+def test_k18_equals_plain(cuda, seed, n_pad, M, M_pad, f32):
+    rng, docs = pairs_case(seed, n_pad, M, M_pad)
+    if f32:       # keyword ordinals past 2^24, compared after rounding
+        vals = ((1 << 24) + rng.randint(0, 40, M_pad)).astype(np.float32)
+        vals[::97] = np.nan
+        bounds = [((1 << 24) + 3, (1 << 24) + 3),
+                  ((1 << 24) + 1, (1 << 24) + 30), (0, 1 << 25)]
+    else:
+        vals = rng.randint(0, 50, M_pad).astype(np.int32)
+        bounds = [(0, 49), (7, 7), (10, 30), (-5, 3), (9, 8)]
+    v, d = _t(vals, cuda), _t(docs, cuda)
+    for lo, hi in bounds:
+        n0 = kb.launches["range_mask"]
+        got = range_mask(v, d, lo, hi, segment_pad=n_pad)
+        assert kb.launches["range_mask"] == n0 + 1
+        want = range_mask_plain(v, d, *((float(np.float32(lo)),
+                                         float(np.float32(hi))) if f32
+                                        else (lo, hi)), segment_pad=n_pad)
+        torch.cuda.synchronize()
+        _same_bits((got,), (want,))
+
+
+@pytest.mark.parametrize("n,k", [
+    (64, 1), (64, 64), (3000, 10), (3000, 3000), (1 << 17, 16384),
+    (1 << 17, 16385), (1 << 17, 1 << 17), (1 << 20, 10), (1 << 20, 10000),
+    (1 << 20, 1 << 20)])
+@pytest.mark.parametrize("kind", ["ties", "nan", "masked", "distinct"])
+def test_k19_bitwise_equals_plain(cuda, n, k, kind):
+    """Values bitwise and indices exact, in one block's shared memory
+    (k <= 16,384) and in device memory (k > 16,384)."""
+    s, mask = topk_scores(n + k, n, kind)
+    sc, m = _t(s, cuda), _t(mask, cuda)
+    n0 = kb.launches["segment_topk"]
+    got = masked_topk(sc, m, k)
+    assert kb.launches["segment_topk"] == n0 + 1
+    want = masked_topk_plain(sc, m, k)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+def test_segment_path_on_the_card_equals_the_cpu(cuda):
+    """ShardSearcher over the same segments on the card and on the CPU:
+    the same hits, scores (bitwise) and totals, each kernel launched."""
+    _, segs_c = build_segments(MapperService, SegmentBuilder, 41,
+                               device="cuda")
+    svc, segs_h = build_segments(MapperService, SegmentBuilder, 41,
+                                 device="cpu")
+    card = ShardSearcher(segs_c, svc)
+    host = ShardSearcher(segs_h, svc, device="cpu")
+    match = {"match": {"body": "w1 w2 hello"}}
+    bodies = [
+        {"query": match}, {"query": match, "from": 4, "size": 9},
+        {"query": {"bool": {
+            "must": match, "filter": [
+                {"terms": {"tag": ["alpha", "gamma"]}},
+                {"range": {"price": {"gte": 1.5, "lt": 7.25}}}],
+            "must_not": {"term": {"tag": "beta"}}}}},
+        {"query": {"range": {"tag": {"gte": "beta", "lt": "eps"}}}},
+        {"query": {"prefix": {"body": "w1"}}, "min_score": 0.5},
+        {"query": match, "search_after": [1.0, 5], "size": 30}]
+    kb.reset_launches()
+    for body in bodies:
+        a, b = card.search(body), host.search(body)
+        assert [(h.doc_id, h.score, h.sort_values) for h in a.hits] == \
+            [(h.doc_id, h.score, h.sort_values) for h in b.hits]
+        assert (a.total, a.total_relation) == (b.total, b.total_relation)
+        assert card.count(body) == host.count(body)
+    for name in ("bm25_scatter", "postings_match", "range_mask",
+                 "segment_topk"):
+        assert kb.launches[name] > 0, name
+

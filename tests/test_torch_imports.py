@@ -67,6 +67,38 @@ print("ok")
     assert out.stdout.strip().endswith("ok")
 
 
+def test_segment_path_runs_with_jax_blocked():
+    """The per-segment path (mapping, segment, query DSL, shard search)
+    with JAX and the reference blocked; the mapping's lazy geometry import
+    resolves to the port's own copy."""
+    code = f"""
+import sys
+for name in {BANNED!r}:
+    sys.modules[name] = None
+from elasticsearch_tpu_torch.index.mapping import MapperService
+from elasticsearch_tpu_torch.index.segment import SegmentBuilder
+from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+svc = MapperService({{"properties": {{"body": {{"type": "text"}},
+                                      "area": {{"type": "geo_shape"}}}}}})
+b = SegmentBuilder("_0")
+b.add(svc.parse_document("1", {{"body": "hello world", "area": {{
+    "type": "point", "coordinates": [1.0, 2.0]}}}}), seq_no=0)
+b.add(svc.parse_document("2", {{"body": "goodbye"}}), seq_no=1)
+r = ShardSearcher([b.build(device="cpu")], svc, device="cpu").search(
+    {{"query": {{"match": {{"body": "hello"}}}}}})
+assert r.total == 1 and r.hits[0].doc_id == "1", r
+assert "elasticsearch_tpu_torch.search.geometry" in sys.modules
+assert not any(n.startswith("jax") for n in sys.modules if sys.modules[n])
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def _tiny_shards():
     from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
     c = synthetic_csr_corpus_fast(np.random.RandomState(1), 512, 64, 8)

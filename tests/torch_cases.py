@@ -312,3 +312,187 @@ def agg_pairs_case(seed, M, V, n_pad, density, docs_kind):
     return dict(off=pad(off, 1 << V.bit_length(), off[-1]),
                 docs=pad(docs, Mp, n_pad), vals=pad(vals, Mp, 0.0),
                 mask=mask, M=Mp, n_pad=n_pad)
+
+
+#: a mapping with every field kind the per-segment query path reads
+SEGMENT_MAPPING = {"properties": {
+    "body": {"type": "text"},
+    "title": {"type": "text"},
+    "tag": {"type": "keyword"},
+    "tags": {"type": "keyword"},
+    "price": {"type": "double"},
+    "qty": {"type": "long"},
+    "ts": {"type": "date"},
+    "flag": {"type": "boolean"},
+    "addr": {"type": "ip"},
+    "vec": {"type": "dense_vector", "dims": 4},
+    "span": {"type": "integer_range"},
+    "alias_tag": {"type": "alias", "path": "tag"},
+    "obj": {"properties": {"a": {"type": "keyword"}, "b": {"type": "long"}}},
+    "ck": {"type": "constant_keyword", "value": "x"},
+    "comments": {"type": "nested",
+                 "properties": {"who": {"type": "keyword"},
+                                "text": {"type": "text"}}},
+}}
+
+SEGMENT_WORDS = [f"w{i}" for i in range(24)] + ["hello", "world", "the"]
+SEGMENT_TAGS = ["alpha", "beta", "gamma", "delta", "eps", "zeta"]
+
+
+def segment_docs(seed: int, n: int, start: int = 0) -> list:
+    """``n`` (id, source) documents over :data:`SEGMENT_MAPPING`: short
+    bodies from a small vocabulary (so scores tie often), skewed tags,
+    prices on a coarse grid, missing fields now and then."""
+    rng = np.random.RandomState(seed)
+    p_words = 1.0 / np.arange(1, len(SEGMENT_WORDS) + 1)
+    p_words /= p_words.sum()
+    docs = []
+    for i in range(n):
+        src = {}
+        if rng.rand() < 0.92:
+            ln = int(rng.randint(1, 9))
+            src["body"] = " ".join(rng.choice(SEGMENT_WORDS, ln, p=p_words))
+        if rng.rand() < 0.5:
+            src["title"] = " ".join(rng.choice(SEGMENT_WORDS[:6], 2))
+        if rng.rand() < 0.85:
+            src["tag"] = SEGMENT_TAGS[min(int(rng.zipf(1.5)) - 1, 5)]
+        if rng.rand() < 0.4:
+            src["tags"] = list(rng.choice(SEGMENT_TAGS, rng.randint(1, 4)))
+        if rng.rand() < 0.8:
+            src["price"] = float(rng.randint(0, 40)) / 4
+        if rng.rand() < 0.7:
+            src["qty"] = int(rng.randint(-5, 50))
+        if rng.rand() < 0.6:
+            src["ts"] = f"2020-0{rng.randint(1, 10)}-1{rng.randint(0, 10)}"
+        if rng.rand() < 0.5:
+            src["flag"] = bool(rng.rand() < 0.5)
+        if rng.rand() < 0.4:
+            src["addr"] = f"10.0.{rng.randint(0, 3)}.{rng.randint(0, 256)}"
+        if rng.rand() < 0.5:
+            src["vec"] = [float(x) for x in rng.randn(4).round(3)]
+        if rng.rand() < 0.3:
+            lo = int(rng.randint(0, 20))
+            src["span"] = {"gte": lo, "lte": lo + int(rng.randint(0, 10))}
+        if rng.rand() < 0.3:
+            src["obj"] = {"a": SEGMENT_TAGS[rng.randint(0, 6)],
+                          "b": int(rng.randint(0, 5))}
+        if rng.rand() < 0.3:
+            src["ck"] = "x"
+        if rng.rand() < 0.2:
+            src["comments"] = [
+                {"who": SEGMENT_TAGS[rng.randint(0, 6)],
+                 "text": " ".join(rng.choice(SEGMENT_WORDS[:8], 2))}
+                for _ in range(rng.randint(1, 3))]
+        docs.append((str(start + i), src))
+    return docs
+
+
+def build_segments(mapping_cls, builder_cls, seed: int, sizes=(70, 1, 45),
+                   deletes=((3, 10, 11), (), (0, 44)), **build_kw):
+    """Segments of :func:`segment_docs` built through ``parse_document`` and
+    a ``SegmentBuilder`` each (the reference's classes or the port's),
+    with deletes: before ``build`` for the first segment, after it for
+    the others. Returns (mapper, segments)."""
+    svc = mapping_cls(SEGMENT_MAPPING)
+    segs = []
+    start = 0
+    for si, (n, dels) in enumerate(zip(sizes, deletes)):
+        b = builder_cls(f"_{si}")
+        for seq, (uid, src) in enumerate(segment_docs(seed + si, n, start)):
+            b.add(svc.parse_document(uid, src), seq_no=start + seq)
+        start += n
+        if si == 0:
+            b.deleted.update(dels)
+        seg = b.build(**build_kw)
+        if si:
+            for d in dels:
+                seg.delete_doc(d)
+        segs.append(seg)
+    return svc, segs
+
+
+def csr_case(seed, *, n_pad, Q, L, P_pad, wild):
+    """Q postings runs of unique ascending docs (some longer than L, some
+    empty, one absent term at start P), flat and padded with n_pad; with
+    ``wild`` some postings hold their doc as doc - n_pad (it wraps back, so
+    a run still holds each doc once), and some a doc below -n_pad or at or
+    after n_pad (dropped)."""
+    rng = np.random.RandomState(seed)
+    runs, starts, lengths = [], [], []
+    pos = 0
+    for q in range(Q):
+        n = 0 if q % 5 == 4 else int(rng.randint(1, min(2 * L, n_pad)))
+        runs.append(np.sort(rng.choice(n_pad, n, replace=False)))
+        starts.append(pos)
+        lengths.append(n)
+        pos += n
+    docs = np.full(P_pad, n_pad, np.int32)
+    flat = np.concatenate(runs).astype(np.int32)
+    assert flat.size <= P_pad
+    docs[:flat.size] = flat
+    if wild:
+        pick = rng.rand(flat.size)
+        docs[:flat.size][pick < 0.05] -= n_pad
+        docs[:flat.size][(pick >= 0.05) & (pick < 0.07)] = n_pad + 5
+        docs[:flat.size][(pick >= 0.07) & (pick < 0.09)] = -n_pad - 3
+    starts = np.asarray(starts, np.int32)
+    lengths = np.asarray(lengths, np.int32)
+    if Q > 1:
+        starts[-1] = P_pad                   # an absent term
+        lengths[-1] = 0
+    tf = rng.randint(1, 7, P_pad).astype(np.float32)
+    dl = rng.randint(0, 120, n_pad).astype(np.float32)
+    idf = (rng.rand(Q) * 6).astype(np.float32)
+    w = rng.choice(np.array([1, 1, 2, 3], np.float32), Q)
+    return docs, tf, dl, starts, lengths, idf, w
+
+
+def pairs_case(seed, n_pad, M, M_pad):
+    """M (value, doc) pairs padded to M_pad with doc n_pad; some docs in
+    [-n_pad, 0) (they wrap), below it or at/after n_pad (dropped)."""
+    rng = np.random.RandomState(seed)
+    docs = np.full(M_pad, n_pad, np.int32)
+    docs[:M] = rng.randint(0, n_pad, M)
+    pick = rng.rand(M)
+    docs[:M][pick < 0.05] = -rng.randint(1, n_pad + 1, (pick < 0.05).sum())
+    docs[:M][(pick >= 0.05) & (pick < 0.07)] = n_pad + 2
+    docs[:M][(pick >= 0.07) & (pick < 0.09)] = -n_pad - 1
+    return rng, docs
+
+
+def topk_scores(seed, n, kind):
+    """Scores from a few values (ties) and a 60 % mask; ``nan`` adds NaNs
+    of both signs and a payload, signed zeros and infinities, ``masked``
+    masks everything, ``distinct`` draws distinct values."""
+    rng = np.random.RandomState(seed)
+    s = rng.choice(np.array([0.5, 1.0, 1.25, 2.0, 3.5], np.float32), n)
+    mask = rng.rand(n) < 0.6
+    if kind == "nan":
+        s[rng.rand(n) < 0.05] = np.nan
+        s[rng.rand(n) < 0.02] = -np.nan
+        s[rng.rand(n) < 0.05] = np.float32(-0.0)
+        s[rng.rand(n) < 0.05] = np.float32(0.0)
+        s[rng.rand(n) < 0.03] = np.inf
+        s[rng.rand(n) < 0.03] = -np.inf
+        payload = np.asarray([0x7FC00001], np.uint32).view(np.float32)[0]
+        s[rng.rand(n) < 0.02] = payload
+    elif kind == "masked":
+        mask[:] = False
+    elif kind == "distinct":
+        s = rng.permutation(n).astype(np.float32) / 7
+    return s, mask
+
+
+def assert_same_bits(ref, got):
+    """A reference array (jax or numpy) and a port tensor (or array): the
+    same dtype, shape and bit patterns (floats compared as integers, so
+    NaN payloads and signed zeros count)."""
+    r = np.asarray(ref)
+    g = got.numpy() if hasattr(got, "numpy") else np.asarray(got)
+    assert r.dtype == g.dtype and r.shape == g.shape, (r.dtype, g.dtype,
+                                                       r.shape, g.shape)
+    if r.dtype.kind == "f":
+        as_int = {4: np.int32, 8: np.int64}[r.dtype.itemsize]
+        r, g = r.view(as_int), g.view(as_int)
+    assert np.array_equal(r, g)
+
