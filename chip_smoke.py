@@ -14,7 +14,10 @@ benchmark's two kNN shapes; the one-dispatch hybrid (BM25 + kNN + RRF)
 at BEIR/NQ's size; config #3's terms + percentiles aggregation at the
 NYC-taxi rally track's size; and, between the headline and the pruned
 route, the per-segment search path (``ShardSearcher``) over the headline
-corpus as one segment. Phases, each fatal on failure:
+corpus as one segment; and, last, the ML path (``MlService``: trained-model
+inference, the ``inference`` ingest processor, outlier detection and
+classification over a frame of Kibana's flights sample schema at ten
+times its size). Phases, each fatal on failure:
 
 1. the card's name and power limit; build the CUDA kernels (one ``nvcc``
    a source, all started together);
@@ -104,7 +107,29 @@ corpus as one segment. Phases, each fatal on failure:
     f32 sums within 2^-22 of their |v| mass); the path's launches counted
     alone; each kernel's time beside its bound, plain version and
     library call;
-12. the ``kernels`` JSON line, the card line, and the final status line.
+12. the ML path (:func:`run_ml`, ``xpack/ml.py``) through ``MlService`` on
+    the card, all from ``RandomState(1234)``: (j) ``_infer`` of a
+    ``weighted_sum`` ensemble of 500 full trees of depth 8 (511 nodes) over
+    32 features (a fifth of the splits ``default_left: false``), 1,024
+    docs a call with 10 % of their features missing, 20 timed calls; (k)
+    the same model through the ``inference`` ingest processor of the
+    port's ``Pipeline``, 256 docs one at a time; (l) outlier detection
+    (``n_neighbors`` unset: 5) and (m) classification of ``FlightDelay``
+    (500 steps; ``FlightDelayMin`` excluded) over a frame of
+    ``kibana_sample_data_flights``' schema at 131,072 docs (eight numeric
+    fields), paged through ``_load_frame`` from an in-memory source, then
+    regression of ``FlightDelayMin`` (host ``lstsq``, timed only): K20
+    equal to its plain version and to a numpy walk on every recorded
+    call, K21 bitwise to its plain version over every row (in chunks)
+    and 1,024 sampled rows' dk against f64, K22 within 1e-5 of
+    max(1, |W|) of its plain version and of a numpy f64 run (a planted
+    TF32 run must land outside that bar), the written results recomputed
+    from the gated arrays; K20 launched once a call
+    and a doc, K21 once an outlier run, K22 once a step; docs/s and
+    p50/p99, the analytics' wall split (frame load, standardise, kernel,
+    tail, write), each kernel's time beside its bound, plain version and
+    library call;
+13. the ``kernels`` JSON line, the card line, and the final status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -3016,6 +3041,543 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
     return rows, path
 
 
+ML_TREES = 500
+ML_TREE_LEVELS = 8           # split levels: 511 nodes, the reference's depth 9
+ML_FEATURES = 32
+ML_MISSING = 0.1             # features absent from a doc
+ML_DEFAULT_RIGHT = 0.2       # splits with default_left: false
+ML_INFER_DOCS = 1024         # docs a _infer call
+ML_INFER_CALLS = 20          # timed calls (one warm-up more)
+ML_INGEST_DOCS = 256         # docs through the ingest pipeline, one a time
+#: kibana_sample_data_flights' 13,059 docs, times ten
+ML_FRAME_DOCS = 131_072
+ML_STEPS = 500               # _train_logreg's default
+ML_SAMPLED_ROWS = 1024       # rows whose dk is held against f64
+ML_PLAIN_ROWS = 2048         # rows a chunk of K21's plain version
+ML_LIB_ROWS = 8192           # rows a chunk of the library yardstick
+#: K22 against its plain version and a numpy f64 run of the same steps:
+#: |ΔW| within this share of max(1, max |W|); predictions equal where the
+#: top-two logits differ by more than ML_MARGIN. An f32 run lands near 2e-7
+#: of the f64 one on (m)'s frame, a run whose products take TF32 operands
+#: near 1e-4: the phase plants that TF32 run and fails if the bar cannot
+#: tell it from the kernel's
+ML_W_TOL = 1e-5
+ML_MARGIN = 1e-3
+ML_FLIGHT_FIELDS = ("AvgTicketPrice", "DistanceKilometers", "DistanceMiles",
+                    "FlightDelayMin", "FlightTimeHour", "FlightTimeMin",
+                    "dayOfWeek", "hour_of_day")
+ML_CARRIERS = ("Kibana Airlines", "Logstash Airways", "JetBeats", "ES-Air")
+
+
+def ml_model(rng):
+    """A ``weighted_sum`` regression ensemble in the trained-model
+    definition format (``Ensemble.java``/``Tree.java``): ML_TREES full
+    binary trees of ML_TREE_LEVELS split levels over ML_FEATURES features,
+    thresholds and leaves drawn from ``rng``, a fifth of the splits with
+    ``default_left: false``."""
+    names = [f"f{j:02d}" for j in range(ML_FEATURES)]
+    n_split = 2 ** ML_TREE_LEVELS - 1
+    n_nodes = 2 * n_split + 1
+    feat = rng.randint(0, ML_FEATURES, (ML_TREES, n_split))
+    thr = rng.randn(ML_TREES, n_split)
+    right = rng.rand(ML_TREES, n_split) < ML_DEFAULT_RIGHT
+    leaf = rng.randn(ML_TREES, n_nodes - n_split) * 0.1
+    trees = []
+    for t in range(ML_TREES):
+        nodes = []
+        for i in range(n_split):
+            node = {"node_index": i, "split_feature": int(feat[t, i]),
+                    "threshold": float(thr[t, i]),
+                    "left_child": 2 * i + 1, "right_child": 2 * i + 2}
+            if right[t, i]:
+                node["default_left"] = False
+            nodes.append(node)
+        nodes += [{"node_index": n_split + i, "leaf_value": float(v)}
+                  for i, v in enumerate(leaf[t])]
+        trees.append({"tree": {"feature_names": names,
+                               "tree_structure": nodes}})
+    return {"inference_config": {"regression": {}},
+            "input": {"field_names": names},
+            "definition": {"trained_model": {"ensemble": {
+                "feature_names": names,
+                "aggregate_output": {"weighted_sum": {
+                    "weights": [float(w) for w in
+                                rng.uniform(0.5, 1.5, ML_TREES)]}},
+                "trained_models": trees}}}}
+
+
+def ml_docs(rng, n):
+    """n docs of the model's features, ML_MISSING of them absent."""
+    vals = rng.randn(n, ML_FEATURES)
+    keep = rng.rand(n, ML_FEATURES) >= ML_MISSING
+    names = [f"f{j:02d}" for j in range(ML_FEATURES)]
+    return [{names[j]: float(vals[i, j]) for j in np.flatnonzero(keep[i])}
+            for i in range(n)]
+
+
+def flights_frame(rng, n):
+    """``kibana_sample_data_flights``' schema at n docs: the eight numeric
+    fields, the boolean ``FlightDelay`` (its log-odds rise with the hour
+    and the distance, and at weekends, so late evening long flights are
+    mostly late and a linear model predicts both classes) and a
+    ``Carrier`` keyword."""
+    price = rng.uniform(100.0, 1200.0, n)
+    km = np.minimum(rng.lognormal(8.3, 0.75, n), 19_900.0)
+    hour = rng.randint(0, 24, n)
+    day = rng.randint(0, 7, n)
+    z = -4.0 + 0.15 * hour + 0.25 * km / 1000.0 + 0.4 * (day >= 5)
+    late = rng.rand(n) < 1.0 / (1.0 + np.exp(-z))
+    delay = np.where(late, 15 * rng.randint(1, 25, n), 0)
+    tmin = km / rng.uniform(650.0, 900.0, n) * 60.0 + rng.uniform(
+        20.0, 60.0, n)
+    carrier = rng.randint(0, len(ML_CARRIERS), n)
+    return [{"AvgTicketPrice": float(price[i]),
+             "DistanceKilometers": float(km[i]),
+             "DistanceMiles": float(km[i] * 0.621371),
+             "FlightDelayMin": int(delay[i]), "FlightDelay": bool(late[i]),
+             "FlightTimeHour": float(tmin[i] / 60.0),
+             "FlightTimeMin": float(tmin[i]), "dayOfWeek": int(day[i]),
+             "hour_of_day": int(hour[i]),
+             "Carrier": ML_CARRIERS[carrier[i]]} for i in range(n)]
+
+
+def frame_search(docs):
+    """The frame as an index: pages the list by the body ``_load_frame``
+    sends (``size``, ``sort`` ``_shard_doc``, ``search_after``)."""
+    def search(index, body):
+        if body["sort"][-1] != {"_shard_doc": "asc"}:
+            fail(f"unexpected frame sort {body['sort']}")
+        start = (body.get("search_after") or [-1])[0] + 1
+        page = docs[start:start + body["size"]]
+        return {"hits": {"hits": [
+            {"_id": f"flight-{start + i}", "_source": d,
+             "sort": [start + i]} for i, d in enumerate(page)]}}
+    return search
+
+
+def numpy_walk(X, feats, thresh, left, right, dleft, depth):
+    """The reference's tree walk on the flattened arrays, in numpy."""
+    T, N = feats.shape
+    n, F = X.shape
+    rows = np.arange(n)[None, :]
+    idx = np.zeros((T, n), np.int64)
+    for _ in range(depth):
+        j = np.clip(np.where(idx < 0, idx + N, idx), 0, N - 1)
+        f = np.take_along_axis(feats, j, 1)
+        xv = np.where((f >= 0) & (f < F), X[rows, np.clip(f, 0, F - 1)],
+                      np.nan)
+        go = np.where(np.isnan(xv), np.take_along_axis(dleft, j, 1) != 0,
+                      xv < np.take_along_axis(thresh, j, 1))
+        nxt = np.where(go, np.take_along_axis(left, j, 1),
+                       np.take_along_axis(right, j, 1))
+        idx = np.where(f < 0, idx, nxt)
+    return idx.astype(np.int32)
+
+
+def run_ml(card, *, reps=10):
+    """Phase 12: the ML path (``xpack/ml.py``) with K20–K22: (j) ``_infer``
+    on a 500-tree ensemble, (k) the ``inference`` ingest processor, (l)
+    outlier detection and (m) classification (and regression) analytics
+    over a flights-schema frame. Returns the kernels' rows and each path's
+    launch counts."""
+    import torch
+    from elasticsearch_tpu_torch.ingest.pipeline import (IngestDocument,
+                                                         Pipeline)
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.xpack import ml
+
+    rng = np.random.RandomState(1234)
+    t0 = time.perf_counter()
+    written = {}
+    frame = flights_frame(rng, ML_FRAME_DOCS)
+    svc = ml.MlService(frame_search(frame),
+                       lambda index, lines: written.__setitem__(index,
+                                                                lines))
+    dev = svc.device
+    if dev.type != "cuda":
+        fail(f"MlService() resolved to {dev}")
+    body = ml_model(rng)
+    t1 = time.perf_counter()
+    svc.put_trained_model("flights-ens", body)
+    model = svc.models["flights-ens"]
+    T, N = model._arrays[0].shape
+    if (T, N, model._depth) != (ML_TREES, 2 ** (ML_TREE_LEVELS + 1) - 1,
+                                ML_TREE_LEVELS + 1):
+        fail(f"model flattened to {(T, N, model._depth)}")
+    print(f"# ml: frame {ML_FRAME_DOCS} flights docs, model {T} trees x "
+          f"{N} nodes (depth {model._depth}) over {ML_FEATURES} features; "
+          f"put_trained_model {time.perf_counter() - t1:.2f} s, set-up "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    paths = {}
+
+    # ---- (j) _infer ---------------------------------------------------------
+    calls = []
+    docs = [ml_docs(rng, ML_INFER_DOCS) for _ in range(ML_INFER_CALLS + 1)]
+    with recording(calls, ["_eval_trees"], (ml,)):
+        svc.infer("flights-ens", {"docs": docs[0]})          # warm-up
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        lat = np.zeros(ML_INFER_CALLS)
+        results = []
+        for i in range(ML_INFER_CALLS):
+            t1 = time.perf_counter()
+            results.append(svc.infer("flights-ens", {"docs": docs[i + 1]}))
+            lat[i] = time.perf_counter() - t1
+        paths["ml_infer"] = dict(kb.launches)
+    if paths["ml_infer"]["tree_eval"] != ML_INFER_CALLS:
+        fail(f"(j): K20 launched {paths['ml_infer']['tree_eval']} times "
+             f"in {ML_INFER_CALLS} _infer calls")
+    st_j = latency_stats(lat, ML_INFER_DOCS)
+    print(f"# ml (j) _infer: {st_j['qps']:.1f} docs/s, p50 "
+          f"{st_j['p50_ms']:.3f} ms, p99 {st_j['p99_ms']:.3f} ms a call of "
+          f"{ML_INFER_DOCS} docs over {ML_INFER_CALLS} calls; K20 "
+          f"{paths['ml_infer']['tree_eval']} launches [{card}]", flush=True)
+    arrs = [a.cpu().numpy() for a in model._dev_arrays]
+    leaves = model._arrays[5]
+    w = np.asarray(model.weights, dtype=np.float32)[:, None, None]
+    for ci, (_n, args, kw, out) in enumerate(calls[1:]):
+        if not torch.equal(out, ml._eval_trees_plain(*args, **kw)):
+            fail(f"(j) call {ci}: K20 differs from its plain version")
+        walk = numpy_walk(args[0].cpu().numpy(), *arrs, args[-1])
+        if not np.array_equal(out.cpu().numpy(), walk):
+            fail(f"(j) call {ci}: K20 differs from the numpy walk")
+        vals = (leaves[np.arange(T)[:, None], walk][:, :, 0]
+                * w[:, :, 0]).sum(axis=0)
+        got = [r["predicted_value"] for r in results[ci]["inference_results"]]
+        if got != [float(v) for v in vals]:
+            fail(f"(j) call {ci}: predicted values differ from the numpy "
+                 f"walk's weighted sums")
+    print(f"# ml (j): K20 equal to its plain version and to the numpy walk "
+          f"on all {ML_INFER_CALLS} calls; predicted values equal",
+          flush=True)
+
+    # ---- (k) the inference ingest processor ----------------------------------
+    ml.registry_bind(svc)
+    pipe = Pipeline("flights-delay", {"processors": [{"inference": {
+        "model_id": "flights-ens", "target_field": "ml.inference"}}]})
+    ing = ml_docs(rng, ML_INGEST_DOCS + 1)
+    calls_k = []
+    with recording(calls_k, ["_eval_trees"], (ml,)):
+        pipe.execute(IngestDocument("flights", "w", dict(ing[0])))
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        lat = np.zeros(ML_INGEST_DOCS)
+        outs = []
+        for i in range(ML_INGEST_DOCS):
+            t1 = time.perf_counter()
+            outs.append(pipe.execute(IngestDocument(
+                "flights", str(i), dict(ing[i + 1]))))
+            lat[i] = time.perf_counter() - t1
+        paths["ml_ingest"] = dict(kb.launches)
+    if paths["ml_ingest"]["tree_eval"] != ML_INGEST_DOCS:
+        fail(f"(k): K20 launched {paths['ml_ingest']['tree_eval']} times "
+             f"for {ML_INGEST_DOCS} docs")
+    st_k = latency_stats(lat, 1)
+    for i, ((_n, args, kw, out), doc) in enumerate(zip(calls_k[1:], outs)):
+        walk = numpy_walk(args[0].cpu().numpy(), *arrs, args[-1])
+        if not (np.array_equal(out.cpu().numpy(), walk) and torch.equal(
+                out, ml._eval_trees_plain(*args, **kw))):
+            fail(f"(k) doc {i}: K20 differs")
+        val = float((leaves[np.arange(T), walk[:, 0], 0] * w[:, 0, 0]).sum())
+        res = doc.source["ml"]["inference"]
+        if res != {"predicted_value": val, "model_id": "flights-ens"}:
+            fail(f"(k) doc {i}: {res} != {val}")
+    print(f"# ml (k) ingest: {st_k['qps']:.1f} docs/s, p50 "
+          f"{st_k['p50_ms']:.3f} ms, p99 {st_k['p99_ms']:.3f} ms a doc over "
+          f"{ML_INGEST_DOCS} docs; K20 once a doc, equal to its plain "
+          f"version and the numpy walk [{card}]", flush=True)
+
+    # ---- the analytics' stages ----------------------------------------------
+    marks = {}
+    load = svc._load_frame
+
+    def timed_load(cfg):
+        out = load(cfg)
+        marks["load_end"] = time.perf_counter()
+        return out
+    svc._load_frame = timed_load
+
+    def stage(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            marks[name + "_start"] = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            marks[name + "_end"] = time.perf_counter()
+            marks[name + "_io"] = (args, kw, out)
+            return out
+        return call
+
+    def run_analytics(aid, analysis, excludes, path, kernel, entry_point):
+        cfg = {"source": {"index": "kibana_sample_data_flights"},
+               "dest": {"index": aid}, "analysis": analysis}
+        if excludes:
+            cfg["analyzed_fields"] = {"excludes": excludes}
+        svc.put_analytics(aid, cfg)
+        saved = {n: getattr(ml, n) for n in (kernel, entry_point)}
+        ml.__dict__[kernel] = stage("kernel", saved[kernel])
+        ml.__dict__[entry_point] = stage("entry", saved[entry_point])
+        marks.clear()
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        t1 = time.perf_counter()
+        try:
+            svc.start_analytics(aid)
+        finally:
+            ml.__dict__.update(saved)
+        wall = time.perf_counter() - t1
+        paths[path] = dict(kb.launches)
+        split = dict(
+            frame_load_s=marks["load_end"] - t1,
+            standardise_s=marks["kernel_start"] - marks["load_end"],
+            kernel_s=marks["kernel_end"] - marks["kernel_start"],
+            tail_s=marks["entry_end"] - marks["kernel_end"],
+            write_s=t1 + wall - marks["entry_end"], wall_s=wall)
+        return split, marks["kernel_io"]
+
+    # ---- (l) outlier detection ---------------------------------------------
+    split_l, (args, kw, dk) = run_analytics(
+        "flights-outliers", {"outlier_detection": {}}, None, "ml_outliers",
+        "knn_kdist", "_knn_outlier_scores")
+    c = paths["ml_outliers"]
+    if c["knn_outlier"] != 1 or any(v for k, v in c.items()
+                                    if k != "knn_outlier"):
+        fail(f"(l): launches {c}")
+    Xd, kk = args
+    n, f = Xd.shape
+    if (n, f, kk) != (ML_FRAME_DOCS, len(ML_FLIGHT_FIELDS), 5):
+        fail(f"(l): K21 ran on {(n, f, kk)}")
+    print(f"# ml (l) outlier detection over {n} docs x {f} fields, "
+          f"n_neighbors {kk}: {json.dumps(split_l)} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for lo in range(0, n, ML_PLAIN_ROWS):
+        hi = min(lo + ML_PLAIN_ROWS, n)
+        want = ml.knn_kdist_plain(Xd, kk, rows=(lo, hi))
+        if not same_bits(dk[lo:hi], want):
+            fail(f"(l): K21 differs from its plain version in rows "
+                 f"[{lo}, {hi})")
+    torch.cuda.synchronize()
+    k21_plain_ms = (time.perf_counter() - t1) * 1e3
+    # dk of sampled rows against f64 over all rows
+    X64 = Xd.double()
+    sample = torch.from_numpy(np.sort(np.random.RandomState(4321).choice(
+        n, ML_SAMPLED_ROWS, replace=False))).to(dev)
+    ratio = 0.0
+    eps = float(np.finfo(np.float32).eps)
+    for b0 in range(0, ML_SAMPLED_ROWS, 128):
+        rows = sample[b0:b0 + 128]
+        d2 = ((X64[rows, None, :] - X64[None, :, :]) ** 2).sum(-1)
+        d2[torch.arange(rows.numel(), device=dev), rows] = float("inf")
+        nn = torch.topk(d2, kk, dim=1, largest=False).values
+        mean64 = nn.mean(1)
+        sq_i = (X64[rows] ** 2).sum(1)
+        # |Δ(sum of squares)| of a neighbour pair scales with |x_i|^2 +
+        # |x_j|^2, and |x_j| <= |x_i| + d_ij
+        sq_j = (sq_i.sqrt() + nn[:, -1].sqrt()) ** 2
+        bar = 4 * (f + 3) * eps * (sq_i + sq_j) + 4 * eps * mean64
+        err = (dk[rows].double() ** 2 - mean64).abs()
+        ratio = max(ratio, float((err / bar).max()))
+    if ratio > 1.0:
+        fail(f"(l): dk off the f64 reference by {ratio:.3f} x the bar")
+    scores = ml.outlier_scores_from_kdist(dk).cpu().numpy()
+    dk64 = dk.double().cpu().numpy()
+    z = (dk64 - dk64.mean()) / (dk64.std() + 1e-9) * 2.0 - 2.0
+    s64 = 1.0 / (1.0 + np.exp(-z))
+    lines = written["flights-outliers"]
+    got = np.asarray([ln["ml"]["outlier_score"] for ln in lines[1::2]])
+    if len(lines) != 2 * n or not np.array_equal(got, scores.astype(
+            np.float64)) or np.abs(got - s64).max() > 1e-5:
+        fail("(l): written outlier scores differ from the gated dk's")
+    if [ln["index"]["_id"] for ln in lines[::2]] != \
+            [f"flight-{i}" for i in range(n)]:
+        fail("(l): written ids out of order")
+    print(f"# ml (l): K21 bitwise equal to its plain version over all {n} "
+          f"rows ({k21_plain_ms:.1f} ms for the plain pass); dk of "
+          f"{ML_SAMPLED_ROWS} sampled rows within {ratio:.4f} of the f64 "
+          f"bar 4(f+3)eps(|x_i|^2+|x_j|^2); written scores equal the "
+          f"gated dk's (f64 within 1e-5); std(dk) {dk64.std():.4f}, "
+          f"top score {got.max():.4f} [{card}]", flush=True)
+    rows = []
+    sq = ml.knn_sq_norms_plain(Xd)
+
+    def lib_k21():
+        for lo in range(0, n, ML_LIB_ROWS):
+            hi = min(lo + ML_LIB_ROWS, n)
+            d2 = (sq[lo:hi, None] + sq[None, :]) - 2.0 * (Xd[lo:hi] @ Xd.T)
+            d2.clamp_min_(0.0)
+            r = torch.arange(hi - lo, device=dev)
+            d2[r, r + lo] = float("inf")
+            torch.topk(d2, kk, dim=1, largest=False)
+    k21_ms = timed(lambda: ml.knn_kdist(Xd, kk), 3)
+    k21_lib = timed(lib_k21, 2)
+    bms, bby = bound(4 * n * f + 4 * n, 2 * n * n * f)
+    rows.append(dict(
+        name="knn_outlier", route="cuda",
+        source="elasticsearch_tpu_torch/csrc/knn_outlier.cu",
+        replaces="elasticsearch_tpu/xpack/ml.py:627", max_abs_err=0.0,
+        ms=k21_ms, plain_ms=k21_plain_ms, bound_ms=bms, bound_by=bby,
+        library_ms=k21_lib,
+        library_call="fp32 torch.matmul (TF32 off) + torch.topk "
+                     "(largest=False) in row chunks",
+        stages_s=split_l))
+    print(f"# knn_outlier: {k21_ms:.4f} ms (bound {bms:.4f} ms by {bby}), "
+          f"plain {k21_plain_ms:.1f} ms, library {k21_lib:.4f} ms "
+          f"[{card}]", flush=True)
+    del X64, sq
+    torch.cuda.empty_cache()
+
+    # ---- (m) classification, then regression --------------------------------
+    split_m, (args, kw, W) = run_analytics(
+        "flights-delay", {"classification": {
+            "dependent_variable": "FlightDelay"}}, ["FlightDelayMin"],
+        "ml_classification", "logreg_train", "_train_logreg")
+    c = paths["ml_classification"]
+    if c["logreg_train"] != ML_STEPS or any(
+            v for k, v in c.items() if k != "logreg_train"):
+        fail(f"(m): launches {c}")
+    Xb, yd, C = args[0], args[1], args[2]
+    if (C, Xb.shape[1]) != (2, len(ML_FLIGHT_FIELDS)):
+        fail(f"(m): K22 ran with {C} classes, {Xb.shape[1]} columns")
+    metrics = svc.analytics["flights-delay"]["metrics"]
+    print(f"# ml (m) classification over {Xb.shape[0]} rows x "
+          f"{Xb.shape[1] - 1} features, {C} classes, {ML_STEPS} steps: "
+          f"{json.dumps(split_m)}, accuracy {metrics['accuracy']:.4f}, K22 "
+          f"{c['logreg_train']} launches [{card}]", flush=True)
+    Wp = ml.logreg_train_plain(Xb, yd, C, ML_STEPS)
+    Xh = Xb.double().cpu().numpy()
+    Y = np.eye(C)[yd.cpu().numpy()]
+    W64 = np.zeros((Xh.shape[1], C))
+    for _ in range(ML_STEPS):
+        zz = Xh @ W64
+        e = np.exp(zz - zz.max(1, keepdims=True))
+        W64 -= 0.5 * (Xh.T @ (e / e.sum(1, keepdims=True) - Y)
+                      / Xh.shape[0] + 1e-4 * W64)
+    scale = max(1.0, float(np.abs(W64).max()))
+    err_p = float((W - Wp).abs().max()) / scale
+    err_64 = float(np.abs(W.double().cpu().numpy() - W64).max()) / scale
+    if err_p > ML_W_TOL or err_64 > ML_W_TOL:
+        fail(f"(m): W off by {err_p:.3g} (plain) / {err_64:.3g} (f64) of "
+             f"max(1, |W|), bar {ML_W_TOL}")
+    # a planted run whose products take TF32 operands (10 mantissa bits,
+    # rounded to nearest) must land outside the bar
+    def tf32(t):
+        b = t.contiguous().view(torch.int32)
+        return ((b + 0x1000) & -0x2000).view(torch.float32)
+    Yd = torch.from_numpy(Y.astype(np.float32)).to(dev)
+    Xt, Wt = tf32(Xb), torch.zeros_like(W)
+    for _ in range(ML_STEPS):
+        p = torch.softmax(Xt @ tf32(Wt), dim=1)
+        Wt = Wt - 0.5 * (Xt.T @ tf32(p - Yd) / Xb.shape[0] + 1e-4 * Wt)
+    err_tf32 = float(np.abs(Wt.double().cpu().numpy() - W64).max()) / scale
+    if err_tf32 <= ML_W_TOL:
+        fail(f"(m): a TF32 run lands {err_tf32:.3g} from the f64 run, "
+             f"inside the bar {ML_W_TOL}: the gate cannot see TF32")
+    lg = (Xh @ W.double().cpu().numpy())
+    l64 = Xh @ W64
+    top2 = -np.sort(-l64, axis=1)[:, :2]
+    sep = top2[:, 0] - top2[:, 1] > ML_MARGIN
+    if not np.array_equal(lg.argmax(1)[sep], l64.argmax(1)[sep]):
+        fail("(m): predictions differ from the f64 run's where separated")
+    # the written results from the gated W, as _run_analytics forms them
+    lines = written["flights-delay"]
+    Wh = W.cpu().numpy()
+    feats = [k for k in ML_FLIGHT_FIELDS if k != "FlightDelayMin"]
+    Xf = np.asarray([[d[k] for k in feats] for d in frame], np.float32)
+    mu, sd = Xf.mean(axis=0), Xf.std(axis=0) + 1e-9
+    Xn = np.concatenate([(Xf - mu) / sd, np.ones((len(frame), 1),
+                                                  np.float32)], axis=1)
+    logits = Xn @ Wh
+    ee = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs = ee / ee.sum(axis=1, keepdims=True)
+    classes = ["False", "True"]
+    pred = [ln["ml"]["FlightDelay_prediction"] for ln in lines[1::2]]
+    prob = np.asarray([ln["ml"]["prediction_probability"]
+                       for ln in lines[1::2]])
+    if pred != [classes[int(i)] for i in np.argmax(probs, 1)] or \
+            not np.array_equal(prob, probs.max(1).astype(np.float64)):
+        fail("(m): written predictions differ from the gated W's")
+    n_true = int(np.sum(np.asarray(pred) == "True"))
+    if not 0 < n_true < len(pred):
+        fail(f"(m): every row predicted the same ({n_true} True): the "
+             f"check of the written predictions would see one value")
+    truth = np.asarray([str(d["FlightDelay"]) for d in frame])
+    acc = float(np.mean(np.asarray(pred) == truth))
+    if abs(acc - metrics["accuracy"]) > 1e-12:
+        fail(f"(m): accuracy {metrics['accuracy']} != {acc}")
+    print(f"# ml (m): K22 within {err_p:.3g} of its plain version and "
+          f"{err_64:.3g} of a numpy f64 run of {ML_STEPS} steps (bar "
+          f"{ML_W_TOL} of max(1, |W|) = {scale:.4f}; a planted TF32 run "
+          f"lands {err_tf32:.3g}); predictions equal the f64 run's on "
+          f"{int(sep.sum())} separated rows ({n_true} predicted True); "
+          f"written results equal the gated W's", flush=True)
+    k22_ms = timed(lambda: ml.logreg_train(Xb, yd, C, ML_STEPS), 2)
+    k22_plain = timed(lambda: ml.logreg_train_plain(Xb, yd, C, ML_STEPS), 2)
+    Wl = W.clone()
+
+    def lib_k22():
+        p = torch.softmax(Xb @ Wl, dim=1)
+        return Xb.T @ (p - Yd)
+    k22_lib = timed(lib_k22, 50)
+    nb, F1 = Xb.shape
+    # a step reads Xb and y once and reads and writes W
+    bms, bby = bound(4 * nb * F1 + 4 * nb + 8 * F1 * C,
+                     4 * nb * F1 * C + 6 * nb * C)
+    rows.append(dict(
+        name="logreg_train", route="cuda",
+        source="elasticsearch_tpu_torch/csrc/logreg_train.cu",
+        replaces="elasticsearch_tpu/xpack/ml.py:660",
+        max_abs_err=float((W - Wp).abs().max()), ms=k22_ms / ML_STEPS,
+        ms_train=k22_ms, plain_ms=k22_plain / ML_STEPS,
+        bound_ms=bms, bound_by=bby, library_ms=k22_lib,
+        library_call="torch.matmul x2 + torch.softmax, one step",
+        stages_s=split_m, accuracy=metrics["accuracy"]))
+    print(f"# logreg_train: {k22_ms / ML_STEPS:.4f} ms a step, "
+          f"{k22_ms:.3f} ms for {ML_STEPS} steps (bound {bms:.5f} ms a step "
+          f"by {bby}), plain {k22_plain / ML_STEPS:.4f} ms a step, library "
+          f"{k22_lib:.4f} ms a step [{card}]", flush=True)
+    t1 = time.perf_counter()
+    kb.reset_launches()
+    svc.put_analytics("flights-delay-min", {
+        "source": {"index": "kibana_sample_data_flights"},
+        "dest": {"index": "flights-delay-min"},
+        "analysis": {"regression": {"dependent_variable": "FlightDelayMin"}},
+        "analyzed_fields": {"excludes": ["FlightDelay"]}})
+    svc.start_analytics("flights-delay-min")
+    if any(kb.launches.values()):
+        fail(f"regression launched kernels: {kb.launches}")
+    print(f"# ml regression (host lstsq) over {ML_FRAME_DOCS} docs: "
+          f"{time.perf_counter() - t1:.2f} s, r_squared "
+          f"{svc.analytics['flights-delay-min']['metrics']['r_squared']:.4f}"
+          f" [{card}]", flush=True)
+
+    # ---- K20's times: (j)'s call shape ----------------------------------------
+    _n, args, kw, out = calls[1]
+    Xj = args[0]
+    nj, Fj = Xj.shape
+    k20_ms = timed(lambda: ml._eval_trees(*args, **kw), reps)
+    k20_plain = timed(lambda: ml._eval_trees_plain(*args, **kw), 2)
+    # X once, 20 bytes of each split node and the feat of each leaf, and
+    # the output
+    n_split = int((args[1] >= 0).sum())
+    bms, bby = bound(4 * nj * Fj + 20 * n_split + 4 * (T * N - n_split)
+                     + 4 * T * nj,
+                     T * nj * args[-1])
+    rows.insert(0, dict(
+        name="tree_eval", route="cuda",
+        source="elasticsearch_tpu_torch/csrc/tree_eval.cu",
+        replaces="elasticsearch_tpu/xpack/ml.py:380", max_abs_err=0.0,
+        ms=k20_ms, plain_ms=k20_plain, bound_ms=bms, bound_by=bby,
+        library_ms=None, library_call=None,
+        infer=st_j, ingest=st_k))
+    print(f"# tree_eval: {k20_ms:.4f} ms ({T} trees x {nj} docs, depth "
+          f"{args[-1]}; bound {bms:.5f} ms by {bby}), plain {k20_plain:.3f} "
+          f"ms, no library call walks trees [{card}]", flush=True)
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return rows, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3063,15 +3625,20 @@ def main() -> int:
     agg_rows, agg_counts = run_aggs(card)
     torch.cuda.empty_cache()
     print(f"# aggs phase {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    ml_rows, ml_counts = run_ml(card)
+    torch.cuda.empty_cache()
+    print(f"# ml phase {time.perf_counter() - t1:.1f} s [{card}]",
+          flush=True)
     k9_row["ms_by_path"]["hybrid"] = hy_times["k9"]["ms"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
     kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows \
-        + seg_rows
+        + seg_rows + ml_rows
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
                        knn_ivf=ivf_counts, bool=bool_counts,
                        hybrid=hy_counts, aggs=agg_counts,
-                       segment=seg_counts)
+                       segment=seg_counts, **ml_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],

@@ -25,6 +25,9 @@
 #define ES_ERR_SHARED (-1)
 // Returned by a C entry given a mode or method code it does not know.
 #define ES_ERR_ARG (-2)
+// Returned by a C entry given a size outside the range it accepts (its
+// comment names the range; the Python wrappers check it first).
+#define ES_ERR_SIZE (-3)
 
 // Bytes of shared memory one block may opt in to on the current card.
 static int es_max_shared_bytes() {
@@ -62,6 +65,8 @@ extern "C" const char* es_error_string(int code) {
   if (code == ES_ERR_SHARED)
     return "the sizes need more shared memory than the card gives a block";
   if (code == ES_ERR_ARG) return "unknown mode or method code";
+  if (code == ES_ERR_SIZE)
+    return "a size argument is outside the range the entry accepts";
   return cudaGetErrorString((cudaError_t)code);
 }
 

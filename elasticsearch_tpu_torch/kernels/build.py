@@ -42,7 +42,8 @@ KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
            "blockmax_scan", "bisect_exact_scores", "knn_scan", "ivf_scan",
            "ivf_rerank", "fuse_rank", "rescore_reorder", "agg_masked_scan",
            "agg_rank_pick", "agg_bucket_reduce", "agg_metrics",
-           "bm25_scatter", "postings_match", "range_mask", "segment_topk")
+           "bm25_scatter", "postings_match", "range_mask", "segment_topk",
+           "tree_eval", "knn_outlier", "logreg_train")
 
 #: kernel entries built from another kernel's source: entry -> source
 ENTRY_SOURCE = {"bool_bm25_topk": "sparse_candidates_topk"}
@@ -159,6 +160,18 @@ _SIGNATURES = {
     "segment_topk": (
         "es_segment_topk",
         [_P, _P, _L, _I] + [_P] * 4),
+    # X, n, F, feats, thresh, left, right, dleft, T, N, depth, out, stream
+    "tree_eval": (
+        "es_tree_eval",
+        [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P] * 2),
+    # X, n, f, kk, sq (workspace), dk, stream
+    "knn_outlier": (
+        "es_knn_outlier",
+        [_P] + [_I] * 3 + [_P] * 3),
+    # Xb, y, n, F1, C, lr, W, partials, stream
+    "logreg_train": (
+        "es_logreg_step",
+        [_P] * 2 + [_I] * 3 + [_F] + [_P] * 3),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -200,6 +213,10 @@ _QUERIES = {
     "segment_topk": {
         # (n, k) -> workspace bytes
         "es_segment_topk_workspace_bytes": ([_L, _I], ctypes.c_longlong),
+    },
+    "logreg_train": {
+        # (n, F1, C) -> bytes of the per-tile partial gradients
+        "es_logreg_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     },
 }
 

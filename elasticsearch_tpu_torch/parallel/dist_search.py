@@ -1305,12 +1305,14 @@ class DistributedSearchPlane:
                                 extra_df=extra_df)
 
 
-def plane_state_from_numpy(packed: dict, *, device="cpu") -> dict:
+def plane_state_from_numpy(packed: dict, *, device=None) -> dict:
     """The reference plane's packed host arrays (``docs`` i32[S, P],
     ``impacts`` f32[S, P], ``dense`` [S, n_blk, T, C] as bf16, or as f32
     (``export_packed``'s wire form, rounded to bf16 nearest-even as the
     reference's ``from_packed`` rounds it), or its int16 bit pattern
-    ``dense_bits``) as the port's device tensors."""
+    ``dense_bits``) as the port's tensors on ``device`` (None: the card;
+    raises without one)."""
+    device = resolve_device(device)
     out = dict(docs=torch.from_numpy(np.array(
                    packed["docs"], np.int32)).to(device),
                impacts=torch.from_numpy(np.array(

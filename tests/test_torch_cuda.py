@@ -40,10 +40,12 @@ from elasticsearch_tpu_torch.ops.masks import (
     postings_match, postings_match_plain, range_mask, range_mask_plain)
 from elasticsearch_tpu_torch.ops.topk import masked_topk, masked_topk_plain
 from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+from elasticsearch_tpu_torch.xpack import ml as tml
 from torch_cases import (agg_pairs_case, assert_topk_close, bool_case,
                          build_segments, csr_case, dense_case, fusion_case,
-                         hit_ids, knn_tol, pairs_case, query_mix,
-                         sparse_case, topk_lists_case, topk_scores)
+                         full_tree_arrays, hit_ids, knn_tol, logreg_case,
+                         outlier_frame, pairs_case, query_mix, sparse_case,
+                         topk_lists_case, topk_scores, tree_arrays_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1098,3 +1100,204 @@ def test_segment_path_on_the_card_equals_the_cpu(cuda):
                  "segment_topk"):
         assert kb.launches[name] > 0, name
 
+
+
+TREE_KEYS = ("X", "feats", "thresh", "left", "right", "dleft")
+
+
+@pytest.mark.parametrize("case", [
+    dict(kind="edges", T=9, N=7, n=300, F=4, depth=6),
+    dict(kind="edges", T=3, N=1, n=5, F=1, depth=3),
+    dict(kind="full", T=500, depth=8, n=1024, F=32),       # shared memory
+    dict(kind="full", T=7, depth=12, n=700, F=16)])        # N = 8191
+def test_k20_equals_plain(cuda, case):
+    """K20's leaf ids equal its plain version's exactly: every index rule
+    (random and pinned edge trees), node arrays in shared memory and in
+    device memory."""
+    c = dict(case)
+    kind, depth = c.pop("kind"), c.pop("depth")
+    if kind == "edges":
+        arrs = tree_arrays_case(20 + c["T"], **c)
+    else:
+        arrs = full_tree_arrays(21, T=c["T"], depth=depth, F=c["F"],
+                                n=c["n"])
+        depth += 1
+    args = [_t(arrs[k], cuda) for k in TREE_KEYS]
+    n0 = kb.launches["tree_eval"]
+    got = tml._eval_trees(*args, depth)
+    assert kb.launches["tree_eval"] == n0 + 1
+    want = tml._eval_trees_plain(*args, depth)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,f,kk,dups", [
+    (2, 1, 1, 0), (3, 8, 2, 0), (200, 8, 5, 0), (200, 8, 199, 0),
+    (1000, 8, 5, 30), (1000, 20, 16, 0), (3000, 3, 128, 0),
+    (5000, 8, 5, 0), (700, 40, 300, 0)])
+def test_k21_bitwise_equals_plain(cuda, n, f, kk, dups):
+    """K21's kNN distances equal its plain version's bit for bit (the
+    same ascending-d FMA chains): one and several feature chunks, kk from
+    1 to n - 1 and past 128, duplicate rows (zero distances)."""
+    X = _t(outlier_frame(n + f, n, f, duplicates=dups), cuda)
+    n0 = kb.launches["knn_outlier"]
+    got = tml.knn_kdist(X, kk)
+    assert kb.launches["knn_outlier"] == n0 + 1
+    want = tml.knn_kdist_plain(X, kk)
+    torch.cuda.synchronize()
+    _same_bits((got,), (want,))
+
+
+@pytest.mark.parametrize("n,f,C,bad", [
+    (1, 1, 1, False), (300, 4, 2, False), (1000, 8, 3, True),
+    (5000, 8, 2, False), (2000, 30, 12, False)])
+def test_k22_equals_plain(cuda, n, f, C, bad):
+    """K22's weights after 100 steps within 1e-5 (relative to the largest
+    weight, at least 1) of its plain version's (torch matrix products: the
+    sums run in another order), and the same argmax on every row whose
+    top-two logits differ by more than 1e-3."""
+    X, y = logreg_case(n + C, n, f, C, bad_labels=bad)
+    Xb = torch.cat([_t(X, cuda), torch.ones(n, 1, device=cuda)], 1)
+    yd = _t(y.astype(np.int32), cuda)
+    n0 = kb.launches["logreg_train"]
+    got = tml.logreg_train(Xb, yd, C, steps=100)
+    assert kb.launches["logreg_train"] == n0 + 100
+    want = tml.logreg_train_plain(Xb, yd, C, steps=100)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    lg, lw = Xb @ got, Xb @ want
+    top2 = torch.topk(lw, min(2, C), dim=1).values
+    sep = (top2[:, 0] - top2[:, -1]) > 1e-3 if C > 1 else \
+        torch.ones(n, dtype=torch.bool, device=cuda)
+    assert torch.equal(lg.argmax(1)[sep], lw.argmax(1)[sep])
+
+
+def test_ml_kernels_refuse_what_they_cannot_launch(cuda):
+    """K21 refuses a neighbour list past a block's shared memory, K22 a row
+    tile past it, both with the library's message. The wrappers of K20–K22
+    refuse sizes out of range with a ValueError naming the range, and the
+    C entries given them anyway return the size code, whose message says
+    so; nothing is counted."""
+    before = dict(kb.launches)
+    X = _t(outlier_frame(5, 600, 4), cuda)
+    with pytest.raises(RuntimeError, match="knn_outlier: launch refused: "
+                       "the sizes need more shared memory"):
+        tml.knn_kdist(X, 512)
+    for kk in (0, 600):                             # kk outside [1, n - 1]
+        with pytest.raises(ValueError, match=r"kk in \[1, n - 1\]; got "
+                           rf"n = 600, f = 4, kk = {kk}"):
+            tml.knn_kdist(X, kk)
+    size_msg = "launch refused: a size argument is outside the range"
+    ws = torch.empty(600, device=cuda)
+    with pytest.raises(RuntimeError, match="knn_outlier: " + size_msg):
+        kb.launch("knn_outlier", cuda, X.data_ptr(), 600, 4, 600,
+                  ws.data_ptr(), ws.data_ptr())
+    Xb = torch.ones(64, 5, device=cuda)
+    y = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="logreg_train: launch refused: "
+                       "the sizes need more shared memory"):
+        tml.logreg_train(Xb, y, 300, steps=1)
+    with pytest.raises(ValueError, match="n_classes >= 1; got n = 64, "
+                       "F1 = 5, n_classes = 0"):
+        tml.logreg_train(Xb, y, 0, steps=1)
+    with pytest.raises(RuntimeError, match="logreg_train: " + size_msg):
+        kb.launch("logreg_train", cuda, Xb.data_ptr(), y.data_ptr(), 64, 5,
+                  0, 0.5, ws.data_ptr(), ws.data_ptr())
+    feats = torch.zeros(2, 0, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="N >= 1 nodes and depth >= 0; "
+                       "got F = 5, N = 0, depth = 3"):
+        tml._eval_trees(Xb, feats, feats.float(), feats, feats, feats, 3)
+    with pytest.raises(RuntimeError, match="tree_eval: " + size_msg):
+        kb.launch("tree_eval", cuda, Xb.data_ptr(), 64, 5, ws.data_ptr(),
+                  ws.data_ptr(), ws.data_ptr(), ws.data_ptr(),
+                  ws.data_ptr(), 2, 0, 3, ws.data_ptr())
+    assert kb.launches == before
+
+
+def test_ml_kernels_limits_on_this_card(cuda):
+    """The largest sizes each refusal leaves: K21's list takes kk * 128 * 4
+    bytes beside its 4,352 static bytes, K22's tile (256 (F1 + C + 2) +
+    F1 C) * 4; one past each is refused."""
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    kk_max = (optin - 4352) // 512
+    X = _t(outlier_frame(6, kk_max + 2, 2), cuda)
+    got = tml.knn_kdist(X, kk_max)
+    torch.cuda.synchronize()
+    _same_bits((got,), (tml.knn_kdist_plain(X, kk_max),))
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tml.knn_kdist(X, kk_max + 1)
+    F1 = 8
+    c_max = max(c for c in range(1, 400)
+                if (256 * (F1 + c + 2) + F1 * c) * 4 <= optin)
+    Xb = torch.ones(300, F1, device=cuda)
+    y = torch.arange(300, dtype=torch.int32, device=cuda) % c_max
+    W = tml.logreg_train(Xb, y, c_max, steps=2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(W).all()
+    with pytest.raises(RuntimeError, match="shared memory"):
+        tml.logreg_train(Xb, y, c_max + 1, steps=1)
+
+
+def test_ml_service_on_the_card_equals_the_cpu(cuda):
+    """MlService on the card and on the CPU over one frame: the same
+    inference results (the tree walk is exact), outlier scores within
+    1e-5, classification predictions equal where separated."""
+    rng = np.random.RandomState(3)
+    docs = [{"a": float(rng.randn()), "b": float(rng.randn() * 2),
+             "lab": "x" if i % 3 else "y"} for i in range(400)]
+    for d in docs[::7]:
+        d["a"] = float(d["a"] + 4.0 * (1.0 if d["lab"] == "x" else -1.0))
+
+    def search(index, body):
+        start = (body.get("search_after") or [-1])[0] + 1
+        page = docs[start:start + body["size"]]
+        return {"hits": {"hits": [{"_id": str(start + i), "_source": d,
+                                   "sort": [start + i]}
+                                  for i, d in enumerate(page)]}}
+
+    out = {}
+    svcs = {dev: tml.MlService(search, lambda i, lines, dev=dev:
+                               out.setdefault((dev, i), lines), device=dev)
+            for dev in ("cuda", "cpu")}
+    arrs = full_tree_arrays(4, T=20, depth=4, F=2, n=1)
+    nodes = []
+    for t in range(20):
+        tree = []
+        for j in range(arrs["feats"].shape[1]):
+            if arrs["feats"][t, j] >= 0:
+                tree.append({"node_index": j,
+                             "split_feature": int(arrs["feats"][t, j]),
+                             "threshold": float(arrs["thresh"][t, j]),
+                             "left_child": int(arrs["left"][t, j]),
+                             "right_child": int(arrs["right"][t, j])})
+            else:
+                tree.append({"node_index": j, "leaf_value": float(j)})
+        nodes.append({"tree": {"feature_names": ["a", "b"],
+                               "tree_structure": tree}})
+    model = {"inference_config": {"regression": {}},
+             "definition": {"trained_model": {"ensemble": {
+                 "feature_names": ["a", "b"], "trained_models": nodes}}}}
+    res = {}
+    for dev, svc in svcs.items():
+        svc.put_trained_model("m", model)
+        res[dev] = svc.infer("m", {"docs": docs})
+        for kind, spec in (("od", {"outlier_detection": {}}),
+                           ("cl", {"classification": {
+                               "dependent_variable": "lab"}})):
+            svc.put_analytics(kind, {"source": {"index": "src"},
+                                     "dest": {"index": kind},
+                                     "analysis": spec})
+            svc.start_analytics(kind)
+    assert res["cuda"] == res["cpu"]
+    od = [[ln["ml"]["outlier_score"] for ln in out[(dev, "od")][1::2]]
+          for dev in ("cuda", "cpu")]
+    assert np.abs(np.subtract(*od)).max() <= 1e-5
+    cl = [[ln["ml"]["lab_prediction"] for ln in out[(dev, "cl")][1::2]]
+          for dev in ("cuda", "cpu")]
+    pr = np.asarray([ln["ml"]["prediction_probability"]
+                     for ln in out[("cpu", "cl")][1::2]])
+    sep = np.abs(pr - 0.5) > 1e-3
+    assert [a for a, s in zip(cl[0], sep) if s] == \
+        [b for b, s in zip(cl[1], sep) if s]

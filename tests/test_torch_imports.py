@@ -39,6 +39,64 @@ def test_no_jax_import_anywhere_in_the_port(path):
         assert not bad, f"{path}:{node.lineno} imports {bad}"
 
 
+def _guarded_imports(tree):
+    """Imports inside a ``try`` whose handler catches their failure (an
+    optional module with a fallback path)."""
+    catches = {"Exception", "BaseException", "ImportError",
+               "ModuleNotFoundError"}
+    out = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        names = set()
+        for h in node.handlers:
+            types = h.type.elts if isinstance(h.type, ast.Tuple) else \
+                [h.type]
+            names |= {getattr(t, "id", None) for t in types}
+        if None in names or names & catches:
+            for stmt in node.body:
+                out |= {id(n) for n in ast.walk(stmt)
+                        if isinstance(n, ast.ImportFrom)}
+    return out
+
+
+def _resolves(pkg_dir: Path, parts) -> bool:
+    target = pkg_dir.joinpath(*parts)
+    return target.with_suffix(".py").is_file() or \
+        (target / "__init__.py").is_file()
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_relative_imports_resolve_inside_the_port(path):
+    """Every relative import names a module file of the port (a copied
+    module that imports a reference module the port lacks fails here,
+    even when no test reaches the import), unless a ``try`` around it
+    catches the failure."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    guarded = _guarded_imports(tree)
+    pkg = path.parent
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.ImportFrom) or node.level == 0 \
+                or id(node) in guarded:
+            continue
+        base = pkg
+        for _ in range(node.level - 1):
+            base = base.parent
+        assert base == PORT or PORT in base.parents, \
+            f"{path}:{node.lineno} imports beyond the package"
+        parts = node.module.split(".") if node.module else []
+        if parts:
+            assert _resolves(base, parts), \
+                f"{path}:{node.lineno} imports {'.' * node.level}" \
+                f"{node.module}, which the port does not have"
+        else:
+            for a in node.names:
+                assert _resolves(base, [a.name]) or \
+                    (base / "__init__.py").is_file(), \
+                    f"{path}:{node.lineno} imports {a.name}"
+
+
 def test_port_runs_with_jax_blocked():
     code = f"""
 import sys

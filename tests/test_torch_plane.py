@@ -88,7 +88,8 @@ def test_pack_is_bit_identical(planes):
     # the reference's packed host arrays load into the port's tensors
     st = plane_state_from_numpy(dict(docs=np.asarray(jp.docs_dev),
                                      impacts=np.asarray(jp.impacts_dev),
-                                     dense=np.asarray(jp.dense_dev)))
+                                     dense=np.asarray(jp.dense_dev)),
+                                device="cpu")
     assert torch.equal(st["docs"], tp.docs_dev)
     assert torch.equal(st["impacts"].view(torch.int32),
                        tp.impacts_dev.view(torch.int32))
@@ -147,7 +148,8 @@ def test_step_on_reference_pack(planes, corpus):
     prep = tp.prepare(qs, 10, tiered=True)
     st = plane_state_from_numpy(dict(docs=np.asarray(jp.docs_dev),
                                      impacts=np.asarray(jp.impacts_dev),
-                                     dense=np.asarray(jp.dense_dev)))
+                                     dense=np.asarray(jp.dense_dev)),
+                                device="cpu")
     args = dict(prep["args"], postings_docs=st["docs"],
                 postings_impact=st["impacts"], dense=st["dense"])
     kw = dict(n_pad=tp.n_pad, L=prep["L"], k=10, with_count=True)

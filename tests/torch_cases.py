@@ -496,3 +496,79 @@ def assert_same_bits(ref, got):
         r, g = r.view(as_int), g.view(as_int)
     assert np.array_equal(r, g)
 
+
+
+def tree_arrays_case(seed, *, T, N, n, F, missing=0.2):
+    """Padded tree node arrays (feats/left/right/dleft i32 [T, N], thresh
+    f32 [T, N]) drawn at random, so every index rule of the tree walk
+    shows: children past N and below -N, feature indices past F, leaves
+    (feat -1); plus pinned trees: a leaf at the root (tree 0), a child
+    >= N (1), a negative child (2), a feature >= F (3). X f32 [n, F] with
+    ``missing`` of its entries NaN (followed by dleft 0 or 1)."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randint(-1, F + 2, (T, N)).astype(np.int32)
+    thresh = rng.randn(T, N).astype(np.float32)
+    left = rng.randint(-2 * N, 2 * N, (T, N)).astype(np.int32)
+    right = rng.randint(-2 * N, 2 * N, (T, N)).astype(np.int32)
+    dleft = rng.randint(0, 2, (T, N)).astype(np.int32)
+    pins = [(0, -1, 1, 2), (1, 0, N + 5, N + 1), (2, 0, -1, -3 * N),
+            (3, F + 1, 1, 2)]
+    for t, f, lc, rc in pins[:T]:
+        feats[t, 0], left[t, 0], right[t, 0] = f, lc, rc
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < missing] = np.nan
+    return dict(X=X, feats=feats, thresh=thresh, left=left, right=right,
+                dleft=dleft)
+
+
+def full_tree_arrays(seed, *, T, depth, F, n, missing=0.1,
+                     default_right=0.2):
+    """T full binary trees of ``depth`` split levels (2^(depth+1) - 1
+    nodes, heap order: children of i at 2i+1, 2i+2) as padded arrays, and
+    docs X f32 [n, F] with ``missing`` of the features NaN; a fifth of the
+    splits send missing values right. Walk them ``depth + 1`` levels."""
+    rng = np.random.RandomState(seed)
+    N = 2 ** (depth + 1) - 1
+    n_split = 2 ** depth - 1
+    i = np.arange(N)
+    feats = np.full((T, N), -1, np.int32)
+    feats[:, :n_split] = rng.randint(0, F, (T, n_split))
+    thresh = np.zeros((T, N), np.float32)
+    thresh[:, :n_split] = rng.randn(T, n_split)
+    left = np.zeros((T, N), np.int32)
+    right = np.zeros((T, N), np.int32)
+    left[:, :n_split] = (2 * i + 1)[:n_split]
+    right[:, :n_split] = (2 * i + 2)[:n_split]
+    dleft = np.zeros((T, N), np.int32)
+    dleft[:, :n_split] = rng.rand(T, n_split) >= default_right
+    X = rng.randn(n, F).astype(np.float32)
+    X[rng.rand(n, F) < missing] = np.nan
+    return dict(X=X, feats=feats, thresh=thresh, left=left, right=right,
+                dleft=dleft)
+
+
+def outlier_frame(seed, n, f, *, duplicates=0):
+    """A standardised-looking frame f32 [n, f]: two Gaussian clusters and
+    a few far rows, so the kNN distances are well spread (a near-constant
+    spread would amplify rounding through 1/std); ``duplicates`` rows
+    repeat earlier ones (zero distances)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    X[: n // 2] += 3.0
+    X[-max(1, n // 50):] *= 6.0
+    if duplicates:
+        X[-duplicates:] = X[:duplicates]
+    return X
+
+
+def logreg_case(seed, n, f, C, *, bad_labels=False):
+    """Features f32 [n, f] with class structure and int labels in [0, C);
+    ``bad_labels`` puts a few labels outside it (zero one-hot rows)."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, C, n)
+    centers = rng.randn(C, f).astype(np.float32) * 2.0
+    X = (centers[y] + rng.randn(n, f)).astype(np.float32)
+    if bad_labels:
+        y[::17] = C + 1
+        y[5::23] = -1
+    return X, y
