@@ -48,7 +48,8 @@ times its size). Phases, each fatal on failure:
    requests of each against numpy (scores within 1 %, docs at separated
    ranks, totals exact), (e)'s top 10 against ``plane.search`` of an f32
    plane (no dense tier) of the same corpus, q/s and p50/p99 per mix,
-   K16–K19's times;
+   K16–K19's times (K16's pre-pass and tile kernel apart, by
+   ``torch.profiler``);
 6. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
    plain versions, and K3 exact, on one batch of each traffic mix; each
    mix driven through ``serve`` with its launch counts zeroed before and
@@ -73,7 +74,8 @@ times its size). Phases, each fatal on failure:
    parity bar of its plain version and every K3 call of the step bitwise,
    K6 also at 2^18 rows for dot_product and l2_norm with duplicates and
    ``exists`` holes, every query of one batch against numpy (matmul +
-   lexsort), the path's launches counted alone, K6's times;
+   lexsort), the path's launches counted alone, K6's times, chunks and
+   blocks an SM;
 9. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
    shape: 2^20 x 64 rows around 2048 centers (noise 0.35), nlist 1024,
    seed 7, queries perturbed corpus rows (noise 0.15), k = 10 at the
@@ -129,7 +131,10 @@ times its size). Phases, each fatal on failure:
     p50/p99, the analytics' wall split (frame load, standardise, kernel,
     tail, write), each kernel's time beside its bound, plain version and
     library call;
-13. the ``kernels`` JSON line, the card line, and the final status line.
+13. a comment line with K16's and K6's times before their redesign (from
+    PERF.md's kernel table, not measured in this run), the ``kernels``
+    JSON line, the whole run's seconds, the card line, and the final
+    status line.
 
 Exits non-zero with no result line when there is no CUDA device or the
 package is missing.
@@ -1242,11 +1247,17 @@ def run_knn_exact(card, *, reps=20):
           f"live rows of {S * n_pad}, {nbytes} bytes), plain {plain_ms:.3f} "
           f"ms, library (fp32 matmul + torch.topk) {lib:.4f} ms; K3's "
           f"{len(k3_calls)} calls {k3_ms:.4f} ms [{card}]", flush=True)
+    per_sm, ring = (kb.query("knn_scan", f"es_knn_scan_{q}", B, KNN_DIM,
+                             kk) for q in ("blocks_per_sm", "ring"))
+    print(f"# knn_scan launch: {C} chunks, {per_sm} blocks an SM, a ring "
+          f"of {ring // 100} stages of {ring % 100} values", flush=True)
     row = dict(name="knn_scan", route="cuda",
                source="elasticsearch_tpu_torch/csrc/knn_scan.cu",
                replaces="elasticsearch_tpu/parallel/dist_search.py:323",
                max_abs_err=k6_err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=bby, library_ms=lib)
+               bound_by=bby, library_ms=lib, chunks=C,
+               blocks_per_sm=per_sm, ring_stages=ring // 100,
+               stage_values=ring % 100)
     return row, counts, k3_err
 
 
@@ -2092,8 +2103,17 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     print(f"# knn_scan (D={dim}, {live} live rows): {k6_ms:.4f} ms (bound "
           f"{k6_b[0]:.4f} ms by {k6_b[1]}), plain {k6_plain:.3f} ms, library "
           f"(fp32 matmul + torch.topk) {k6_lib:.4f} ms [{card}]", flush=True)
+    k6_c = knn_scan_partials(vk, vn, ex, qq, qn, l2=False,
+                             kk=kk_k)[0].shape[2]
+    per_sm, ring = (kb.query("knn_scan", f"es_knn_scan_{q}", B, dim, kk_k)
+                    for q in ("blocks_per_sm", "ring"))
+    print(f"# knn_scan (D={dim}) launch: {k6_c} chunks, {per_sm} blocks an "
+          f"SM, a ring of {ring // 100} stages of {ring % 100} values",
+          flush=True)
     out["k6"] = dict(ms=k6_ms, plain_ms=k6_plain, library_ms=k6_lib,
-                     bound=k6_b, err=k6_err)
+                     bound=k6_b, err=k6_err, chunks=k6_c,
+                     blocks_per_sm=per_sm, ring_stages=ring // 100,
+                     stage_values=ring % 100)
     k3_ms = timed(lambda: [topk_merge(*a, **kw) for a, kw in k3], reps)
     k3_plain = timed(lambda: [topk_merge_plain(*a, **kw) for a, kw in k3], 3)
     k3_b = bound(sum(8 * a[0].numel() + 8 * a[0].shape[0] * kw["k"]
@@ -2560,6 +2580,13 @@ SEG_REF = 3                  # requests of a mix held against numpy
 SEG_PAGES = (990, 9990)      # deep pages of (e), size 10
 SEG_PLANE_RTOL = 1e-6        # (e) against the f32 plane: ties within this
 SEG_PROFILED = 64            # requests a mix under torch.profiler
+#: the kernels redesigned since their first port, with their first ports'
+#: CUDA-event means (ms, NVIDIA H100 80GB HBM3 at 700 W) as PERF.md's
+#: kernel table records them: printed as a comment, never in the kernels
+#: line, which holds only this run's readings
+EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
+              "K6 knn_scan at D = 100": 1.0125,
+              "K6 knn_scan at D = 768": 14.9037}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -2616,6 +2643,28 @@ def device_busy(call, first, n):
         else:
             hi = max(hi, b)
     return (busy + hi - lo) / 1e3, wall, len(spans)
+
+
+def device_ms_by_name(call, n):
+    """Device ms a call of ``call``, by kernel (or memset, copy) name, over
+    ``n`` calls under ``torch.profiler``; empty when the profiler recorded
+    no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0]
+            by[name] = by.get(name, 0.0) + \
+                (e.time_range.end - e.time_range.start) / 1e3 / n
+    return by
 
 
 def segment_plain(name, args, kw):
@@ -2963,7 +3012,8 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
               "elasticsearch_tpu/ops/bm25.py:40",
               lambda a=a, kw=kw: bm25_score(*a, **kw),
               lambda a=a, kw=kw: bm25_score_plain(*a, **kw), lib_k16,
-              "index_add_ of precomputed contributions",
+              "index_add_ of precomputed contributions into one array: no "
+              "counts, no zeroing, no contribution arithmetic",
               8 * V + 4 * D + 8 * n_pad, 10 * V, {})]
     # K17: (g)'s terms filter
     kw, a, out = first("g", "postings_match")
@@ -3024,10 +3074,15 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
             replaces=replaces, max_abs_err=errs[name], ms=ms,
             plain_ms=plain_ms, bound_ms=bms, bound_by=bby, library_ms=lib_ms,
             library_call=lib_name, ms_by_mode=by_mode))
+        if name == "bm25_scatter":
+            # the pre-pass's and the tile kernel's device time a call
+            rows[-1]["ms_by_launch"] = device_ms_by_name(kern, reps)
         print(f"# {name}: {ms:.4f} ms (bound {bms:.5f} ms by {bby}, "
               f"{nbytes} bytes), plain {plain_ms:.3f} ms, library "
               f"({lib_name}) {lib_ms:.4f} ms"
               + "".join(f", {k} {v:.4f} ms" for k, v in by_mode.items())
+              + "".join(f", {k} {v:.4f} ms" for k, v in
+                        rows[-1].get("ms_by_launch", {}).items())
               + f" [{card}]", flush=True)
     print(f"# K16 inputs: {V} valid postings over {D} docs; K17: {V17} "
           f"postings; K18: {M} pairs")
@@ -3651,7 +3706,11 @@ def main() -> int:
                                 plain_ms=hy_times["k6"]["plain_ms"],
                                 library_ms=hy_times["k6"]["library_ms"],
                                 bound_ms=hy_times["k6"]["bound"][0],
-                                bound_by=hy_times["k6"]["bound"][1])
+                                bound_by=hy_times["k6"]["bound"][1],
+                                chunks=hy_times["k6"]["chunks"],
+                                blocks_per_sm=hy_times["k6"]["blocks_per_sm"],
+                                ring_stages=hy_times["k6"]["ring_stages"],
+                                stage_values=hy_times["k6"]["stage_values"])
         if kd["name"] == "sparse_candidates_topk":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k1_err"])
         by_path = kd.setdefault("launches_by_path", {})
@@ -3663,6 +3722,9 @@ def main() -> int:
         if kd["name"] == "sparse_candidates_topk" and k1_fallback:
             kd["fallback_ms"] = k1_fallback["ms"]
     print(f"# total {time.perf_counter() - t0:.1f} s")
+    print("# before the redesign (PERF.md's kernel table, not measured in "
+          "this run): " + ", ".join(f"{k} {v} ms"
+                                    for k, v in EARLIER_MS.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -146,8 +146,7 @@ ivf_scan_kernel(const void* __restrict__ codes, int is_bf16,
                              __fmul_rn(of_s[r], qsum_s[q]));
         if (l2) sc = __fsub_rn(__fsub_rn(__fmul_rn(2.0f, sc), vn_s[r]),
                                qn_s[q]);
-        L.push_warp(q, ((m >> q) & 1u) && L.beats(q, sc, g0 + r), sc,
-                    g0 + r);
+        L.push(q, ((m >> q) & 1u) && L.beats(q, sc, g0 + r), sc, g0 + r);
       }
     }
     __syncthreads();

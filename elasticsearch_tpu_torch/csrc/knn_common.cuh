@@ -1,8 +1,9 @@
-// Shared pieces of the kNN scans K6 (knn_scan.cu) and K7 (ivf_scan.cu): the
-// row tile, the f32 dot products of a tile against a batch of queries, and
-// the per-query running top-k lists of one block.
+// Shared pieces of the kNN scans K6 (knn_scan.cu) and K7 (ivf_scan.cu):
+// the per-query running top-k lists of one block (both), and K7's row tile
+// and f32 dot products of a tile against a batch of queries (K6 streams its
+// rows through a ring of its own).
 //
-// A block scores tiles of KS_ROWS rows against up to KS_BT queries. The
+// A K7 block scores tiles of KS_ROWS rows against up to KS_BT queries. The
 // tile's rows pass through shared memory dc values of d at a time: the row
 // rounded up to 4 values, at most KS_DC_MAX, so a row of up to 128 values
 // is one load phase (one trip to device memory) a tile. Rows sit rs floats
@@ -14,12 +15,13 @@
 // Each query keeps a list of its k best (score, id) keys, sorted best first
 // under (score desc, id asc), and the list's k-th key as a threshold once
 // full. In a tile a thread offers its scores that beat the threshold to the
-// query's candidate buffer (at most one per row, so KS_ROWS slots; a warp
-// takes its slots with one shared-memory atomic); after a
-// barrier the lists merge with their candidates by rank: a list entry moves
-// down by the candidates better than it, a candidate lands after the list
-// entries better than it (a binary search) and the other candidates better
-// than it. Ids are unique, so the ranks are a permutation and the result
+// query's candidate buffer (at most one per row, so KS_ROWS slots; the
+// lanes of a warp that offer to one query take their slots with one
+// shared-memory atomic); after a barrier the lists merge with their
+// candidates by rank, a warp to a query: a list entry moves down by the
+// candidates better than it, a candidate lands after the list entries
+// better than it (a binary search) and the other candidates better than
+// it. Ids are unique, so the ranks are a permutation and the result
 // does not depend on the order the candidates arrived in. The lists live in
 // shared memory when they fit, else in the block's slice of its output and
 // of a workspace in device memory (the code is the same).
@@ -71,86 +73,71 @@ struct QueryLists {
     return filled[q] < k || key_better(sc, key, thr_v[q], thr_id[q]);
   }
 
-  // Offer (sc, key) to query q where `want`; every lane of the warp calls
-  // it with the same q.
-  __device__ __forceinline__ void push_warp(int q, bool want, float sc,
-                                            int key) {
-    const unsigned m = __ballot_sync(0xffffffffu, want);
-    if (m == 0u) return;
-    const int lane = threadIdx.x & 31, leader = __ffs(m) - 1;
+  // Offer (sc, key) to query q where `want`, every lane of the warp
+  // calling it, each with its own q: the lanes that offer to one query take
+  // their slots with one shared-memory atomic.
+  __device__ __forceinline__ void push(int q, bool want, float sc,
+                                       int key) {
+    const unsigned act = __ballot_sync(0xffffffffu, want);
+    if (!want) return;
+    const unsigned grp = __match_any_sync(act, q);
+    const int lane = threadIdx.x & 31, leader = __ffs(grp) - 1;
     int base = 0;
-    if (lane == leader) base = atomicAdd(&ncand[q], __popc(m));
-    base = __shfl_sync(0xffffffffu, base, leader);
-    if (want) {
-      const int i = base + __popc(m & ((1u << lane) - 1u));
-      cv[q * KS_ROWS + i] = sc;
-      cid[q * KS_ROWS + i] = key;
-    }
+    if (lane == leader) base = atomicAdd(&ncand[q], __popc(grp));
+    base = __shfl_sync(grp, base, leader);
+    const int i = base + __popc(grp & ((1u << lane) - 1u));
+    cv[q * KS_ROWS + i] = sc;
+    cid[q * KS_ROWS + i] = key;
   }
 
-  // Entries of query q's merge (its list and candidates, or none) and
-  // entries its merged list keeps.
-  __device__ __forceinline__ int merge_len(int q) const {
-    return ncand[q] ? filled[q] + ncand[q] : 0;
-  }
-  __device__ __forceinline__ int kept_len(int q) const {
-    return min(k, merge_len(q));
-  }
-
-  // Merge every list with its candidates; all threads, after a barrier.
-  // The work is spread over every (query, entry) pair of the block.
+  // Merge every list with its candidates, a warp to a query (queries w,
+  // w + warps, ...); all threads, after a barrier.
   __device__ void merge() {
-    int total = 0;
-    for (int q = 0; q < bt; ++q) total += merge_len(q);
-    if (total == 0) return;
-    for (int x = threadIdx.x; x < total; x += blockDim.x) {
-      int q = 0, e = x;
-      while (e >= merge_len(q)) e -= merge_len(q++);
-      const int f = filled[q], nc = ncand[q];
+    const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int q = threadIdx.x >> 5; q < bt; q += nw) {
+      const int nc = ncand[q];
+      if (nc == 0) continue;
+      const int f = filled[q];
       const float* lv = v + q * qstride;
       const int* li = id + q * qstride;
       const float* c_v = cv + q * KS_ROWS;
       const int* c_i = cid + q * KS_ROWS;
-      float ev;
-      int ei, rank;
-      if (e < f) {
-        ev = lv[e];
-        ei = li[e];
-        rank = e;
-      } else {
-        ev = c_v[e - f];
-        ei = c_i[e - f];
-        int lo = 0, hi = f;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (key_better(lv[mid], li[mid], ev, ei))
-            lo = mid + 1;
-          else
-            hi = mid;
+      for (int e = lane; e < f + nc; e += 32) {
+        float ev;
+        int ei, rank;
+        if (e < f) {
+          ev = lv[e];
+          ei = li[e];
+          rank = e;
+        } else {
+          ev = c_v[e - f];
+          ei = c_i[e - f];
+          int lo = 0, hi = f;
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (key_better(lv[mid], li[mid], ev, ei))
+              lo = mid + 1;
+            else
+              hi = mid;
+          }
+          rank = lo;
         }
-        rank = lo;
+#pragma unroll 4
+        for (int c = 0; c < nc; ++c)
+          rank += key_better(c_v[c], c_i[c], ev, ei);
+        if (rank < k) {
+          tv[q * tstride + rank] = ev;
+          tid[q * tstride + rank] = ei;
+        }
       }
-      for (int c = 0; c < nc; ++c) rank += key_better(c_v[c], c_i[c], ev, ei);
-      if (rank < k) {
-        tv[q * tstride + rank] = ev;
-        tid[q * tstride + rank] = ei;
+      __syncwarp();
+      const int nf = min(k, f + nc);
+      for (int e = lane; e < nf; e += 32) {
+        v[q * qstride + e] = tv[q * tstride + e];
+        id[q * qstride + e] = tid[q * tstride + e];
       }
-    }
-    __syncthreads();
-    total = 0;
-    for (int q = 0; q < bt; ++q) total += kept_len(q);
-    for (int x = threadIdx.x; x < total; x += blockDim.x) {
-      int q = 0, e = x;
-      while (e >= kept_len(q)) e -= kept_len(q++);
-      v[q * qstride + e] = tv[q * tstride + e];
-      id[q * qstride + e] = tid[q * tstride + e];
-    }
-    __syncthreads();
-    if (threadIdx.x < bt) {
-      const int q = threadIdx.x;
-      const int nc = ncand[q];
-      if (nc) {
-        const int nf = kept_len(q);
+      __syncwarp();
+      if (lane == 0) {
         filled[q] = nf;
         if (nf == k) {
           thr_v[q] = v[q * qstride + k - 1];

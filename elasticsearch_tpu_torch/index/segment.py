@@ -92,6 +92,23 @@ class KeywordFieldData:
     docs_dev: torch.Tensor = None
     dv_ords_dev: torch.Tensor = None
     dv_docs_dev: torch.Tensor = None
+    #: a scored clause's K16 inputs, made at first use (bm25_constants)
+    bm25_dev: Tuple[torch.Tensor, torch.Tensor] = None
+
+    def bm25_constants(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(tf f32[P_pad] of ones, doc lengths f32[1] of zeros) on the
+        postings' device: norms-disabled BM25's inputs to K16, made once a
+        field and reused by every scored clause. One doc length is as
+        exact as one a doc: with b = 0 the length enters as (0 * dl) /
+        avgdl, and every dl read is 0 (doc 0 reads the zero, any other
+        doc reads the fill 0)."""
+        if self.bm25_dev is None:
+            dev = self.docs_dev.device
+            self.bm25_dev = (
+                torch.ones(self.docs_dev.shape[0], dtype=torch.float32,
+                           device=dev),
+                torch.zeros(1, dtype=torch.float32, device=dev))
+        return self.bm25_dev
 
     def term_run(self, term: str) -> Tuple[int, int, int]:
         o = self.term_ords.get(term)

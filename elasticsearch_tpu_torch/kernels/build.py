@@ -142,11 +142,13 @@ _SIGNATURES = {
     "agg_metrics": (
         "es_agg_metrics",
         [_P, _P, _I, _P, _I] + [_P] * 3),
-    # docs, tf, P, doc_len, n_dl, starts, lengths, idf, w, Q, L, seg_pad,
-    # avgdl, k1, b, out_scores, out_matched, stream
+    # docs, tf, P, doc_len, n_dl, host_slots, dev_slots, Q, L, seg_pad,
+    # avgdl, k1, b, tshift, CH, n_ch, scratch, out_scores, out_matched,
+    # stream
     "bm25_scatter": (
         "es_bm25_scatter",
-        [_P, _P, _L, _P, _I] + [_P] * 4 + [_I] * 3 + [_F] * 3 + [_P] * 3),
+        [_P, _P, _L, _P, _I, _P, _P] + [_I] * 3 + [_F] * 3 + [_I] * 3
+        + [_P] * 4),
     # docs, P, starts, lengths, Q, L, seg_pad, out_matched, stream
     "postings_match": (
         "es_postings_match",
@@ -180,9 +182,18 @@ _QUERIES = {
         # (m, R) -> workspace bytes, 0 when a row fits shared memory
         "es_topk_merge_workspace_bytes": ([_I, _I], ctypes.c_longlong),
     },
+    "bm25_scatter": {
+        # () -> slots whose inputs ride in the launch's parameters
+        "es_bm25_scatter_param_slots": ([], ctypes.c_int),
+    },
     "knn_scan": {
         # (B, S, n_chunks, k, D) -> workspace bytes, 0 when the lists fit
         "es_knn_scan_workspace_bytes": ([_I] * 5, ctypes.c_longlong),
+        # (B, D, k) -> blocks of a launch one SM holds, 0 when none fits
+        "es_knn_scan_blocks_per_sm": ([_I] * 3, ctypes.c_int),
+        # (B, D, k) -> the launch's row ring: stages x 100 + d values a
+        # stage, 0 when none fits
+        "es_knn_scan_ring": ([_I] * 3, ctypes.c_int),
     },
     "ivf_scan": {
         # (B, S, n_chunks, k, nlist, D) -> workspace bytes, 0 when they

@@ -27,6 +27,13 @@ from .blockmax import fma_f32
 DEFAULT_K1 = 1.2
 DEFAULT_B = 0.75
 
+#: docs a block of K16 owns (2^12): its scores and counts sit in shared
+#: memory
+BM25_TILE_SHIFT = 12
+BM25_TILE = 1 << BM25_TILE_SHIFT
+#: run positions a block of K16's pre-pass checks
+BM25_CHUNK = 8192
+
 
 def idf_weight(n_docs: int, doc_freq) -> np.ndarray:
     """Lucene BM25 idf: ln(1 + (N - df + 0.5) / (df + 0.5))."""
@@ -42,6 +49,14 @@ def small(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
         return x.to(device=dev, dtype=dtype).contiguous()
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     return torch.as_tensor(np.ascontiguousarray(x, np_dtype), device=dev)
+
+
+def _host(x, dtype) -> np.ndarray:
+    """A short per-query array (numpy, list or tensor) as contiguous host
+    ``dtype`` values."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.ascontiguousarray(x, dtype)
 
 
 def take_fill(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
@@ -64,6 +79,24 @@ def scatter_index(docs: torch.Tensor, n: int):
     d = docs.long()
     d = torch.where(d < 0, d + n, d)
     return d, (d >= 0) & (d < n)
+
+
+def bm25_scatter_plan(segment_pad: int, run_len: int, Q: int,
+                      param_slots: int) -> dict:
+    """K16's launch shape for Q runs, the longest ``run_len`` postings (after
+    the cut at L): tiles of ``BM25_TILE`` docs (the main kernel's blocks),
+    chunks of ``BM25_CHUNK`` run positions (the pre-pass's blocks a slot,
+    at least one), the ints of its scratch (each slot's ``n_tiles + 1``
+    tile offsets and its chunk flags), and whether the slots' inputs go
+    to the card in device memory rather than in the launch's parameters,
+    which hold ``param_slots`` (the kernel's
+    ``es_bm25_scatter_param_slots``)."""
+    n_tiles = -(-segment_pad // BM25_TILE)
+    n_chunks = max(1, -(-run_len // BM25_CHUNK))
+    return dict(tile=BM25_TILE, tile_shift=BM25_TILE_SHIFT, n_tiles=n_tiles,
+                chunk=BM25_CHUNK, n_chunks=n_chunks,
+                scratch=Q * (n_tiles + 1 + n_chunks),
+                device_slots=Q > param_slots)
 
 
 def bm25_score_plain(postings_docs, postings_tf, doc_len, starts, lengths,
@@ -128,20 +161,33 @@ def bm25_score(postings_docs, postings_tf, doc_len, starts, lengths, idf,
     _kb.check(postings_docs, "postings_docs", torch.int32, (P,), dev)
     _kb.check(postings_tf, "postings_tf", torch.float32, (P,), dev)
     _kb.check(doc_len, "doc_len", torch.float32, (N,), dev)
-    starts, lengths = (small(x, torch.int32, dev) for x in (starts, lengths))
-    idf, weights = (small(x, torch.float32, dev) for x in (idf, weights))
-    Q = starts.shape[0]
-    for name, t in (("lengths", lengths), ("idf", idf),
-                    ("weights", weights)):
-        if tuple(t.shape) != (Q,):
+    # the slots' inputs as 4 Q words: in the launch's parameters, or past
+    # the slots they hold in one copy to the card
+    slots = [_host(starts, np.int32), _host(lengths, np.int32),
+             _host(idf, np.float32), _host(weights, np.float32)]
+    Q = slots[0].shape[0]
+    for name, a in zip(("lengths", "idf", "weights"), slots[1:]):
+        if a.shape != (Q,):
             raise ValueError(f"bm25_score: {name} must have shape ({Q},)")
-    scores = torch.empty(segment_pad, dtype=torch.float32, device=dev)
-    matched = torch.empty(segment_pad, dtype=torch.int32, device=dev)
+    words = np.concatenate([a.view(np.int32) for a in slots])
+    run_len = int(np.clip(slots[1], 0, L).max()) if Q else 0
+    plan = bm25_scatter_plan(
+        segment_pad, run_len, Q,
+        _kb.query("bm25_scatter", "es_bm25_scatter_param_slots"))
+    dev_words = torch.as_tensor(words, device=dev) \
+        if plan["device_slots"] else None
+    # the outputs and the scratch: one allocation
+    out = torch.empty(2 * segment_pad + plan["scratch"], dtype=torch.int32,
+                      device=dev)
+    scores = out[:segment_pad].view(torch.float32)
+    matched = out[segment_pad:2 * segment_pad]
     _kb.launch("bm25_scatter", dev, postings_docs.data_ptr(),
                postings_tf.data_ptr(), P, doc_len.data_ptr(), N,
-               starts.data_ptr(), lengths.data_ptr(), idf.data_ptr(),
-               weights.data_ptr(), Q, L, segment_pad, float(np.float32(avgdl)),
-               float(np.float32(k1)), float(np.float32(b)),
+               words.ctypes.data,
+               None if dev_words is None else dev_words.data_ptr(), Q, L,
+               segment_pad, float(np.float32(avgdl)), float(np.float32(k1)),
+               float(np.float32(b)), plan["tile_shift"], plan["chunk"],
+               plan["n_chunks"], out[2 * segment_pad:].data_ptr(),
                scores.data_ptr(), matched.data_ptr())
     return scores, matched
 

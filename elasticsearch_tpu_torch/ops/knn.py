@@ -20,6 +20,7 @@ one row the same score.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -31,25 +32,43 @@ from .topk import NEG_INF, topk_merge, topk_stable
 TILE_ROWS = 128
 #: queries per block of K6/K7 (``KS_BT``)
 QUERY_TILE = 16
+#: tiles a K6 block tracks in its live-tile bitmap (``K6_BM_WORDS`` · 32
+#: in ``csrc/knn_scan.cu``); past them it reads every tile
+K6_BITMAP_TILES = 4096
 #: cap on chunks · k, the entries of a row of the scans' partial lists
 _MAX_PARTIALS = 1 << 15
 #: longest K3 row of the chunk reduce's first stage
 _REDUCE_ROW = 1 << 12
 
 
-def scan_chunks(rows: int, k: int, S: int, B: int, device) -> int:
-    """Blocks along the row axis of K6/K7 for ``rows`` rows a shard: about
-    four per SM over the (shard, query tile) grid, a multiple of the SM
-    count past one wave, and few enough that K3's reduce row (chunks · k)
-    stays at most 2^15 entries."""
-    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+def scan_chunks(rows: int, k: int, S: int, B: int, n_sm: int,
+                per_sm: int = 4, max_tiles: Optional[int] = None) -> int:
+    """Blocks along the row axis of K6/K7 for ``rows`` rows a shard:
+    ``per_sm`` blocks on each of ``n_sm`` SMs over the (shard, query tile)
+    grid, at least enough that a block takes at most ``max_tiles`` tiles,
+    a multiple of the SM count past one wave, and few enough that K3's
+    reduce row (chunks · k) stays at most 2^15 entries."""
     tiles = max(-(-rows // TILE_ROWS), 1)
     q_tiles = max(-(-B // QUERY_TILE), 1)
-    target = max(1, 4 * n_sm // max(S * q_tiles, 1))
+    target = max(1, per_sm * n_sm // max(S * q_tiles, 1))
+    if max_tiles:
+        target = max(target, -(-tiles // max_tiles))
     chunks = min(tiles, target, max(1, _MAX_PARTIALS // max(k, 1)))
     if chunks > n_sm:
         chunks -= chunks % n_sm
     return chunks
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _k6_blocks_per_sm(B: int, D: int, k: int) -> int:
+    """Blocks of a K6 launch one SM holds (at least one: a launch that
+    fits none is refused by the library)."""
+    return max(1, _kb.query("knn_scan", "es_knn_scan_blocks_per_sm", B, D,
+                            k))
 
 
 def reduce_chunks(part_v, part_i, *, k: int, fill: int):
@@ -141,7 +160,8 @@ def knn_scan_partials(vecs, vn, exists, qq, qn, *, l2: bool, kk: int):
     _kb.check(exists, "exists", torch.bool, (S, n_pad), dev)
     _kb.check(qq, "qq", torch.float32, (B, D), dev)
     _kb.check(qn, "qn", torch.float32, (B,), dev)
-    C = scan_chunks(n_pad, kk, S, B, dev)
+    C = scan_chunks(n_pad, kk, S, B, _sm_count(dev),
+                    _k6_blocks_per_sm(B, D, kk), K6_BITMAP_TILES)
     part_v = torch.empty((B, S, C, kk), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, S, C, kk), dtype=torch.int32, device=dev)
     if B * S == 0:
@@ -254,7 +274,7 @@ def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
     _kb.check(qn, "qn", torch.float32, (B,), dev)
     _kb.check(probed, "probed", torch.int32, (B, nprobe), dev)
     _kb.check(u_blocks, "u_blocks", torch.int32, (S, P), dev)
-    C = scan_chunks(P * blk, r_cand, S, B, dev)
+    C = scan_chunks(P * blk, r_cand, S, B, _sm_count(dev))
     part_v = torch.empty((B, S, C, r_cand), dtype=torch.float32, device=dev)
     part_p = torch.empty((B, S, C, r_cand), dtype=torch.int32, device=dev)
     if B * S == 0:

@@ -187,12 +187,10 @@ def _keyword_terms_result(ctx: ShardContext, seg: Segment, field: str,
         weights = np.asarray([term_weights[t] for t in terms], np.float32)
         kernel = get_bm25_kernel(seg.n_pad, L)
         # norms disabled → b=0 and tf=1, so the BM25 kernel reduces to idf
+        ones, zeros = f.bm25_constants()
         scores, matched = kernel(
-            f.docs_dev,
-            torch.ones(f.docs_dev.shape[0], dtype=torch.float32, device=dev),
-            torch.zeros(seg.n_pad, dtype=torch.float32, device=dev), starts,
-            lengths, idf, weights, np.float32(1.0), np.float32(DEFAULT_K1),
-            np.float32(0.0))
+            f.docs_dev, ones, zeros, starts, lengths, idf, weights,
+            np.float32(1.0), np.float32(DEFAULT_K1), np.float32(0.0))
         return scores, matched, q
     kernel = get_postings_match_kernel(seg.n_pad, L)
     matched = kernel(f.docs_dev, starts, lengths)

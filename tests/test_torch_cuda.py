@@ -35,7 +35,8 @@ from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
 from elasticsearch_tpu_torch.ops import aggs
 from elasticsearch_tpu_torch.index.mapping import MapperService
 from elasticsearch_tpu_torch.index.segment import SegmentBuilder
-from elasticsearch_tpu_torch.ops.bm25 import bm25_score, bm25_score_plain
+from elasticsearch_tpu_torch.ops.bm25 import (BM25_TILE, bm25_score,
+                                              bm25_score_plain)
 from elasticsearch_tpu_torch.ops.masks import (
     postings_match, postings_match_plain, range_mask, range_mask_plain)
 from elasticsearch_tpu_torch.ops.topk import masked_topk, masked_topk_plain
@@ -403,14 +404,17 @@ def test_scan_workspace_is_one_streams_and_dropped_on_failure(cuda,
 # ---------------------------------------------------------------------------
 
 
-def _knn_case(cuda, *, S, n, D, B, similarity, seed=0):
-    """Packed shards with duplicates of row 3, ``exists`` holes and whole
-    missing tiles, and queries whose first is row 3."""
+def _knn_case(cuda, *, S, n, D, B, similarity, seed=0, every_third=False):
+    """Packed shards with duplicates of row 3, ``exists`` holes (random, or
+    every third row) and whole missing tiles, and queries whose first is
+    row 3."""
     rng = np.random.RandomState(seed)
     raw = rng.randn(S, n, D).astype(np.float32)
     raw[0, 50:60] = raw[0, 3]
     raw[S - 1, n - 9] = raw[0, 3]
     exists = rng.rand(S, n) > 0.15
+    if every_third:
+        exists = np.arange(n)[None, :].repeat(S, 0) % 3 != 2
     exists[:, n // 2 + 128: n // 2 + 1024] = False
     exists[0, 3] = exists[0, 50:60] = exists[S - 1, n - 9] = True
     vecs, vn = prepare_knn_corpus(raw, similarity)
@@ -432,16 +436,26 @@ def _topk_ties_ascend(v, i):
     assert (i[..., 1:][tie] > i[..., :-1][tie]).all()
 
 
-@pytest.mark.parametrize("similarity,D,B,k", [
-    ("cosine", 100, 16, 100), ("dot_product", 12, 5, 10),
-    ("l2_norm", 7, 37, 32), ("l2_norm", 100, 16, 100),
+@pytest.mark.parametrize("similarity,D,B,k,n,every_third", [
+    ("cosine", 100, 16, 100, 1 << 14, False),
+    ("dot_product", 12, 5, 10, 1 << 14, False),
+    ("l2_norm", 7, 37, 32, 1 << 14, False),
+    ("l2_norm", 100, 16, 100, 1 << 14, False),
     # BEIR/NQ width (the hybrid configuration's, and its 128-wide window)
-    ("cosine", 768, 8, 10), ("dot_product", 768, 16, 128),
+    ("cosine", 768, 8, 10, 1 << 14, False),
+    ("dot_product", 768, 16, 128, 1 << 14, False),
     # lists past shared memory, in device memory
-    ("dot_product", 16, 3, 10000)])
-def test_k6_matches_plain(cuda, similarity, D, B, k):
-    S, n = 2, 1 << 14
-    args, tol = _knn_case(cuda, S=S, n=n, D=D, B=B, similarity=similarity)
+    ("dot_product", 16, 3, 10000, 1 << 14, False),
+    # the hybrid's shape; the exact route's with every third row missing;
+    # rows not a multiple of the row tile; a ragged query tile
+    ("dot_product", 768, 16, 100, 1 << 14, False),
+    ("cosine", 100, 16, 100, 1 << 14, True),
+    ("l2_norm", 100, 16, 100, 5000, False),
+    ("dot_product", 100, 17, 100, 1 << 14, False)])
+def test_k6_matches_plain(cuda, similarity, D, B, k, n, every_third):
+    S = 2
+    args, tol = _knn_case(cuda, S=S, n=n, D=D, B=B, similarity=similarity,
+                          every_third=every_third)
     n0 = kb.launches["knn_scan"]
     gv, gi = knn_shard_scan(*args, similarity=similarity, kk=k)
     assert kb.launches["knn_scan"] == n0 + 1
@@ -570,6 +584,23 @@ def test_knn_plane_on_card_matches_plane_on_host(cuda, similarity, quant):
     exact = gpu.serve(qs, k=50, nprobe=0)
     assert np.array_equal(full[0].view(np.int32), exact[0].view(np.int32))
     assert full[1] == exact[1]
+
+
+def test_k6_k8_tie_duplicate_rows_bitwise_at_768(cuda):
+    """At the hybrid's width, duplicate rows score bitwise alike in the
+    exact scan (K6) and the full-probe IVF re-rank (K8), and the two
+    routes give every hit the same bits."""
+    cpu, gpu, qs, _ = _ivf_planes(cuda, "dot_product", "int8", n=1 << 12,
+                                  D=768)
+    exact = gpu.serve(qs, k=50, nprobe=0)
+    full = gpu.serve(qs, k=50, nprobe=gpu.ivf.nlist, rerank=10000)
+    assert np.array_equal(full[0].view(np.int32), exact[0].view(np.int32))
+    assert full[1] == exact[1]
+    # query 0 is row 7, duplicated at rows 100..109 of shard 0
+    dup = [i for i, h in enumerate(exact[1][0])
+           if h[0] == 0 and h[1] in [7] + list(range(100, 110))]
+    assert len(dup) == 11
+    assert len(set(exact[0][0][dup].view(np.int32).tolist())) == 1
 
 
 def test_card_pack_assigns_clusters_as_the_host_mostly(cuda):
@@ -998,6 +1029,115 @@ def test_k16_bitwise_equals_plain(cuda, seed, n_pad, Q, L, wild, keyword):
     got = bm25_score(*args, segment_pad=n_pad, L=L)
     assert kb.launches["bm25_scatter"] == n0 + 1
     want = bm25_score_plain(*args, segment_pad=n_pad, L=L)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+def _k16_runs(case):
+    """K16 inputs whose runs sit on tile edges (tiles of ``BM25_TILE``
+    docs): (docs, tf, dl, starts, lengths, n_pad, L). ``spans``: a run
+    over many tiles, starting and ending mid-tile; ``cut``: runs cut at L
+    mid-tile; ``empty_tiles``: runs that leave whole tiles without a
+    posting; ``ragged``: a segment that is not a multiple of the tile;
+    ``mixed``: a clean slot, then one that is not (a doc wrapped from
+    below 0 and one past the segment), then a clean one over its docs."""
+    T = BM25_TILE
+    rng = np.random.RandomState(len(case))
+    if case == "spans":
+        n_pad, runs = 12 * T, [np.arange(1000, 11 * T + 77, 3),
+                               np.arange(5, 40), np.arange(T - 1, 3 * T + 1)]
+    elif case == "cut":
+        n_pad = 8 * T
+        runs = [np.arange(17, 8 * T, 2), np.arange(3 * T + 5, 7 * T, 5)]
+    elif case == "empty_tiles":
+        n_pad = 16 * T
+        runs = [np.r_[np.arange(0, 4 * T, 7), np.arange(10 * T, 16 * T, 9)],
+                np.arange(12 * T + 1, 13 * T - 1)]
+    elif case == "ragged":
+        n_pad = 3 * T + 1234
+        runs = [np.arange(2, n_pad, 4), np.arange(3 * T - 10, n_pad)]
+    else:
+        n_pad = 6 * T
+        runs = [np.arange(0, 6 * T, 3), np.arange(1, 6 * T, 5),
+                np.arange(1, 6 * T, 10)]
+    runs = [np.asarray(r, np.int32) for r in runs]
+    starts = np.cumsum([0] + [r.size for r in runs[:-1]]).astype(np.int32)
+    lengths = np.asarray([r.size for r in runs], np.int32)
+    flat = np.concatenate(runs)
+    if case == "mixed":
+        flat[starts[1] + 3] -= n_pad           # wraps back to its doc
+        flat[starts[1] + 7] = n_pad + 2        # dropped
+    docs = np.full(_pow2(flat.size + 16), n_pad, np.int32)
+    docs[:flat.size] = flat
+    L = {"cut": 2500}.get(case, int(lengths.max()))
+    tf = rng.randint(1, 7, docs.size).astype(np.float32)
+    dl = rng.randint(0, 120, n_pad).astype(np.float32)
+    return docs, tf, dl, starts, lengths, n_pad, L
+
+
+@pytest.mark.parametrize("case", ["spans", "cut", "empty_tiles", "ragged",
+                                  "mixed"])
+@pytest.mark.parametrize("keyword", [False, True])
+def test_k16_tile_edges_bitwise_equal_plain(cuda, case, keyword):
+    docs, tf, dl, starts, lengths, n_pad, L = _k16_runs(case)
+    Q = starts.size
+    idf = np.linspace(0.5, 4.0, Q).astype(np.float32)
+    w = np.ones(Q, np.float32)
+    if keyword:
+        tf, dl = np.ones_like(tf), np.zeros_like(dl)
+        sc = (np.float32(1.0), np.float32(1.2), np.float32(0.0))
+    else:
+        sc = (np.float32(31.7), np.float32(1.2), np.float32(0.75))
+    args = (_t(docs, cuda), _t(tf, cuda), _t(dl, cuda), starts, lengths,
+            idf, w, *sc)
+    n0 = kb.launches["bm25_scatter"]
+    got = bm25_score(*args, segment_pad=n_pad, L=L)
+    assert kb.launches["bm25_scatter"] == n0 + 1
+    want = bm25_score_plain(*args, segment_pad=n_pad, L=L)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+    if case == "empty_tiles":
+        m = got[1].cpu().numpy().reshape(-1, BM25_TILE)
+        assert (m[4:10] == 0).all() and (m[:4] > 0).any()
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_k16_at_the_kernels_parameter_slots(cuda, extra):
+    """The slots whose inputs ride in K16's launch parameters come from the
+    kernel (``es_bm25_scatter_param_slots``); at that many slots and one
+    more (the inputs then in device memory) the plan says which, and the
+    scores are the plain version's bits."""
+    from elasticsearch_tpu_torch.ops.bm25 import bm25_scatter_plan
+    limit = kb.query("bm25_scatter", "es_bm25_scatter_param_slots")
+    assert limit == 64
+    Q, n_pad, L = limit + extra, 1 << 14, 64
+    assert bm25_scatter_plan(n_pad, L, Q, limit)["device_slots"] == \
+        bool(extra)
+    docs, tf, dl, starts, lengths, idf, w = csr_case(
+        21 + extra, n_pad=n_pad, Q=Q, L=L, P_pad=_pow2(2 * L * Q),
+        wild=False)
+    args = (_t(docs, cuda), _t(tf, cuda), _t(dl, cuda), starts, lengths,
+            idf, w, np.float32(31.7), np.float32(1.2), np.float32(0.75))
+    got = bm25_score(*args, segment_pad=n_pad, L=L)
+    want = bm25_score_plain(*args, segment_pad=n_pad, L=L)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("wild", [False, True])
+def test_k16_keyword_one_doc_length_equals_a_length_a_doc(cuda, wild):
+    """A scored keyword clause passes one doc length of zero (b = 0): the
+    same bits as zeros for every doc, wrapped and dropped docs included."""
+    n_pad, Q, L = 1 << 16, 9, 4096
+    docs, _, _, starts, lengths, idf, w = csr_case(
+        31, n_pad=n_pad, Q=Q, L=L, P_pad=_pow2(2 * L * Q), wild=wild)
+    ones = torch.ones(docs.size, device=cuda)
+    sc = (np.float32(1.0), np.float32(1.2), np.float32(0.0))
+    d = _t(docs, cuda)
+    got = bm25_score(d, ones, torch.zeros(1, device=cuda), starts, lengths,
+                     idf, w, *sc, segment_pad=n_pad, L=L)
+    want = bm25_score(d, ones, torch.zeros(n_pad, device=cuda), starts,
+                      lengths, idf, w, *sc, segment_pad=n_pad, L=L)
     torch.cuda.synchronize()
     _same_bits(got, want)
 

@@ -477,3 +477,30 @@ def test_chunk_reduce_equals_one_pass(C, k):
                                k=k, fill_id=fill)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows,k,S,B,n_sm,per_sm,max_tiles,want", [
+    # K6 at the hybrid's shape (n_pad 2^22) and the exact route's (2^21):
+    # one and two blocks an SM on 132 SMs
+    (1 << 22, 100, 1, 16, 132, 1, tk.K6_BITMAP_TILES, 132),
+    (1 << 21, 100, 1, 16, 132, 2, tk.K6_BITMAP_TILES, 264),
+    # K7's four an SM, over two query tiles
+    (1 << 20, 40, 1, 32, 132, 4, None, 264),
+    # the bitmap floor: 2^25 rows are 262,144 tiles, 64 blocks at least
+    (1 << 25, 10, 1, 16, 8, 1, tk.K6_BITMAP_TILES, 64),
+    # K3's cap on chunks · k wins
+    (1 << 21, 10000, 1, 16, 132, 2, tk.K6_BITMAP_TILES, 3),
+    # fewer tiles than blocks
+    (300, 10, 2, 3, 132, 2, tk.K6_BITMAP_TILES, 3)])
+def test_scan_chunks_sizes_the_grid(rows, k, S, B, n_sm, per_sm, max_tiles,
+                                    want):
+    """K6/K7's blocks along the row axis: ``per_sm`` an SM over the
+    (shard, query tile) grid, enough that a K6 block's tiles fit its
+    live-tile bitmap, a multiple of the SM count past one wave, and at
+    most 2^15 // k."""
+    got = tk.scan_chunks(rows, k, S, B, n_sm, per_sm, max_tiles)
+    assert got == want
+    tiles = -(-rows // tk.TILE_ROWS)
+    assert 1 <= got <= tiles and got * k <= 1 << 15
+    if got > n_sm:
+        assert got % n_sm == 0

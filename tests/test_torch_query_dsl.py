@@ -203,3 +203,24 @@ def test_queries_run_where_the_segment_lies(shards):
     for seg in pctx.segments:
         s, m = query_dsl.parse_query(QUERIES["bool"]).execute(pctx, seg)
         assert s.device == seg.device == m.device
+
+
+def test_scored_keyword_clauses_share_the_fields_constants(shards):
+    """A scored keyword clause feeds K16 tf ones and one doc length of zero
+    (exact with b = 0) that its field makes once, at first use, and every
+    later clause reuses; the scores are the reference's (``shards``
+    compares every query with it) and the same bits on every call."""
+    rctx, pctx = shards
+    q = {"bool": {"should": [{"term": {"tag": "alpha"}},
+                             {"terms": {"tag": ["beta", "gamma"]}}]}}
+    for seg in pctx.segments:
+        f = seg.keyword_fields["tag"]
+        f.bm25_dev = None
+        first = query_dsl.parse_query(q).execute(pctx, seg)
+        ones, zeros = f.bm25_dev
+        assert ones.shape == f.docs_dev.shape and zeros.shape == (1,)
+        assert bool((ones == 1).all()) and not bool(zeros.any())
+        again = query_dsl.parse_query(q).execute(pctx, seg)
+        assert f.bm25_dev[0] is ones and f.bm25_dev[1] is zeros
+        for a, b in zip(first, again):
+            assert_same_bits(a, b)

@@ -28,6 +28,7 @@ from elasticsearch_tpu_torch.index.segment import (Segment, SegmentBuilder,
                                                    segment_from_host_state,
                                                    segment_host_state)
 from elasticsearch_tpu_torch.kernels import build as kb
+from elasticsearch_tpu_torch.ops import bm25 as tbm25
 from elasticsearch_tpu_torch.ops.bm25 import bm25_score, get_bm25_kernel
 from elasticsearch_tpu_torch.ops.masks import (get_postings_match_kernel,
                                                get_range_mask_kernel,
@@ -260,3 +261,27 @@ def test_wrappers_count_no_launch_on_the_cpu_and_refuse_other_devices():
         range_mask(torch.zeros(4, dtype=torch.float64),
                    torch.zeros(4, dtype=torch.int32), 0, 1, segment_pad=8)
     assert kb.launches == before
+
+
+@pytest.mark.parametrize("segment_pad,run_len,Q", [
+    (64, 16, 3), (1 << 23, 5303010, 4), (3 * 4096 + 1234, 5000, 2),
+    (4096, 0, 1), (1 << 20, 8192, 300)])
+def test_bm25_scatter_plan_covers_the_segment_and_the_runs(segment_pad,
+                                                           run_len, Q):
+    """K16's launch shape: tiles of ``BM25_TILE`` docs cover the segment
+    (the last may be short), chunks of ``BM25_CHUNK`` positions cover the
+    longest run (at least one chunk), the scratch holds each slot's
+    ``n_tiles + 1`` tile offsets and its chunk flags, and the slots'
+    inputs go to the card in device memory only past the slots the
+    launch's parameters hold (the kernel reports 64; the card test
+    ``test_k16_at_the_kernels_parameter_slots`` holds the plan to it)."""
+    plan = tbm25.bm25_scatter_plan(segment_pad, run_len, Q, 64)
+    T, n_tiles = plan["tile"], plan["n_tiles"]
+    assert T == tbm25.BM25_TILE == 1 << plan["tile_shift"]
+    assert plan["chunk"] == tbm25.BM25_CHUNK
+    assert (n_tiles - 1) * T < segment_pad <= n_tiles * T
+    assert plan["n_chunks"] == max(1, -(-run_len // plan["chunk"]))
+    assert plan["scratch"] == Q * (n_tiles + 1 + plan["n_chunks"])
+    assert plan["device_slots"] == (Q > 64)
+    assert not tbm25.bm25_scatter_plan(segment_pad, run_len, Q,
+                                       Q)["device_slots"]
