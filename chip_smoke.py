@@ -67,7 +67,9 @@ times its size). Phases, each fatal on failure:
    (c) equal to ``plane.search`` of the same bags (the K1 path); the
    rescore stage (``bool_rescore_device``) for each of the five score
    modes with K5, K3's selection, the payload gather and K11 bitwise;
-   each mix's launches counted alone; K9's and K11's times;
+   each mix's launches counted alone; K9's and K11's times, K9's launch
+   (its plan, blocks, blocks an SM) and, after every timing, its device
+   time a dispatch over each mix's timed batches (``torch.profiler``);
 8. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
    GloVe shape: 1.2M x 100 ``randn`` rows (seed 1234), one shard, cosine,
    k = 100, 32 timed batches of 16 through ``plane.serve``: K6 within the
@@ -84,7 +86,8 @@ times its size). Phases, each fatal on failure:
    route for the kernels and for the plain versions (the kernels' may
    not be lower), K7/K8 within the parity bar and K3 bitwise, the card's
    and numpy's cluster assignments compared, the path's launches counted
-   alone, K7's and K8's times;
+   alone, K7's and K8's times, and K8's and its yardstick's device times
+   (``torch.profiler``);
 10. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
    length 79) and as many 768-d ``standard_normal`` rows, one shard each,
    batches of 16 queries (9 sparse-tier terms in one should clause, a
@@ -94,7 +97,8 @@ times its size). Phases, each fatal on failure:
    the five rescore modes with K10, K5 and K11 bitwise; a dense-tier term
    refused; four queries against numpy (exact BM25 top-100, matmul +
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
-   launches counted alone; each kernel's time;
+   launches counted alone; each kernel's time, K9's launch and its device
+   time a dispatch over the timed batches;
 11. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
     ``nyc_taxis``), one pair a doc, 256 Zipf(1.1) ordinals, lognormal(3, 1)
     values, pairs sorted by (ordinal, value), a fresh 25 % mask a agg:
@@ -131,8 +135,9 @@ times its size). Phases, each fatal on failure:
     p50/p99, the analytics' wall split (frame load, standardise, kernel,
     tail, write), each kernel's time beside its bound, plain version and
     library call;
-13. a comment line with K16's and K6's times before their redesign (from
-    PERF.md's kernel table, not measured in this run), the ``kernels``
+13. a comment line with K16's, K6's, K9's and K8's times before their
+    redesign (from PERF.md's kernel table, not measured in this run),
+    the ``kernels``
     JSON line, the whole run's seconds, the card line, and the final
     status line.
 
@@ -785,6 +790,32 @@ def k5_work(plane, a, ck):
     return nbytes, 2 * found, found, bisect_reads
 
 
+def prune_plane(dev, n_docs=PRUNE_DOCS):
+    """The prune configuration's corpus (seed 1234) and its plane on
+    ``dev`` (no dense tier, a block-max tier): (the generator, positioned
+    for the traffic draws, the corpus, the plane, the corpus's and the
+    plane's seconds)."""
+    import torch
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        DistributedSearchPlane
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, n_docs, VOCAB, PRUNE_AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(VOCAB)}
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plane = DistributedSearchPlane([corpus], "body", device=dev,
+                                   dense_threshold=1 << 30, blockmax={})
+    tier = plane.blockmax
+    if plane.T_pad or tier is None:
+        fail("the prune plane must have a block-max tier and no dense tier")
+    tier.device_arrays(dev)
+    torch.cuda.synchronize()
+    return rng, corpus, plane, corpus_s, time.perf_counter() - t0
+
+
 def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
                reps=20):
     """The block-max pruned route end to end (phase 5). Returns the K4/K5
@@ -800,30 +831,18 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
         sparse_candidates_topk, sparse_candidates_topk_plain)
     from elasticsearch_tpu_torch.ops.topk import topk_merge
     from elasticsearch_tpu_torch.parallel.dist_search import (
-        DistributedSearchPlane, total_is_lower_bound, total_value)
-    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+        total_is_lower_bound, total_value)
 
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    rng = np.random.RandomState(1234)
-    corpus = synthetic_csr_corpus_fast(rng, n_docs, VOCAB, PRUNE_AVG_DL,
-                                       zipf_s=1.2)
-    corpus["term_ids"] = {f"t{t}": t for t in range(VOCAB)}
+    rng, corpus, plane, corpus_s, plane_s = prune_plane(dev, n_docs)
+    tier = plane.blockmax
     print(f"# prune corpus: {n_docs} docs, {corpus['docs'].shape[0]} "
           f"postings, largest df {int(corpus['df'].max())} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    t0 = time.perf_counter()
-    plane = DistributedSearchPlane([corpus], "body", device=dev,
-                                   dense_threshold=1 << 30, blockmax={})
-    tier = plane.blockmax
-    tier.device_arrays(dev)
-    torch.cuda.synchronize()
-    if plane.T_pad or tier is None:
-        fail("the prune plane must have a block-max tier and no dense tier")
+          f"({corpus_s:.1f} s)", flush=True)
     print(f"# prune plane: n_pad {plane.n_pad}, L_cap {plane.L_cap}, "
           f"{tier.n_blocks} blocks of {tier.block}, tier {tier.nbytes()} B "
           f"on the host, {plane.device_corpus_bytes() / 2**30:.3f} GiB on "
-          f"{dev} ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"{dev} ({plane_s:.1f} s)", flush=True)
     mixes = {m: sample_queries(rng, corpus, 1 + n_batches, PRUNE_BATCH,
                                weighted=m == "a") for m in ("a", "b")}
 
@@ -1299,21 +1318,15 @@ def recall(got_hits, exact_hits):
                           for g, e in zip(gb, eb)]))
 
 
-def run_knn_ivf(card, *, reps=20):
-    """Phase 8: the IVF route at ``bench_knn_ivf``'s shape through
-    ``serve``. Returns the K7 and K8 rows of the ``kernels`` line, the
-    path's launch counts and K3's largest error."""
+def ivf_plane(dev):
+    """``bench_knn_ivf``'s corpus (2^20 x 64 rows around 2048 centers,
+    seed 1234) in an IVF plane on ``dev`` (nlist 1024, cosine): (the
+    corpus, the plane, the corpus's and the pack's seconds, a function
+    drawing the next batch of queries, perturbed corpus rows, from the
+    corpus's generator)."""
     import torch
-    from elasticsearch_tpu_torch.kernels import build as kb
-    from elasticsearch_tpu_torch.ops.knn import (
-        ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
-        ivf_scan_plain, window_rows)
-    from elasticsearch_tpu_torch.ops.topk import topk_merge
-    from elasticsearch_tpu_torch.parallel.dist_search import (
-        IVF_DEFAULT_RERANK, DistributedKnnPlane, _assign_clusters,
-        _packed_queries, ivf_knn_step, prepare_knn_corpus)
-
-    dev = torch.device("cuda")
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        DistributedKnnPlane
     t0 = time.perf_counter()
     rng = np.random.RandomState(1234)
     centers = rng.randn(IVF_CENTERS, IVF_DIM).astype(np.float32)
@@ -1328,10 +1341,53 @@ def run_knn_ivf(card, *, reps=20):
                                 ivf=dict(nlist=IVF_NLIST, seed=7),
                                 device=dev)
     pack_s = time.perf_counter() - t0
-    tier = plane.ivf
-    tier.device_arrays(dev, plane.n_pad)
+    plane.ivf.device_arrays(dev, plane.n_pad)
     plane._device_arrays()
     torch.cuda.synchronize()
+
+    def q_batch():
+        qi = rng.randint(0, IVF_ROWS, KNN_BATCH)
+        return (corpus[qi] + 0.15 * rng.randn(KNN_BATCH, IVF_DIM)).astype(
+            np.float32)
+
+    return corpus, plane, gen_s, pack_s, q_batch
+
+
+def ivf_step_inputs(plane, qb):
+    """One IVF dispatch's inputs at the tier's default nprobe and rerank:
+    (the step's arguments, r_cand, the union width, the packed queries,
+    their squared norms, K7's inputs and keywords)."""
+    import torch
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        IVF_DEFAULT_RERANK, _packed_queries)
+    prep = plane.prepare_ivf(qb, IVF_K, nprobe=plane.ivf.default_nprobe,
+                             rerank=IVF_DEFAULT_RERANK)
+    a = prep["args"]
+    qq = _packed_queries(a["q"], "cosine")
+    qsum, qn = qq.sum(-1), torch.sum(a["q"] * a["q"], dim=-1)
+    scan_in = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+               a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
+    return (a, prep["r_cand"], prep["Pw"], qq, qn, scan_in,
+            dict(l2=False, n_pad=plane.n_pad))
+
+
+def run_knn_ivf(card, *, reps=20):
+    """Phase 8: the IVF route at ``bench_knn_ivf``'s shape through
+    ``serve``. Returns the K7 and K8 rows of the ``kernels`` line, the
+    path's launch counts and K3's largest error."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.knn import (
+        ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
+        ivf_scan_plain, window_rows)
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        IVF_DEFAULT_RERANK, _assign_clusters, ivf_knn_step,
+        prepare_knn_corpus)
+
+    dev = torch.device("cuda")
+    corpus, plane, gen_s, pack_s, q_batch = ivf_plane(dev)
+    tier = plane.ivf
     print(f"# ivf corpus: {IVF_ROWS} x {IVF_DIM} around {IVF_CENTERS} "
           f"centers ({gen_s:.1f} s); pack (k-means on the card, assignment, "
           f"int8 quantization, reorder) {pack_s:.1f} s; nlist {tier.nlist}, "
@@ -1347,26 +1403,14 @@ def run_knn_ivf(card, *, reps=20):
     print(f"# card vs numpy _assign_clusters on {ASSIGN_SAMPLE} packed rows: "
           f"{n_diff} rows in another cluster", flush=True)
 
-    def q_batch():
-        qi = rng.randint(0, IVF_ROWS, KNN_BATCH)
-        return (corpus[qi] + 0.15 * rng.randn(KNN_BATCH, IVF_DIM)).astype(
-            np.float32)
-
     eval_b = [q_batch() for _ in range(IVF_EVAL)]
     batches = eval_b + [q_batch() for _ in range(IVF_BATCHES - IVF_EVAL)]
     nprobe = tier.default_nprobe
     S, n_pad = plane.n_shards, plane.n_pad
 
     # ---- K7, K8 and every K3 call of the step against their plain versions
-    prep = plane.prepare_ivf(eval_b[0], IVF_K, nprobe=nprobe,
-                             rerank=IVF_DEFAULT_RERANK)
-    a, R, Pw = prep["args"], prep["r_cand"], prep["Pw"]
-    qq = _packed_queries(a["q"], "cosine")
-    qsum, qn = qq.sum(-1), torch.sum(a["q"] * a["q"], dim=-1)
+    a, R, Pw, qq, qn, scan_in, scan_kw = ivf_step_inputs(plane, eval_b[0])
     tol = knn_tol(eval_b[0], 1.0, "cosine")
-    scan_in = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
-               a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
-    scan_kw = dict(l2=False, n_pad=n_pad)
     B = KNN_BATCH
     rec = []
     with recording(rec, ("topk_merge",)):
@@ -1462,6 +1506,12 @@ def run_knn_ivf(card, *, reps=20):
         torch.bmm(vec0[safe], qq[:, :, None])
 
     k8_lib = timed(k8_library, reps)
+    # the device time a call, beside the CUDA-event means (which read the
+    # host's time too where it is the longer)
+    k8_dev, k8_lib_dev = (
+        sum(device_ms_by_name(f, reps).values())
+        for f in (lambda: ivf_rerank(*rr_in, l2=False, n_pad=n_pad),
+                  k8_library))
     # K7's work: the rowid and rcl of each row of a real union block (the
     # sentinel block NB is all padding); the codes, scale and off of a row
     # some query of the batch probes; per (row, query) pair a D-long dot
@@ -1482,6 +1532,8 @@ def run_knn_ivf(card, *, reps=20):
           f"{k7_bytes} bytes), plain {k7_plain:.3f} ms; ivf_rerank: "
           f"{k8_ms:.4f} ms (bound {k8_bms:.5f} ms by {k8_bby}), plain "
           f"{k8_plain:.3f} ms, library (gather + torch.bmm) {k8_lib:.4f} ms; "
+          f"on the card (torch.profiler) K8 {k8_dev:.5f} ms, the library "
+          f"{k8_lib_dev:.5f} ms; "
           f"K3's {len(k3_calls)} calls {k3_ms:.4f} ms [{card}]", flush=True)
     rows_out = [
         dict(name="ivf_scan", route="cuda",
@@ -1495,7 +1547,12 @@ def run_knn_ivf(card, *, reps=20):
              source="elasticsearch_tpu_torch/csrc/ivf_rerank.cu",
              replaces="elasticsearch_tpu/parallel/dist_search.py:894",
              max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain,
-             bound_ms=k8_bms, bound_by=k8_bby, library_ms=k8_lib)]
+             bound_ms=k8_bms, bound_by=k8_bby, library_ms=k8_lib,
+             device_ms=k8_dev, library_device_ms=k8_lib_dev,
+             library_note="the yardstick gathers rows found before the "
+                          "timed call: it leaves out the window-to-row "
+                          "mapping (u_blocks, rowid) and the -inf mask "
+                          "that K8 does in each call")]
     return rows_out, counts, k3_err
 
 
@@ -1653,6 +1710,33 @@ def k9_work(plane, args, k):
     return nbytes, n_post + (n_post - n_owner), n_post, n_owner
 
 
+def k9_launch(args, kw):
+    """K9's launch on these inputs: its plan (docs a tile, blocks a (query,
+    shard), tiles a block, tiles of edges at a time), blocks in the grid
+    and blocks of the tile kernel an SM holds."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import bool_bm25_topk_plan
+    B, S, Q = args[2].shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = bool_bm25_topk_plan(kw["n_pad"], B, S, Q, kw["L"], kw["k"], n_sm)
+    per_sm = kb.query("bool_bm25_topk", "es_bool_bm25_topk_blocks_per_sm",
+                      Q, kw["k"], plan["tile_shift"], plan["edge_tiles"])
+    return dict(tile=plan["tile"], G=plan["G"],
+                tiles_per_block=plan["tiles_per_block"],
+                edge_tiles=plan["edge_tiles"], blocks=B * S * plan["G"],
+                blocks_per_sm=per_sm)
+
+
+def k9_device_ms(call, n_disp):
+    """K9's device ms a dispatch (its tile and merge kernels) over one
+    ``call`` that serves ``n_disp`` dispatches, by ``torch.profiler``."""
+    by = device_ms_by_name(call, 1)
+    if not by:
+        fail("torch.profiler recorded no device event")
+    return sum(v for name, v in by.items() if "k9_" in name) / n_disp
+
+
 def k11_work(args, k):
     """K11 reads each entry's value, id, secondary and match flag once,
     the per-query weights and window, and writes k (value, id) pairs;
@@ -1660,6 +1744,35 @@ def k11_work(args, k):
     vals = args[0]
     B, n = vals.shape
     return B * n * 13 + B * 12 + B * k * 8, 3 * B * n
+
+
+def bool_traffic(corpus, n_batches=BOOL_BATCHES):
+    """The bool phase's trees over the prune corpus, terms ∝ df over df >=
+    2 (seed 1234): mixes (c) (``bench_bool_disjunction``'s 8-term should
+    clause) and (d) (the lowered shape of a must / should / filter /
+    must_not tree), each a warm-up batch and ``n_batches`` timed ones;
+    a batch of trees with three should clauses at msm 2; and the draw
+    function, which goes on drawing from the same generator."""
+    rng = np.random.RandomState(1234)
+    df = corpus["df"].astype(np.float64)
+    el = np.flatnonzero(df >= 2)
+    p = df[el] / df[el].sum()
+
+    def draw(m):
+        return [f"t{t}" for t in rng.choice(el, m, p=p)]
+
+    mixes = {
+        "c": [[{"clauses": [("should", draw(8))], "msm": 1}
+               for _ in range(BOOL_BATCH)] for _ in range(1 + n_batches)],
+        "d": [[{"clauses": [("must", draw(1)), ("should", draw(3)),
+                            ("filter", draw(1)), ("must_not", draw(1))],
+                "msm": 0} for _ in range(BOOL_BATCH)]
+              for _ in range(1 + n_batches)]}
+    extra = [{"clauses": [("must", draw(1)), ("should", draw(2)),
+                          ("should", draw(2)), ("should", draw(2)),
+                          ("filter", draw(1)), ("must_not", draw(1))],
+              "msm": 2} for _ in range(BOOL_BATCH)]
+    return mixes, extra, draw
 
 
 def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
@@ -1675,27 +1788,7 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
     from elasticsearch_tpu_torch.search.query_planner import \
         bool_rescore_device
 
-    rng = np.random.RandomState(1234)
-    df = corpus["df"].astype(np.float64)
-    el = np.flatnonzero(df >= 2)
-    p = df[el] / df[el].sum()
-
-    def draw(m):
-        return [f"t{t}" for t in rng.choice(el, m, p=p)]
-
-    # (c) bench_bool_disjunction's 8-term should clause; (d) the lowered
-    # shape of a must / should / filter / must_not tree
-    mixes = {
-        "c": [[{"clauses": [("should", draw(8))], "msm": 1}
-               for _ in range(BOOL_BATCH)] for _ in range(1 + n_batches)],
-        "d": [[{"clauses": [("must", draw(1)), ("should", draw(3)),
-                            ("filter", draw(1)), ("must_not", draw(1))],
-                "msm": 0} for _ in range(BOOL_BATCH)]
-              for _ in range(1 + n_batches)]}
-    extra = [{"clauses": [("must", draw(1)), ("should", draw(2)),
-                          ("should", draw(2)), ("should", draw(2)),
-                          ("filter", draw(1)), ("must_not", draw(1))],
-              "msm": 2} for _ in range(BOOL_BATCH)]
+    mixes, extra, draw = bool_traffic(corpus, n_batches)
     kk = min(K, plane.n_pad)
 
     # ---- K9 and K3 against their plain versions, one batch a mix ----------
@@ -1810,18 +1903,20 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
           flush=True)
 
     # ---- times ---------------------------------------------------------------
-    rows = {}
+    rows, launches_k9 = {}, {}
     for m in ("c", "d"):
         ck = chk[m]
         nb, nf, n_post, n_owner = k9_work(plane, ck["args"], kk)
-        ms = timed(lambda: bool_bm25_topk(*ck["args"], **ck["kw"]),
-                   max(reps // 4, 1))
+        ms = timed(lambda: bool_bm25_topk(*ck["args"], **ck["kw"]), reps)
         bms, bby = bound(nb, nf)
+        launch = k9_launch(ck["args"], ck["kw"])
         rows[m] = dict(ms=ms, plain_ms=ck["plain_ms"], bound_ms=bms,
                        bound_by=bby)
-        print(f"# bool_bm25_topk mix ({m}): {ms:.4f} ms (bound {bms:.5f} ms "
-              f"by {bby}: {n_post} valid postings, {n_owner} candidates, "
-              f"{nb} bytes), plain {ck['plain_ms']:.3f} ms [{card}]",
+        launches_k9[m] = launch
+        print(f"# bool_bm25_topk mix ({m}), the checked batch: {ms:.4f} ms "
+              f"(bound {bms:.5f} ms by {bby}: {n_post} valid postings, "
+              f"{n_owner} candidates, {nb} bytes), plain "
+              f"{ck['plain_ms']:.3f} ms; launch {launch} [{card}]",
               flush=True)
     a, kw = k11_calls["total"]
     k11_ms = timed(lambda: rescore_reorder(*a, **kw), reps)
@@ -1832,16 +1927,26 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
           f"{k11_ms:.4f} ms (bound {k11_b[0]:.6f} ms by {k11_b[1]}), plain "
           f"{k11_plain:.3f} ms [{card}]", flush=True)
     k9_row = dict(name="bool_bm25_topk", route="cuda",
-                  source="elasticsearch_tpu_torch/csrc/"
-                         "sparse_candidates_topk.cu",
+                  source="elasticsearch_tpu_torch/csrc/bool_bm25_topk.cu",
                   replaces="elasticsearch_tpu/ops/fused_query.py:50",
                   max_abs_err=0.0, **rows["c"], library_ms=None,
                   library_none="no one PyTorch call merges postings runs "
                                "with clause bits",
                   ms_by_path={"bool_c": rows["c"]["ms"],
-                              "bool_d": rows["d"]["ms"]})
+                              "bool_d": rows["d"]["ms"]},
+                  device_ms_per_dispatch={},
+                  launch={f"bool_{m}": v for m, v in launches_k9.items()})
     k11_bool = dict(ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_b[0],
                     bound_by=k11_b[1])
+    # K9's device time a dispatch over each mix's timed batches, served
+    # again under the profiler after every timing
+    for m, batches in mixes.items():
+        ms = k9_device_ms(lambda: [plane.serve_bool(b, k=K)
+                                   for b in batches[1:]], len(batches) - 1)
+        k9_row["device_ms_per_dispatch"][f"bool_{m}"] = ms
+        print(f"# bool mix ({m}): K9's device time {ms:.4f} ms a dispatch "
+              f"over the {len(batches) - 1} timed batches (torch.profiler) "
+              f"[{card}]", flush=True)
     return k9_row, k11_bool, path
 
 
@@ -1864,6 +1969,30 @@ def hybrid_vectors(n_docs, dim, seed=1234, chunk=1 << 18):
         hi = min(n_docs, lo + chunk)
         vecs[lo:hi] = g.standard_normal((hi - lo, dim), dtype=np.float32)
     return vecs
+
+
+def hybrid_traffic(rng, corpus, tplane, dim, n_batches=HY_BATCHES):
+    """The hybrid's queries, drawn from ``rng`` after the text corpus: 9
+    terms ∝ df over the sparse-tier terms of df >= 2 in one should clause,
+    a randn query vector, Elasticsearch's RRF defaults; a warm-up batch
+    and ``n_batches`` timed ones. Returns (batches, the eligible terms,
+    their draw weights, the dense-tier mask)."""
+    sh = tplane.shards[0]
+    df = corpus["df"].astype(np.float64)
+    dense = np.zeros(df.shape[0], bool)
+    dense[list(sh["dense_row_of"])] = True
+    el = np.flatnonzero((df >= 2) & ~dense)
+    p = df[el] / df[el].sum()
+
+    def fq():
+        terms = [f"t{t}" for t in rng.choice(el, HY_TERMS, p=p)]
+        return dict(clauses=[("should", terms)], msm=1,
+                    qv=rng.randn(dim).astype(np.float32), kboost=1.0,
+                    rc=HY_RC, wt=HY_WINDOW, wk=HY_WINDOW, k=K)
+
+    batches = [[fq() for _ in range(HY_BATCH)]
+               for _ in range(1 + n_batches)]
+    return batches, el, p, dense
 
 
 def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
@@ -1910,23 +2039,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
           f"{kplane.device_corpus_bytes() / 2**30:.3f} GiB on {dev} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # traffic: 9 terms ∝ df over the sparse-tier terms of df >= 2, a randn
-    # query vector, Elasticsearch's RRF defaults
-    sh = tplane.shards[0]
-    df = corpus["df"].astype(np.float64)
-    dense = np.zeros(df.shape[0], bool)
-    dense[list(sh["dense_row_of"])] = True
-    el = np.flatnonzero((df >= 2) & ~dense)
-    p = df[el] / df[el].sum()
-
-    def fq(i):
-        terms = [f"t{t}" for t in rng.choice(el, HY_TERMS, p=p)]
-        return dict(clauses=[("should", terms)], msm=1,
-                    qv=rng.randn(dim).astype(np.float32), kboost=1.0,
-                    rc=HY_RC, wt=HY_WINDOW, wk=HY_WINDOW, k=K)
-
-    batches = [[fq(i) for i in range(HY_BATCH)]
-               for _ in range(1 + n_batches)]
+    batches, el, p, dense = hybrid_traffic(rng, corpus, tplane, dim,
+                                           n_batches)
     print(f"# hybrid traffic: {el.size} sparse-tier terms of df >= 2; "
           f"{HY_TERMS}-term should clauses, msm 1, rrf rc {HY_RC}, windows "
           f"{HY_WINDOW}, k {K}, batches of {HY_BATCH}", flush=True)
@@ -2085,11 +2199,12 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     out = {}
     k9_ms = timed(lambda: bool_bm25_topk(*k9a, **k9k), reps)
     nb, nf, n_post, n_owner = k9_work(tplane, list(k9a), k9k["k"])
-    out["k9"] = dict(ms=k9_ms, bound=bound(nb, nf))
+    out["k9"] = dict(ms=k9_ms, bound=bound(nb, nf),
+                     launch=k9_launch(k9a, k9k))
     print(f"# bool_bm25_topk (hybrid text side): {k9_ms:.4f} ms (bound "
           f"{out['k9']['bound'][0]:.5f} ms: {n_post} valid postings, "
-          f"{n_owner} candidates), plain {k9_plain:.3f} ms [{card}]",
-          flush=True)
+          f"{n_owner} candidates), plain {k9_plain:.3f} ms; launch "
+          f"{out['k9']['launch']} [{card}]", flush=True)
     vk, vn, ex, qq, qn = k6a
     k6_ms = timed(lambda: knn_scan_partials(vk, vn, ex, qq, qn, l2=False,
                                             kk=kk_k), reps)
@@ -2156,6 +2271,14 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                                   "sum": timed(lambda: fuse_rank(*a, **kw),
                                                reps)}
     path = {n: counts[n] + c_extra[n] for n in counts}
+    # K9's device time a dispatch over the timed batches, served again
+    # under the profiler after every timing
+    out["k9"]["device_ms"] = k9_device_ms(
+        lambda: [fused_search_device(tplane, kplane, b, fusion="rrf")
+                 for b in batches[1:]], len(batches) - 1)
+    print(f"# hybrid: K9's device time {out['k9']['device_ms']:.4f} ms a "
+          f"dispatch over the {len(batches) - 1} timed batches "
+          f"(torch.profiler) [{card}]", flush=True)
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del vecs, kplane, tplane
@@ -2580,13 +2703,18 @@ SEG_REF = 3                  # requests of a mix held against numpy
 SEG_PAGES = (990, 9990)      # deep pages of (e), size 10
 SEG_PLANE_RTOL = 1e-6        # (e) against the f32 plane: ties within this
 SEG_PROFILED = 64            # requests a mix under torch.profiler
-#: the kernels redesigned since their first port, with their first ports'
-#: CUDA-event means (ms, NVIDIA H100 80GB HBM3 at 700 W) as PERF.md's
-#: kernel table records them: printed as a comment, never in the kernels
-#: line, which holds only this run's readings
+#: the kernels redesigned since their first port, with their CUDA-event
+#: means before the redesign (ms, NVIDIA H100 80GB HBM3 at 700 W) as
+#: PERF.md's kernel table records them: printed as a comment, never in the
+#: kernels line, which holds only this run's readings
 EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K6 knn_scan at D = 100": 1.0125,
-              "K6 knn_scan at D = 768": 14.9037}
+              "K6 knn_scan at D = 768": 14.9037,
+              "K9 bool_bm25_topk at (c)": 140.4444,
+              "K9 bool_bm25_topk at (d)": 163.8216,
+              "K9 bool_bm25_topk on the hybrid": 7.5450,
+              "K8 ivf_rerank at its first port": 0.0396,
+              "K8 ivf_rerank in the last run before its redesign": 0.0414}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -3686,6 +3814,8 @@ def main() -> int:
     print(f"# ml phase {time.perf_counter() - t1:.1f} s [{card}]",
           flush=True)
     k9_row["ms_by_path"]["hybrid"] = hy_times["k9"]["ms"]
+    k9_row["device_ms_per_dispatch"]["hybrid"] = hy_times["k9"]["device_ms"]
+    k9_row["launch"]["hybrid"] = hy_times["k9"]["launch"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
     kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows \

@@ -1,5 +1,5 @@
 // K1: sparse candidate scoring + top-k for a batch of queries over the
-// shards of one device; K9, its bool-tree variant (kBool).
+// shards of one device.
 //
 // Replaces elasticsearch_tpu/ops/sorted_merge.py:bm25_merge_candidates and
 // bm25_topk_merge_body (the body of parallel/dist_search.py:
@@ -19,19 +19,6 @@
 // tier's contributions accumulated from 0 in slot order j = 0..Q-1
 // (tiered_bm25.py:191-196), applies min_should_match, counts, and offers
 // (score, doc) to a block-wide running top-k keyed (score desc, doc asc).
-//
-// K9 (es_bool_bm25_topk) replaces ops/fused_query.py:bool_bm25_topk_body,
-// the per-(query, shard) stage of parallel/dist_search.py:
-// build_bool_bm25_step and of build_fused_hybrid_step's text side. Each slot
-// also carries its clause's bit; the owner ORs the bits of every slot
-// holding its doc (its own included), which is the reference's per-group OR
-// at the group's last slot, and the doc is eligible iff it has every
-// required bit, no prohibited bit, and at least msm should bits among the
-// low nc (the reference's unrolled popcount reads only those). Only eligible
-// owners count and enter the top-k; K1's slot-count min_should_match does
-// not apply. Filter and must_not slots have idfw 0.0: their contributions
-// are exact zeros added in the reference's order, and a filter-only doc is
-// a hit at 0.0 (an empty slot is -inf, never 0.0).
 //
 // Bound: data-dependent. The work is the valid postings of the batch
 // (8 bytes each, read once), (Q-1) binary searches per posting in runs that
@@ -55,24 +42,20 @@ __device__ __forceinline__ int lower_bound_run(const int* run, int n,
 }
 
 // kTopShared: the running top-k sits in shared memory (a template argument,
-// so the compiler addresses it as shared). kBool: K9's clause-bit
-// eligibility replaces the slot count.
-template <bool kTopShared, bool kBool>
+// so the compiler addresses it as shared).
+template <bool kTopShared>
 __global__ void __launch_bounds__(K1_THREADS)
 sparse_candidates_topk_kernel(
     const int* __restrict__ docs, const float* __restrict__ imps, int P,
     const int* __restrict__ starts, const int* __restrict__ lengths,
     const float* __restrict__ idfw, const __nv_bfloat16* __restrict__ dense,
     const int* __restrict__ rid, const float* __restrict__ dw,
-    const int* __restrict__ u_ids, const int* __restrict__ cbits,
-    const int* __restrict__ req, const int* __restrict__ neg,
-    const int* __restrict__ shd, const int* __restrict__ msm_b, int nc,
-    int B, int S, int Q, int L, int n_pad, int k, int msm, int n_blk, int T,
-    int C, int U, float* __restrict__ out_vals, int* __restrict__ out_docs,
+    const int* __restrict__ u_ids, int B, int S, int Q, int L, int n_pad,
+    int k, int msm, int n_blk, int T, int C, int U,
+    float* __restrict__ out_vals, int* __restrict__ out_docs,
     int* __restrict__ out_count) {
-  // dynamic shared memory: the candidate buffer, the per-slot run table
-  // (with the clause bits in bool mode), then the running top-k when it
-  // fits (else it lives in the output)
+  // dynamic shared memory: the candidate buffer, the per-slot run table,
+  // then the running top-k when it fits (else it lives in the output)
   extern __shared__ unsigned char smem[];
   float* buf_s = reinterpret_cast<float*>(smem);            // [THREADS]
   int* buf_d = reinterpret_cast<int*>(buf_s + K1_THREADS);   // [THREADS]
@@ -82,8 +65,7 @@ sparse_candidates_topk_kernel(
   int* pre_q = row_q + Q;                                    // [Q + 1]
   float* w_q = reinterpret_cast<float*>(pre_q + Q + 1);      // [Q]
   float* dw_q = w_q + Q;                                     // [Q]
-  int* cb_q = reinterpret_cast<int*>(dw_q + Q);              // [Q], kBool
-  float* tail = kBool ? reinterpret_cast<float*>(cb_q + Q) : dw_q + Q;
+  float* tail = dw_q + Q;
   __shared__ int filled, ncand[3], n_match, n_overlap;
 
   const int b = blockIdx.x / S;
@@ -92,11 +74,6 @@ sparse_candidates_topk_kernel(
   float* top_s = kTopShared ? tail : out_vals + o_bs * k;
   int* top_d = kTopShared ? reinterpret_cast<int*>(tail + k)
                              : out_docs + o_bs * k;
-  // K9's per-query clause masks; the should count reads the low nc bits
-  const int b_req = kBool ? req[b] : 0;
-  const int b_neg = kBool ? neg[b] : 0;
-  const int b_shd = kBool ? (shd[b] & (nc >= 32 ? -1 : (1 << nc) - 1)) : 0;
-  const int b_msm = kBool ? msm_b[b] : 0;
   const int tid = threadIdx.x;
   const int* docs_s = docs + (size_t)s * P;
   const float* imps_s = imps + (size_t)s * P;
@@ -111,7 +88,6 @@ sparse_candidates_topk_kernel(
     st_q[q] = st;
     ln_q[q] = ln;
     w_q[q] = idfw[(size_t)b * Q + q];
-    if (kBool) cb_q[q] = cbits[(size_t)b * Q + q];
     if (dense != nullptr) {
       int r = rid[o];
       row_q[q] = u_ids != nullptr ? u_ids[(size_t)s * U + r] : r;
@@ -160,7 +136,6 @@ sparse_candidates_topk_kernel(
       if (owner) {
         float sc = __fmul_rn(imps_s[st_q[q] + i], w_q[q]);
         int cnt = 1;
-        int bits = kBool ? cb_q[q] : 0;
         for (int q2 = q - 1; q2 >= 0; --q2) {
           int n2 = ln_q[q2];
           if (n2 == 0) continue;
@@ -169,7 +144,6 @@ sparse_candidates_topk_kernel(
           if (p < n2 && run[p] == doc) {
             sc = __fadd_rn(sc, __fmul_rn(imps_s[st_q[q2] + p], w_q[q2]));
             ++cnt;
-            if (kBool) bits |= cb_q[q2];
           }
         }
         int dcnt = 0;
@@ -190,11 +164,7 @@ sparse_candidates_topk_kernel(
           sc = __fadd_rn(sc, add);
           cnt += dcnt;
         }
-        const bool eligible =
-            kBool ? ((bits & b_req) == b_req && (bits & b_neg) == 0 &&
-                     __popc(bits & b_shd) >= b_msm)
-                  : cnt >= msm;
-        if (eligible) {
+        if (cnt >= msm) {
           atomicAdd(&n_match, 1);
           if (dcnt > 0) atomicAdd(&n_overlap, 1);
           if (top.beats(sc, doc)) cand.push(round, sc, doc);
@@ -218,38 +188,13 @@ extern "C" int es_sparse_candidates_topk(
   const bool top_shared =
       shm + (size_t)k * 8 <= (size_t)es_max_shared_bytes();
   if (top_shared) shm += (size_t)k * 8;
-  auto kernel = top_shared ? sparse_candidates_topk_kernel<true, false>
-                           : sparse_candidates_topk_kernel<false, false>;
+  auto kernel = top_shared ? sparse_candidates_topk_kernel<true>
+                           : sparse_candidates_topk_kernel<false>;
   int e = es_set_shared(kernel, shm);
   if (e != 0) return e;
   kernel<<<B * S, K1_THREADS, shm, (cudaStream_t)stream>>>(
       docs, imps, P, starts, lengths, idfw,
-      (const __nv_bfloat16*)dense, rid, dw, u_ids, nullptr, nullptr,
-      nullptr, nullptr, nullptr, 0, B, S, Q, L, n_pad, k, msm, n_blk, T, C,
-      U, out_vals, out_docs, out_count);
-  return (int)cudaGetLastError();
-}
-
-// K9: cbits i32[B, Q] (each slot's clause bit), req / neg / shd / msm
-// i32[B] (required, prohibited and should clause masks, the should-clause
-// minimum), nc the bits the should count reads. No dense tier.
-extern "C" int es_bool_bm25_topk(
-    const int* docs, const float* imps, int P, const int* starts,
-    const int* lengths, const float* idfw, const int* cbits, const int* req,
-    const int* neg, const int* shd, const int* msm, int B, int S, int Q,
-    int L, int n_pad, int k, int nc, float* out_vals, int* out_docs,
-    int* out_count, void* stream) {
-  size_t shm = (size_t)K1_THREADS * 8 + (size_t)Q * 28 + 4;
-  const bool top_shared =
-      shm + (size_t)k * 8 <= (size_t)es_max_shared_bytes();
-  if (top_shared) shm += (size_t)k * 8;
-  auto kernel = top_shared ? sparse_candidates_topk_kernel<true, true>
-                           : sparse_candidates_topk_kernel<false, true>;
-  int e = es_set_shared(kernel, shm);
-  if (e != 0) return e;
-  kernel<<<B * S, K1_THREADS, shm, (cudaStream_t)stream>>>(
-      docs, imps, P, starts, lengths, idfw, nullptr, nullptr, nullptr,
-      nullptr, cbits, req, neg, shd, msm, nc, B, S, Q, L, n_pad, k, 0, 0, 0,
-      0, 0, out_vals, out_docs, out_count);
+      (const __nv_bfloat16*)dense, rid, dw, u_ids, B, S, Q, L, n_pad, k, msm,
+      n_blk, T, C, U, out_vals, out_docs, out_count);
   return (int)cudaGetLastError();
 }

@@ -7,10 +7,6 @@ first use, into ``elasticsearch_tpu_torch/_build/`` (git-ignored), under a
 name that carries a hash of the sources and flags, so an edited kernel is
 never served from a stale library.
 
-A source may hold more than one kernel entry (K1 and its bool variant K9
-share ``sparse_candidates_topk.cu``): :data:`ENTRY_SOURCE` names the
-source of each such entry, and each entry counts its launches apart.
-
 Every kernel wrapper counts its launches in :data:`launches`; a run that
 wants to show the main path went through the kernels zeroes the counts
 with :func:`reset_launches` and reads them afterwards. Each library also
@@ -43,16 +39,13 @@ KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
            "ivf_rerank", "fuse_rank", "rescore_reorder", "agg_masked_scan",
            "agg_rank_pick", "agg_bucket_reduce", "agg_metrics",
            "bm25_scatter", "postings_match", "range_mask", "segment_topk",
-           "tree_eval", "knn_outlier", "logreg_train")
-
-#: kernel entries built from another kernel's source: entry -> source
-ENTRY_SOURCE = {"bool_bm25_topk": "sparse_candidates_topk"}
+           "tree_eval", "knn_outlier", "logreg_train", "bool_bm25_topk")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: launches per kernel since the last reset (main-path accounting)
-launches: Dict[str, int] = {name: 0 for name in (*KERNELS, *ENTRY_SOURCE)}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -78,10 +71,11 @@ _SIGNATURES = {
         "es_dense_stream_topk",
         [_P] * 3 + [_I] * 11 + [_P] * 4),
     # docs, imps, P, starts, lengths, idfw, cbits, req, neg, shd, msm,
-    # B, S, Q, L, n_pad, k, nc, out_vals, out_docs, out_count, stream
+    # B, S, Q, L, n_pad, k, nc, tshift, tpb, W, G, part_vals, part_docs,
+    # part_count, out_vals, out_docs, out_count, stream
     "bool_bm25_topk": (
         "es_bool_bm25_topk",
-        [_P, _P, _I] + [_P] * 8 + [_I] * 7 + [_P] * 4),
+        [_P, _P, _I] + [_P] * 8 + [_I] * 11 + [_P] * 7),
     # a_vals, a_ids, ma, b_vals, b_ids, mb, R, k, dedup, seg_len,
     # seg_stride, fill_id, out_vals, out_ids, out_sel, workspace, stream
     "topk_merge": (
@@ -229,6 +223,11 @@ _QUERIES = {
         # (n, F1, C) -> bytes of the per-tile partial gradients
         "es_logreg_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     },
+    "bool_bm25_topk": {
+        # (Q, k, tshift, W) -> blocks of the tile kernel one SM holds, 0
+        # when none fits
+        "es_bool_bm25_topk_blocks_per_sm": ([_I] * 4, ctypes.c_int),
+    },
 }
 
 
@@ -285,29 +284,27 @@ def build_all() -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel entry ``name`` (its source built on
-    first use), its C functions typed."""
-    src = ENTRY_SOURCE.get(name, name)
-    lib = _libs.get(src)
+    """The loaded library of kernel ``name`` (its source built on first
+    use), its C functions typed."""
+    lib = _libs.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(src)
+    path = _lib_path(name)
     if not path.exists():
         build_all()
     with _lock:
-        if src not in _libs:
+        if name not in _libs:
             lib = ctypes.CDLL(str(path))
+            sym, argtypes = _SIGNATURES[name]
             funcs = {"es_error_string": ([_I], ctypes.c_char_p),
-                     **_QUERIES.get(src, {})}
-            for entry, (sym, argtypes) in _SIGNATURES.items():
-                if ENTRY_SOURCE.get(entry, entry) == src:
-                    funcs[sym] = (argtypes, ctypes.c_int)
+                     sym: (argtypes, ctypes.c_int),
+                     **_QUERIES.get(name, {})}
             for fname, (argtypes, restype) in funcs.items():
                 fn = getattr(lib, fname)
                 fn.argtypes = argtypes
                 fn.restype = restype
-            _libs[src] = lib
-    return _libs[src]
+            _libs[name] = lib
+    return _libs[name]
 
 
 def query(name: str, fname: str, *args):

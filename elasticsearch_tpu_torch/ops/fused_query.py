@@ -1,7 +1,7 @@
 """Fused-query stages (port of ``elasticsearch_tpu/ops/fused_query.py``)
 and the wrappers of kernels K5 (``csrc/bisect_exact_scores.cu``), K9
-(``csrc/sparse_candidates_topk.cu``, its bool variant), K10
-(``csrc/fuse_rank.cu``) and K11 (``csrc/rescore_reorder.cu``).
+(``csrc/bool_bm25_topk.cu``), K10 (``csrc/fuse_rank.cu``) and K11
+(``csrc/rescore_reorder.cu``).
 
 - :func:`bool_bm25_topk` (K9): the sorted-merge BM25 scoring of K1 over a
   lowered bool tree. Each term slot carries its clause's bit; a doc's
@@ -37,6 +37,7 @@ slot, the selection ``sel`` of −inf slots included.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -50,6 +51,22 @@ NEG_INF = float("-inf")
 #: clause-count ceiling of a lowered bool tree: the should-clause count
 #: reads the low ``MAX_BOOL_CLAUSES`` bits of a doc's clause mask
 MAX_BOOL_CLAUSES = 8
+
+#: K9's doc tiles: 2^11 docs a shared-memory tile, 2^12 where the slots
+#: hold at most one posting a doc (Q·L <= n_pad): there a tile's fixed
+#: costs (its slots' barriers, its eligibility pass) outweigh its postings
+#: (PERF.md's K9 finding: the tile sizes measured at bool mix (c) and the
+#: hybrid on an H100)
+BOOL_TILE_SHIFT = 11
+BOOL_SPARSE_TILE_SHIFT = 12
+#: blocks a K9 launch aims at per SM: about twice what an SM holds at once
+#: (4 of the tile kernel's blocks at 2,048-doc tiles), so the grid fills
+#: the card twice over
+BOOL_BLOCKS_PER_SM = 8
+#: the most list entries (G·k) K9's merge takes for one (query, shard)
+BOOL_MERGE_MAX = 4096
+#: the most (slot, tile edge) positions a K9 block keeps
+BOOL_EDGES_MAX = 4096
 
 #: rescore score modes in K11's numbering
 RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
@@ -141,6 +158,31 @@ def bisect_exact_scores(postings_docs, postings_impact, starts, lengths,
 # ---------------------------------------------------------------------------
 
 
+def bool_bm25_topk_plan(n_pad: int, B: int, S: int, Q: int, L: int,
+                        k: int, n_sm: int) -> dict:
+    """K9's launch shape: tiles of 2^``tile_shift`` docs over [0, n_pad)
+    (``BOOL_SPARSE_TILE_SHIFT`` when the Q slots of at most L postings
+    hold at most one posting a doc, else ``BOOL_TILE_SHIFT``), G blocks a
+    (query, shard), each walking ``tiles_per_block`` consecutive tiles
+    (the last block may walk fewer), ``edge_tiles`` at a time. G aims at
+    ``BOOL_BLOCKS_PER_SM`` blocks an SM over the B·S (query, shard)
+    pairs, with at most one block a tile and G·k at most
+    ``BOOL_MERGE_MAX``, so the merge of the G lists stays small (G = 1
+    when k alone passes it); a block keeps the slots' positions at
+    ``edge_tiles + 1`` tile edges at a time, at most ``BOOL_EDGES_MAX``
+    (Q·(edge_tiles + 1)) unless one tile needs more."""
+    shift = BOOL_SPARSE_TILE_SHIFT if Q * L <= n_pad else BOOL_TILE_SHIFT
+    tile = 1 << shift
+    n_tiles = -(-n_pad // tile)
+    want = -(-BOOL_BLOCKS_PER_SM * n_sm // max(B * S, 1))
+    G = max(1, min(want, n_tiles, BOOL_MERGE_MAX // max(k, 1)))
+    tpb = max(1, -(-n_tiles // G))
+    G = max(1, -(-n_tiles // tpb))
+    W = min(tpb, max(1, BOOL_EDGES_MAX // max(Q, 1) - 1))
+    return dict(tile=tile, tile_shift=shift, n_tiles=n_tiles,
+                tiles_per_block=tpb, edge_tiles=W, G=G)
+
+
 def bool_bm25_topk_plain(postings_docs, postings_impact, starts, lengths,
                          idfw, cbits, req, neg, shd, msm, *, n_pad: int,
                          L: int, k: int, nc: int = MAX_BOOL_CLAUSES):
@@ -187,9 +229,13 @@ def bool_bm25_topk(postings_docs, postings_impact, starts, lengths, idfw,
 
     Returns (vals f32[B, S, k], docs i32[B, S, k], count i32[B, S]): a
     doc whose only matches are filter clauses is a hit at 0.0; empty slots
-    hold (−inf, ``n_pad``); count is the number of eligible docs.
+    hold (−inf, ``n_pad``); count is the number of eligible docs. Each
+    run's valid prefix must hold docs in strictly ascending order, as the
+    plane's postings do.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K9.
+    A CPU tensor runs the plain version; a CUDA tensor launches K9 (over
+    the doc tiles of :func:`bool_bm25_topk_plan`, its G lists a (query,
+    shard) merged in the same launch call).
     """
     dev = postings_docs.device
     if dev.type == "cpu":
@@ -215,13 +261,28 @@ def bool_bm25_topk(postings_docs, postings_impact, starts, lengths, idfw,
     count = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B * S == 0:
         return vals, docs, count
+    plan = bool_bm25_topk_plan(n_pad, B, S, Q, L, k, _sm_count(dev))
+    G = plan["G"]
+    # the G lists and counts of each (query, shard), merged by the launch
+    part = torch.empty(B * S * G * (2 * k + 1) if G > 1 else 1,
+                       dtype=torch.int32, device=dev)
+    n_part = B * S * G * k
     _kb.launch("bool_bm25_topk", dev, postings_docs.data_ptr(),
                postings_impact.data_ptr(), P, starts.data_ptr(),
                lengths.data_ptr(), idfw.data_ptr(), cbits.data_ptr(),
                req.data_ptr(), neg.data_ptr(), shd.data_ptr(),
-               msm.data_ptr(), B, S, Q, L, n_pad, k, nc, vals.data_ptr(),
+               msm.data_ptr(), B, S, Q, L, n_pad, k, nc, plan["tile_shift"],
+               plan["tiles_per_block"], plan["edge_tiles"], G,
+               part.data_ptr(),
+               part.data_ptr() + 4 * n_part,
+               part.data_ptr() + 8 * n_part, vals.data_ptr(),
                docs.data_ptr(), count.data_ptr())
     return vals, docs, count
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---------------------------------------------------------------------------

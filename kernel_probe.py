@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Probe of K16 (``bm25_scatter``) and K6 (``knn_scan``) on one card, at the
-inputs ``chip_smoke.py`` gives them on its main paths.
+"""Probe of K16 (``bm25_scatter``), K6 (``knn_scan``), K9
+(``bool_bm25_topk``) and K8 (``ivf_rerank``) on one card, at the inputs
+``chip_smoke.py`` gives them on its main paths.
 
-    python3 kernel_probe.py [--tree DIR] [--variants] [--out FILE]
+    python3 kernel_probe.py [--tree DIR] [--kernels k16,k6,k9,k8]
+                            [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
 checkout), so an unpacked earlier commit (``git archive``) is measured with
@@ -17,6 +19,28 @@ JSON lines and writes them to ``--out`` as well.
   k = 100) and the exact route's (1.2M x 100, cosine, B = 16, k = 100):
   the wrapper's CUDA-event mean, the bytes it must read, the achieved
   rate, and the launch's blocks per SM.
+- K9 at bool mixes (c) and (d) (the prune plane, ``bool_traffic``'s
+  checked batch) and at the hybrid's text side (the call
+  ``fused_search_device`` makes for the hybrid's first timed batch,
+  recorded with a small kNN plane beside the full text plane): the
+  wrapper's CUDA-event mean, the device time of each kernel it launches
+  (``torch.profiler``), blocks in the grid and blocks an SM (the
+  runtime's occupancy of the launch), valid postings and the bytes the
+  bound counts (``k9_work``); at (c) and (d) also the device time of each
+  kernel a dispatch over the mix's timed batches through ``serve_bool``.
+- K8 at the IVF route's shape (``ivf_plane``, the first query batch):
+  the wrapper's CUDA-event mean, its device time and its host time a
+  call (calls enqueued back to back, no synchronisation between them),
+  and the same three for the smoke's yardstick (the window's rows
+  gathered, then ``torch.bmm``), for ``kernels.build.launch`` alone and
+  for the C entry called straight through ``ctypes``.
+- ``--variants`` with ``k9``: the tree's ``csrc/bool_bm25_topk.cu`` (the
+  tile design) edited to leave out the adds (and so the eligibility
+  pass), the eligibility pass, the posting loads or the merge, to scan
+  every tile's cells, or with chunks of 2,048
+  postings, built and called through its C entry on each K9 input; and
+  this checkout's entry (with the stamps where built) with the plan at
+  tiles of 2,048, 4,096 and 8,192 docs.
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -201,21 +225,21 @@ def k6_cases(dev):
     torch.cuda.empty_cache()
 
 
-def build_variant(tree, name, edits, scratch):
-    """The tree's ``csrc/knn_scan.cu`` with ``edits`` (target, new; an empty
+def build_variant(tree, name, edits, scratch, source="knn_scan"):
+    """The tree's ``csrc/<source>.cu`` with ``edits`` (target, new; an empty
     target appends), built as a library; None when a target is missing."""
     from elasticsearch_tpu_torch.kernels import build as kb
     csrc = os.path.join(tree, "elasticsearch_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "knn_scan.cu")) as f:
+    with open(os.path.join(csrc, f"{source}.cu")) as f:
         src = f.read()
     if not all(old in src for old, _ in edits if old):
         return None
     for old, new in edits:
         src = src.replace(old, new) if old else src + new
-    path = os.path.join(scratch, f"knn_scan_{name}.cu")
+    path = os.path.join(scratch, f"{source}_{name}.cu")
     with open(path, "w") as f:
         f.write(src)
-    lib = os.path.join(scratch, f"knn_scan_{name}.so")
+    lib = os.path.join(scratch, f"{source}_{name}.so")
     subprocess.run([kb._nvcc(), *kb.NVCC_FLAGS, "-I", csrc, "-o", lib, path],
                    check=True, capture_output=True)
     return ctypes.CDLL(lib)
@@ -228,9 +252,7 @@ def run_k6(rows, reps, variants, tree):
     from elasticsearch_tpu_torch.ops import knn as knn_mod
     dev = torch.device("cuda")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    scratch = os.path.join(HERE, "elasticsearch_tpu_torch", "_build",
-                           "probe")
-    os.makedirs(scratch, exist_ok=True)
+    scratch = scratch_dir()
     with open(os.path.join(tree, "elasticsearch_tpu_torch", "csrc",
                            "knn_scan.cu")) as f:
         design = k6_design(f.read())
@@ -286,9 +308,353 @@ def run_k6(rows, reps, variants, tree):
         emit(rows, **row)
 
 
+#: appended to an unedited copy of a sparse_candidates_topk.cu that still
+#: holds K9 as K1's kBool variant: the occupancy of es_bool_bm25_topk's
+#: launch (the same shared-memory plan)
+K9_KBOOL_OCCUPANCY = """
+extern "C" int es_probe_k9_blocks_per_sm(int Q, int k) {
+  size_t shm = (size_t)K1_THREADS * 8 + (size_t)Q * 28 + 4;
+  const bool top_shared =
+      shm + (size_t)k * 8 <= (size_t)es_max_shared_bytes();
+  if (top_shared) shm += (size_t)k * 8;
+  auto kernel = top_shared ? sparse_candidates_topk_kernel<true, true>
+                           : sparse_candidates_topk_kernel<false, true>;
+  if (es_set_shared(kernel, shm) != 0) return 0;
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, K1_THREADS, shm);
+  return n;
+}
+"""
+
+
+def scratch_dir():
+    path = os.path.join(HERE, "elasticsearch_tpu_torch", "_build", "probe")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def k9_launch(tree, args, kw):
+    """(design, blocks in the grid, blocks an SM) of K9's launch on these
+    inputs: the tile design's plan and occupancy query, or the kBool
+    variant's one block per (query, shard) and its occupancy."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    B, S, Q = args[2].shape
+    k = kw["k"]
+    if os.path.exists(os.path.join(tree, "elasticsearch_tpu_torch", "csrc",
+                                   "bool_bm25_topk.cu")):
+        from elasticsearch_tpu_torch.ops.fused_query import \
+            bool_bm25_topk_plan
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = bool_bm25_topk_plan(kw["n_pad"], B, S, Q, kw["L"], k, n_sm)
+        per_sm = kb.query("bool_bm25_topk",
+                          "es_bool_bm25_topk_blocks_per_sm", Q, k,
+                          plan["tile_shift"], plan["edge_tiles"])
+        return "tiles", B * S * plan["G"], per_sm, plan
+    lib = build_variant(tree, "occupancy", [("", K9_KBOOL_OCCUPANCY)],
+                        scratch_dir(), source="sparse_candidates_topk")
+    fn = lib.es_probe_k9_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return "kBool", B * S, fn(Q, k), None
+
+
+#: text edits of the tile design's csrc/bool_bm25_topk.cu that leave one
+#: part out or change a size; a part left out keeps the others' work and
+#: every cell index inside its tile
+K9_VARIANTS = {
+    # the postings' adds into the tile cells
+    "no_adds": [("if (j < s1) {\n              d = sd[j - c0] - t0;",
+                 "if (j < 0) {\n              d = sd[j - c0] - t0;")],
+    # the eligibility tests and the top-k offers (the flags are cleared)
+    "no_elig": [("        for (int x = tid; x < n_doc; x += K9_THREADS) {\n"
+                 "          const int i = listed ? t_list[x] : x;\n",
+                 "        for (int x = tid; x < 0; x += K9_THREADS) {\n"
+                 "          const int i = listed ? t_list[x] : x;\n")],
+    # the postings' loads from device memory (the chunks are filled with
+    # in-range docs in shared memory instead)
+    "no_loads": [("    k9_cp4(sd + j, docs_s + p);\n    k9_cp4(sm + j, imps_s "
+                  "+ p);", "    sd[j] = p;\n    sm[j] = 1.0f;"),
+                 ("d = sd[j - c0] - t0;",
+                  "d = (sd[j - c0] - t0) & ((1 << tshift) - 1);")],
+    # the merge of the G lists
+    "no_merge": [("  k9_merge<<<", "  if (G < 0) k9_merge<<<")],
+    # every tile's cells scanned, none listed as they arrive
+    "scan_only": [("        const bool listed = tot < (T >> 2);",
+                   "        const bool listed = false;")],
+    # chunks of 2,048 postings
+    "stage2048": [("#define K9_STAGE 1024", "#define K9_STAGE 2048")],
+    # the full kernel with clock64() stamps: a block's cycles, those of its
+    # edge searches and list offsets, and of its waits for staged chunks
+    "phases": [
+        ("  int my_match = 0;\n",
+         "  int my_match = 0;\n"
+         "  long long dbg_t0 = clock64(), dbg_e = 0, dbg_wt = 0;\n"),
+        ("    const int wtile = tile0 + w0;\n",
+         "    const int wtile = tile0 + w0;\n"
+         "    const long long dbg_w = clock64();\n"),
+        ("    const int total = toff[nw];\n",
+         "    dbg_e += clock64() - dbg_w;\n    const int total = toff[nw];\n"),
+        ("      asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n"
+         "      __syncthreads();\n",
+         "      const long long dbg_x = clock64();\n"
+         "      asm volatile(\"cp.async.wait_group 1;\\n\" ::: \"memory\");\n"
+         "      __syncthreads();\n      dbg_wt += clock64() - dbg_x;\n"),
+        ("  if (tid == 0) out_count[o] = n_match;\n",
+         "  if (tid == 0) out_count[o] = n_match;\n"
+         "  if (tid == 0 && blockIdx.x < (1 << 14)) {\n"
+         "    k9_dbg[blockIdx.x * 3] = clock64() - dbg_t0;\n"
+         "    k9_dbg[blockIdx.x * 3 + 1] = dbg_e;\n"
+         "    k9_dbg[blockIdx.x * 3 + 2] = dbg_wt;\n  }\n"),
+        ("#define K9_THREADS 256\n",
+         "#define K9_THREADS 256\n__device__ long long k9_dbg[3 << 14];\n"
+         "extern \"C\" int es_probe_k9_phases(long long* out, int n) {\n"
+         "  return (int)cudaMemcpyFromSymbol(out, k9_dbg, n * 24);\n}\n")],
+}
+
+
+#: K9 at other tile sizes: the same source, the plan at 2^shift docs a tile
+K9_TILE_VARIANTS = {"tile2048": 11, "tile4096": 12, "tile8192": 13}
+
+
+def k9_entry_args(args, kw, n_sm, tile_shift=None):
+    """es_bool_bm25_topk's arguments (no stream) for the wrapper's call on
+    these inputs, with outputs and scratch allocated as the wrapper does
+    them (``tile_shift``: the plan at that tile size)."""
+    import torch
+    from elasticsearch_tpu_torch.ops import fused_query as fq
+    dev = args[0].device
+    S, P = args[0].shape
+    B, _, Q = args[2].shape
+    k, n_pad = kw["k"], kw["n_pad"]
+    saved = fq.BOOL_TILE_SHIFT, fq.BOOL_SPARSE_TILE_SHIFT
+    if tile_shift is not None:
+        fq.BOOL_TILE_SHIFT = fq.BOOL_SPARSE_TILE_SHIFT = tile_shift
+    try:
+        plan = fq.bool_bm25_topk_plan(n_pad, B, S, Q, kw["L"], k, n_sm)
+    finally:
+        fq.BOOL_TILE_SHIFT, fq.BOOL_SPARSE_TILE_SHIFT = saved
+    MAX_BOOL_CLAUSES = fq.MAX_BOOL_CLAUSES
+    G = plan["G"]
+    part = torch.empty(B * S * G * (2 * k + 1), dtype=torch.int32,
+                       device=dev)
+    out = torch.empty(B * S * (2 * k + 1), dtype=torch.int32, device=dev)
+    n_part, n_out = B * S * G * k, B * S * k
+    return [*(a.data_ptr() for a in args[:2]), P,
+            *(a.data_ptr() for a in args[2:]), B, S, Q, kw["L"], n_pad, k,
+            kw.get("nc", MAX_BOOL_CLAUSES), plan["tile_shift"],
+            plan["tiles_per_block"], plan["edge_tiles"], G, part.data_ptr(),
+            part.data_ptr() + 4 * n_part, part.data_ptr() + 8 * n_part,
+            out.data_ptr(), out.data_ptr() + 4 * n_out,
+            out.data_ptr() + 8 * n_out], (part, out)
+
+
+def k9_variant_ms(tree, args, kw, reps, libs):
+    """Each K9 variant's CUDA-event mean on these inputs ("not measured"
+    where its edit target is missing)."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    runs = [(name, lib, None) for name, lib in libs.items()]
+    # the tile sizes through the "phases" build where there is one, so
+    # that their blocks' cycles are read too
+    tiles_lib = libs.get("phases") or kb.library("bool_bm25_topk")
+    runs += [(name, tiles_lib, shift)
+             for name, shift in K9_TILE_VARIANTS.items()]
+    out = {}
+    for name, lib, shift in runs:
+        if lib is None:
+            out[name + "_ms"] = "not measured (edit target missing)"
+            continue
+        cargs, keep = k9_entry_args(args, kw, n_sm, shift)
+        fn = lib.es_bool_bm25_topk
+        fn.argtypes = kb._SIGNATURES["bool_bm25_topk"][1]
+        fn.restype = ctypes.c_int
+
+        def call():
+            err = fn(*cargs, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"K9 variant {name}: error {err}")
+        out[name + "_ms"] = cs.timed(call, reps)
+        if lib is libs.get("phases"):
+            out[name + "_phases"] = k9_phases(lib, cargs)
+        del keep
+    return out
+
+
+def k9_phases(lib, cargs):
+    """The "phases" variant's clock64() stamps of its last call: the mean
+    and largest block's cycles, and the mean cycles of a block's edges and
+    list offsets and of its waits for staged chunks, by the card's clock
+    rate (torch reports no SM clock: nvidia-smi's, read here)."""
+    import torch
+    B, S, G = cargs[11], cargs[12], cargs[21]
+    nb = min(B * S * G, 1 << 14)
+    buf = (ctypes.c_longlong * (3 * nb))()
+    torch.cuda.synchronize()
+    if lib.es_probe_k9_phases(buf, nb):
+        return "not measured (copy failed)"
+    a = np.frombuffer(buf, dtype=np.int64).reshape(nb, 3).astype(np.float64)
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.split()
+    return dict(blocks=nb, cycles_mean=a[:, 0].mean(),
+                cycles_max=a[:, 0].max(), edges_mean=a[:, 1].mean(),
+                waits_mean=a[:, 2].mean(),
+                sm_clock_mhz=clk[0] if clk else "not read")
+
+
+def k9_row(rows, tree, label, plane, args, kw, reps, libs):
+    """One K9 reading: the wrapper's mean, its device time by kernel, the
+    launch's grid and occupancy, the work the bound counts, and the
+    variants' means."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops.fused_query import bool_bm25_topk
+
+    def call():
+        return bool_bm25_topk(*args, **kw)
+    ms = cs.timed(call, reps)
+    variants = k9_variant_ms(tree, args, kw, reps, libs) if libs else {}
+    by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+    design, grid, per_sm, plan = k9_launch(tree, args, kw)
+    nbytes, nops, n_post, n_owner = cs.k9_work(plane, args, kw["k"])
+    B, S, Q = args[2].shape
+    emit(rows, kernel="bool_bm25_topk", what=label, design=design, B=B, S=S,
+         Q=Q, L=kw["L"], k=kw["k"], n_pad=kw["n_pad"], grid=grid,
+         blocks_per_sm=per_sm, plan=plan, valid_postings=n_post,
+         candidates=n_owner, bound_bytes=nbytes, ms=ms,
+         device_ms=sum(by_name.values()), by_name=by_name,
+         bound_ms=cs.bound(nbytes, nops)[0], **variants)
+
+
+def run_k9(rows, reps, tree, variants):
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedKnnPlane, DistributedSearchPlane, fused_search_device)
+    dev = torch.device("cuda")
+    libs = {}
+    if variants and os.path.exists(os.path.join(
+            tree, "elasticsearch_tpu_torch", "csrc", "bool_bm25_topk.cu")):
+        libs = {name: build_variant(tree, name, edits, scratch_dir(),
+                                    source="bool_bm25_topk")
+                for name, edits in K9_VARIANTS.items()}
+    _rng, corpus, plane, _cs, _ps = cs.prune_plane(dev)
+    mixes, _extra, _draw = cs.bool_traffic(corpus)
+    k9_reps = max(reps // 4, 1)
+    for m, batches in mixes.items():
+        prep = plane.prepare_bool(batches[1])
+        args = cs.bool_args(prep["args"])
+        kw = dict(n_pad=plane.n_pad, L=prep["L"], k=min(cs.K, plane.n_pad))
+        k9_row(rows, tree, f"bool mix ({m}), checked batch", plane, args,
+               kw, k9_reps, libs)
+        # the device time a dispatch over the mix's timed batches
+        calls = []
+        with cs.recording(calls, ("bool_bm25_topk",)):
+            plane.serve_bool(batches[0], k=cs.K)
+
+            def serve_all():
+                for b in batches[1:]:
+                    plane.serve_bool(b, k=cs.K)
+            by_name = cs.device_ms_by_name(serve_all, 1)
+        n_disp = len(batches) - 1
+        Ls = [kw2["L"] for _n, _a, kw2, _o in calls[1:]]
+        emit(rows, kernel="bool_bm25_topk",
+             what=f"bool mix ({m}), serve_bool over the timed batches",
+             dispatches=n_disp, L_by_dispatch=Ls,
+             by_name_per_dispatch={n: v / n_disp for n, v in by_name.items()})
+    del plane, corpus
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(1234)
+    corpus = cs.hybrid_corpus(rng, cs.HY_DOCS)
+    tplane = DistributedSearchPlane([corpus], "body", device=dev)
+    batches, _el, _p, _dense = cs.hybrid_traffic(rng, corpus, tplane,
+                                                 cs.HY_DIM)
+    # the text side's inputs do not depend on the kNN plane's rows
+    kplane = DistributedKnnPlane(
+        [dict(vectors=np.ones((4 * cs.HY_WINDOW, cs.HY_DIM), np.float32))],
+        similarity="dot_product", device=dev)
+    calls = []
+    with cs.recording(calls, ("bool_bm25_topk",)):
+        fused_search_device(tplane, kplane, batches[1], fusion="rrf")
+    (_n, args, kw, _o), = calls
+    k9_row(rows, tree, "hybrid text side, first timed batch", tplane,
+           list(args), kw, reps, libs)
+    del tplane, kplane, corpus
+    torch.cuda.empty_cache()
+
+
+def host_ms(fn, reps):
+    """Host ms a call of ``fn``, enqueued back to back (no synchronisation
+    between calls; one after a warm-up and at the end)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def run_k8(rows, reps):
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.knn import (ivf_rerank, ivf_scan,
+                                                 window_rows)
+    dev = torch.device("cuda")
+    _corpus, plane, _g, _p, q_batch = cs.ivf_plane(dev)
+    a, R, _pw, qq, qn, scan_in, scan_kw = cs.ivf_step_inputs(plane,
+                                                             q_batch())
+    wv, wp = ivf_scan(*scan_in, **scan_kw, nlist=plane.ivf.nlist, r_cand=R)
+    rr_in = (wv, wp, a["u_blocks"], a["rowid"], a["vecs"], a["vnorm2"], qq,
+             qn)
+    n_pad = plane.n_pad
+    safe = window_rows(wp, a["u_blocks"], a["rowid"]).clamp(
+        0, n_pad - 1).long()[:, 0]
+    vec0 = a["vecs"][0]
+    # the wrapper's launch alone (outputs allocated, no checks) and its C
+    # entry called straight through ctypes: the host's share of each layer
+    B, S = wv.shape[:2]
+    out = torch.empty((2, B, S, R), dtype=torch.int32, device=dev)
+    cargs = (wv.data_ptr(), wp.data_ptr(), a["u_blocks"].data_ptr(),
+             a["rowid"].data_ptr(), a["vecs"].data_ptr(),
+             a["vnorm2"].data_ptr(), qq.data_ptr(), qn.data_ptr(), B, S, R,
+             a["u_blocks"].shape[1], a["rowid"].shape[1],
+             a["rowid"].shape[2], n_pad, a["vecs"].shape[2], 0,
+             out[0].data_ptr(), out[1].data_ptr())
+    entry = kb.library("ivf_rerank").es_ivf_rerank
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "ivf_rerank": lambda: ivf_rerank(*rr_in, l2=False, n_pad=n_pad),
+        "yardstick (gather + torch.bmm)":
+            lambda: torch.bmm(vec0[safe], qq[:, :, None]),
+        "ivf_rerank: kernels.build.launch alone":
+            lambda: kb.launch("ivf_rerank", dev, *cargs),
+        "ivf_rerank: the C entry alone (ctypes)":
+            lambda: entry(*cargs, stream)}
+    live = int(torch.isfinite(wv).sum())
+    # the times first: a profiler session may slow the launches after it
+    got = {name: dict(ms=cs.timed(fn, 5 * reps),
+                      host_ms=host_ms(fn, 5 * reps))
+           for name, fn in calls.items()}
+    for name, fn in calls.items():
+        by_name = cs.device_ms_by_name(fn, reps)
+        emit(rows, kernel="ivf_rerank", what=name, B=B, S=S, R=R,
+             D=a["vecs"].shape[2], live_entries=live, **got[name],
+             device_ms=sum(by_name.values()), by_name=by_name)
+    del plane
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
+    p.add_argument("--kernels", default="k16,k6,k9,k8",
+                   help="comma-separated: which of k16, k6, k9, k8 to probe")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -307,8 +673,15 @@ def main() -> int:
     t0 = time.perf_counter()
     emit(rows, tree=tree, card=card_info(),
          build_s=kb.build_all())
-    run_k16(rows, opts.reps)
-    run_k6(rows, opts.reps, opts.variants, tree)
+    which = set(opts.kernels.split(","))
+    if "k16" in which:
+        run_k16(rows, opts.reps)
+    if "k6" in which:
+        run_k6(rows, opts.reps, opts.variants, tree)
+    if "k9" in which:
+        run_k9(rows, opts.reps, tree, opts.variants)
+    if "k8" in which:
+        run_k8(rows, opts.reps)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

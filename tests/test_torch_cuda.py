@@ -16,8 +16,9 @@ from elasticsearch_tpu_torch.kernels import build as kb
 from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
                                                   blockmax_scan_plain)
 from elasticsearch_tpu_torch.ops.fused_query import (
-    bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
-    bool_bm25_topk_plain, fuse_rank, fuse_rank_plain, rescore_reorder,
+    BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, bisect_exact_scores,
+    bisect_exact_scores_plain, bool_bm25_topk, bool_bm25_topk_plain,
+    bool_bm25_topk_plan, fuse_rank, fuse_rank_plain, rescore_reorder,
     rescore_reorder_body)
 from elasticsearch_tpu_torch.ops.knn import (
     ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, knn_shard_scan,
@@ -676,6 +677,167 @@ def test_k9_bitwise_equals_plain(cuda, seed, S, L, n_pad, k):
     assert fin[0].any() and (v[0][fin[0]] == 0.0).all()   # filter-only
     assert not fin[3].any()                                # a must, no slot
     assert fin[2].any()                                    # msm 2, shared
+
+
+def _k9_tile_case(seed, S, n_pad, shift):
+    """K9 inputs over runs placed on the edges of tiles of 2^shift docs,
+    for ``bool_case``'s eight trees of six slots: a run across many tile
+    edges, starting and ending mid-tile; docs on both sides of every tile
+    edge and at n_pad - 1; a dense run over the edge of four tiles; a run
+    whose valid prefix ends in docs at and past n_pad; a random run; at
+    the plan's dense tile size a run of every third doc; and, last in the
+    table, the longest run (the runs sit in order of length), which a
+    slot whose start lies past P - L reads whole (the start clamps). Slots
+    pick runs at random; some are empty; query 2's slots 1 and 2 read one
+    run; one slot starts below 0 (clamped to the first run). Returns
+    (args, L)."""
+    T = 1 << shift
+    rng = np.random.RandomState(seed)
+    _, bq = bool_case(seed, S=S)
+    runs = [np.arange(T - 3, min(9 * T + 5, n_pad), 3),
+            np.unique(np.r_[np.arange(0, n_pad, T),
+                            np.arange(T - 1, n_pad, T), n_pad - 1]),
+            np.arange(max(4 * T - 100, 0), min(4 * T + 100, n_pad)),
+            np.r_[np.arange(5, min(3000, n_pad), 7), n_pad, n_pad + 5],
+            np.sort(rng.choice(n_pad, size=min(5000, n_pad // 2),
+                               replace=False)),
+            np.arange(1, n_pad, 97)]
+    if shift == BOOL_TILE_SHIFT:
+        runs.append(np.arange(0, n_pad, 3))
+    runs = sorted((np.asarray(r, np.int32) for r in runs), key=len)
+    lens = np.asarray([r.size for r in runs], np.int32)
+    st = np.r_[0, np.cumsum(lens)[:-1]].astype(np.int32)
+    L = int(lens.max())
+    flat = np.concatenate(runs)
+    P = flat.size
+    docs = np.tile(flat, (S, 1))
+    imps = rng.choice(np.array([0.5, 0.75, 1.0, 1.25, 1.5], np.float32),
+                      size=(S, P))
+    B, Q = bq["cbits"].shape
+    pick = rng.randint(0, len(runs), size=(B, S, Q))
+    starts, lengths = st[pick], lens[pick]
+    lengths[rng.rand(B, S, Q) < 0.15] = 0
+    starts[2, :, 2], lengths[2, :, 2] = starts[2, :, 1], lengths[2, :, 1]
+    starts[5, :, 0], lengths[5, :, 0] = P + 5, L
+    starts[6, :, 3], lengths[6, :, 3] = -7, lens[0]
+    args = [docs, imps, starts, lengths] + [
+        bq[n] for n in ("idfw", "cbits", "req", "neg", "shd", "msm")]
+    return args, L
+
+
+@pytest.mark.parametrize("seed,S,n_pad,k,shift,tiles", [
+    # sparse slots (tiles of 2^12 docs): 20 blocks of 13 tiles a query at
+    # k = 200, 43 blocks of 6 at S = 3, merged
+    (1, 1, 1 << 20, 200, BOOL_SPARSE_TILE_SHIFT, (20, 13)),
+    (2, 3, 1 << 20, 10, BOOL_SPARSE_TILE_SHIFT, (43, 6)),
+    # dense slots (tiles of 2^11 docs): 128 blocks of 4 tiles a query
+    (5, 1, 1 << 20, 10, BOOL_TILE_SHIFT, (128, 4)),
+    # k = 30,000: one block a (query, shard), its list in device memory
+    (3, 1, 1 << 15, 30000, BOOL_TILE_SHIFT, (1, 16)),
+    # n_pad not a multiple of the tile
+    (4, 2, 3 * (1 << BOOL_TILE_SHIFT) + 1234, 10, BOOL_TILE_SHIFT,
+     (4, 1))])
+def test_k9_tile_and_range_edges_bitwise_equal_plain(cuda, seed, S, n_pad, k,
+                                                     shift, tiles):
+    """K9 over runs on its tiles' and ranges' edges (``_k9_tile_case``),
+    with the plan's tile size, G and tiles a block as stated, against its
+    plain version, bitwise, one launch a call."""
+    args, L = _k9_tile_case(seed, S, n_pad, shift)
+    args = [_t(a, cuda) for a in args]
+    B, _, Q = args[2].shape
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = bool_bm25_topk_plan(n_pad, B, S, Q, L, k, n_sm)
+    assert plan["tile_shift"] == shift
+    if n_sm == 132:
+        assert (plan["G"], plan["tiles_per_block"]) == tiles
+    n0 = kb.launches["bool_bm25_topk"]
+    got = bool_bm25_topk(*args, n_pad=n_pad, L=L, k=k)
+    assert kb.launches["bool_bm25_topk"] == n0 + 1
+    want = bool_bm25_topk_plain(*args, n_pad=n_pad, L=L, k=k)
+    torch.cuda.synchronize()
+    _same(got, want)
+    assert (got[2].cpu().numpy() > 0).any()
+
+
+@pytest.mark.parametrize("seed,S,L,n_pad,k", [
+    # every tree of bool_case over 2^17 and 2^18 docs: 16 to 32 blocks a
+    # (query, shard)
+    (5, 3, 2000, 1 << 18, 200), (6, 1, 6000, 1 << 18, 10),
+    (7, 2, 20000, 1 << 17, 100)])
+def test_k9_bool_case_over_many_blocks_bitwise_equals_plain(cuda, seed, S, L,
+                                                            n_pad, k):
+    """Every query of ``bool_case`` (a filter-only tree, must + should +
+    must_not, msm 2 over a shared term, a must with no slot, random
+    trees) with more than one block a (query, shard), bitwise."""
+    c, bq = bool_case(seed, S=S, L=L, n_pad=n_pad)
+    args = [_t(c[n], cuda) for n in ("docs", "imps", "starts", "lengths")] \
+        + [_t(bq[n], cuda) for n in ("idfw", "cbits", "req", "neg", "shd",
+                                     "msm")]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bool_bm25_topk_plan(n_pad, 8, S, 6, L, k, n_sm)["G"] > 1
+    n0 = kb.launches["bool_bm25_topk"]
+    got = bool_bm25_topk(*args, n_pad=n_pad, L=L, k=k)
+    assert kb.launches["bool_bm25_topk"] == n0 + 1
+    want = bool_bm25_topk_plain(*args, n_pad=n_pad, L=L, k=k)
+    torch.cuda.synchronize()
+    _same(got, want)
+    v = got[0].cpu().numpy()
+    fin = np.isfinite(v)
+    assert fin[0].any() and (v[0][fin[0]] == 0.0).all()   # filter-only
+    assert not fin[3].any()                                # a must, no slot
+
+
+def _k8_case(seed, *, S, n_pad, D, B, R):
+    """K8 inputs built directly: a window of R entries a (query, shard),
+    some at −inf (some of those past the union); union blocks, row ids
+    (some the padding row ``n_pad``), rows (two of them equal)."""
+    rng = np.random.RandomState(seed)
+    blk, P, NB1 = 16, 12, 20
+    wv = rng.randn(B, S, R).astype(np.float32)
+    wv[rng.rand(B, S, R) < 0.2] = -np.inf
+    wp = rng.randint(0, P * blk, size=(B, S, R)).astype(np.int32)
+    wp[np.isneginf(wv) & (rng.rand(B, S, R) < 0.3)] = P * blk + 3
+    ub = rng.randint(0, NB1, size=(S, P)).astype(np.int32)
+    rowid = rng.randint(0, n_pad, size=(S, NB1, blk)).astype(np.int32)
+    rowid[:, -1] = n_pad
+    vecs = rng.randn(S, n_pad, D).astype(np.float32)
+    vecs[:, 3] = vecs[:, 5]
+    q = rng.randn(B, D).astype(np.float32)
+    return wv, wp, ub, rowid, vecs, q
+
+
+@pytest.mark.parametrize("R,D,misaligned", [
+    (37, 64, False), (40, 30, False), (9, 33, False), (37, 64, True),
+    (41, 768, False), (3, 768, True)])
+@pytest.mark.parametrize("l2", [False, True])
+def test_k8_matches_plain_at_odd_shapes(cuda, R, D, misaligned, l2):
+    """K8 against its plain version with R not a multiple of a block's
+    entries, D not a multiple of 4, rows not 16-byte aligned and D = 768:
+    rows equal, scores within the parity bar (the plain einsum sums in
+    another order), one launch a call."""
+    S, n_pad, B = 2, 64, 5
+    wv, wp, ub, rowid, vecs, q = _k8_case(R + D, S=S, n_pad=n_pad, D=D, B=B,
+                                          R=R)
+    v = _t(vecs, cuda)
+    if misaligned:
+        buf = torch.empty(v.numel() + 1, device=cuda)
+        buf[1:] = v.reshape(-1)
+        v = buf[1:].view(S, n_pad, D)
+        assert v.data_ptr() % 16
+    ins = (_t(wv, cuda), _t(wp, cuda), _t(ub, cuda), _t(rowid, cuda), v,
+           (v * v).sum(-1), _t(q, cuda), _t((q * q).sum(1), cuda))
+    n0 = kb.launches["ivf_rerank"]
+    ex, rows = ivf_rerank(*ins, l2=l2, n_pad=n_pad)
+    assert kb.launches["ivf_rerank"] == n0 + 1
+    ex_p, rows_p = ivf_rerank_plain(*ins, l2=l2, n_pad=n_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, rows_p)
+    e, ep = ex.cpu().numpy(), ex_p.cpu().numpy()
+    assert np.array_equal(np.isfinite(e), np.isfinite(ep))
+    f = np.isfinite(e)
+    assert f.any() and not f.all()
+    tol = knn_tol(q, vecs, "l2_norm" if l2 else "dot_product")
+    np.testing.assert_allclose(e[f], ep[f], rtol=0.0, atol=tol)
 
 
 @pytest.mark.parametrize("fusion", ["rrf", "sum"])
