@@ -54,9 +54,12 @@ times its size). Phases, each fatal on failure:
    plain versions, and K3 exact, on one batch of each traffic mix; each
    mix driven through ``serve`` with its launch counts zeroed before and
    read after (K4, K5 and K3 on every pruned dispatch, K1 iff a query was
-   unsafe); pruned == eager on three batches of the benchmark mix; three
-   queries of each mix against the exact reference; K1 against its plain
-   version at the eager fallback's shape; K4's and K5's times;
+   unsafe); pruned == eager on three batches of each mix (the benchmark
+   mix (a), whose queries K1 re-serves, and mix (b), whose certified
+   queries come from K4's survivors through K5 and K3); three queries of
+   each mix against the exact reference; K1 against its plain version at
+   the eager fallback's shape, its time beside its bound and plain
+   version; K4's and K5's times;
 7. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
    pruned phase's plane, batches of 16 at k = 10 in two mixes: (c) one
    8-term should clause (``bench_bool_disjunction``'s draws), (d) must /
@@ -135,8 +138,9 @@ times its size). Phases, each fatal on failure:
     p50/p99, the analytics' wall split (frame load, standardise, kernel,
     tail, write), each kernel's time beside its bound, plain version and
     library call;
-13. a comment line with K16's, K6's, K9's and K8's times before their
-    redesign (from PERF.md's kernel table, not measured in this run),
+13. a comment line with K16's, K6's, K9's, K8's, K1's and K4's times
+    before their redesign (from PERF.md's kernel table, not measured in
+    this run),
     the ``kernels``
     JSON line, the whole run's seconds, the card line, and the final
     status line.
@@ -387,6 +391,35 @@ def check_kernels(plane, queries, shape, label):
                 n_tiles=n_tiles, k2_err=k2_err, k1_err=k1_err, k3_err=k3_err)
 
 
+def k1_work(plane, a, k):
+    """Bytes and f32 operations K1 needs on one call's inputs ``a`` (a
+    ``prepare`` dispatch's arguments): each valid posting read once (doc
+    and impact, 8 bytes), 2 bytes a dense-tier value gathered (one a
+    candidate and weighted slot), the k best and the count written.
+    Operations: a product a posting, an add a posting past a doc's
+    first, a product and an add a gathered value, the final add a
+    candidate. Returns (bytes, operations, valid postings, candidates)."""
+    lens = a["lengths"].cpu().numpy()
+    starts = np.clip(a["starts"].cpu().numpy(), 0, None)
+    dw = a.get("dense_w")
+    dw = None if dw is None or a.get("dense") is None else dw.cpu().numpy()
+    B, S, Q = lens.shape
+    n_post = int(lens.sum())
+    owner_slots = n_owner = 0
+    for s in range(S):
+        pdocs = plane.docs_dev[s].cpu().numpy()
+        for b in range(B):
+            runs = [pdocs[starts[b, s, q]: starts[b, s, q] + lens[b, s, q]]
+                    for q in range(Q) if lens[b, s, q]]
+            own = int(np.unique(np.concatenate(runs)).size) if runs else 0
+            n_owner += own
+            if dw is not None:
+                owner_slots += own * int((dw[b, s] > 0).sum())
+    nbytes = 8 * n_post + 2 * owner_slots + 8 * B * S * k + 4 * B * S
+    flops = n_post + 2 * (n_post - n_owner) + 2 * owner_slots + n_owner
+    return nbytes, flops, n_post, n_owner
+
+
 def check_against_exact(corpus, plane, queries, vals, hits, totals, label):
     """The first ``REF_QUERIES`` queries' hits against the numpy exact
     reference: min(k, matching docs) hits, scores within REF_RTOL, docs
@@ -556,22 +589,8 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
                                     main["k1_kw"], main["k3_calls"])
     a = prep["args"]
     W, dense, u_ids = a["W"], a["dense"], a["u_ids"]
-    lens = a["lengths"].cpu().numpy()
-    starts = a["starts"].cpu().numpy()
-    pdocs = plane.docs_dev[0].cpu().numpy()
-    dw = a["dense_w"].cpu().numpy()
-    n_post = int(lens.sum())
-    owner_slots = 0
-    n_owner = 0
-    for b in range(lens.shape[0]):
-        runs = [pdocs[starts[b, 0, q]: starts[b, 0, q] + lens[b, 0, q]]
-                for q in range(lens.shape[2]) if lens[b, 0, q]]
-        own = np.unique(np.concatenate(runs)).size if runs else 0
-        n_owner += own
-        owner_slots += own * int((dw[b, 0] > 0).sum())
-    B_, S_ = lens.shape[0], lens.shape[1]
-    k1_bytes = 8 * n_post + 2 * owner_slots + 8 * B_ * S_ * K + 4 * B_ * S_
-    k1_flops = n_post + 2 * (n_post - n_owner) + 2 * owner_slots + n_owner
+    k1_bytes, k1_flops, n_post, n_owner = k1_work(plane, a, K)
+    B_, S_ = a["lengths"].shape[:2]
     Wn = W.cpu().numpy()
     rows_used = int(sum(np.count_nonzero(np.any(Wn[:, s] != 0, axis=0))
                         for s in range(S_)))
@@ -898,27 +917,39 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
               f"({n_pruned} pruned): {c}", flush=True)
 
     # ---- rank safety as the benchmark asserts it, exact reference ---------
-    t_pruned = t_eager = 0.0
-    for qs in mixes["a"][1:1 + SAFETY_BATCHES]:
-        t0 = time.perf_counter()
-        pv, ph, pt = plane.serve(qs, k=K, with_totals=True)
-        t1 = time.perf_counter()
-        ev, eh, et = plane.serve(qs, k=K, with_totals=True, prune=False)
-        t_eager += time.perf_counter() - t1
-        t_pruned += t1 - t0
-        if not (same_bits(torch.from_numpy(np.asarray(pv)),
-                          torch.from_numpy(np.asarray(ev))) and ph == eh):
-            fail("rank safety: pruned != eager on a batch of mix (a)")
-        for p, e in zip(pt, et):
-            if not (total_value(p) == e or (total_is_lower_bound(p)
-                                            and total_value(p) <= e)):
-                fail(f"rank safety: pruned total {p} vs eager {e}")
-    n_q = SAFETY_BATCHES * PRUNE_BATCH
-    print(f"# rank safety: pruned == eager on {SAFETY_BATCHES} batches of "
-          f"mix (a) (values bitwise, hits equal, totals exact or gte lower "
-          f"bounds); on these batches, with totals, pruned "
-          f"{n_q / t_pruned:.1f} q/s, eager (serve(prune=False)) "
-          f"{n_q / t_eager:.1f} q/s [{card}]", flush=True)
+    # mix (a)'s queries are all unsafe (K1 re-serves them); mix (b)'s safe
+    # ones come from K4's survivors through K5 and K3
+    for m in ("a", "b"):
+        t_pruned = t_eager = 0.0
+        n_safe = 0
+        for qs in mixes[m][1:1 + SAFETY_BATCHES]:
+            st = {}
+            t0 = time.perf_counter()
+            pv, ph, pt = plane.serve(qs, k=K, with_totals=True, stages=st)
+            t1 = time.perf_counter()
+            ev, eh, et = plane.serve(qs, k=K, with_totals=True,
+                                     prune=False)
+            t_eager += time.perf_counter() - t1
+            t_pruned += t1 - t0
+            n_safe += len(qs) - st["unsafe"]
+            if not (same_bits(torch.from_numpy(np.asarray(pv)),
+                              torch.from_numpy(np.asarray(ev)))
+                    and ph == eh):
+                fail(f"rank safety: pruned != eager on a batch of mix ({m})")
+            for p, e in zip(pt, et):
+                if not (total_value(p) == e or (total_is_lower_bound(p)
+                                                and total_value(p) <= e)):
+                    fail(f"rank safety: pruned total {p} vs eager {e}")
+        n_q = SAFETY_BATCHES * PRUNE_BATCH
+        if m == "b" and n_safe == 0:
+            fail("rank safety: no query of mix (b) was certified, so K4's "
+                 "survivors were never held against the eager step")
+        print(f"# rank safety: pruned == eager on {SAFETY_BATCHES} batches "
+              f"of mix ({m}) (values bitwise, hits equal, totals exact or "
+              f"gte lower bounds), {n_safe} of {n_q} queries served by K4 "
+              f"-> K5 -> K3; on these batches, with totals, pruned "
+              f"{n_q / t_pruned:.1f} q/s, eager (serve(prune=False)) "
+              f"{n_q / t_eager:.1f} q/s [{card}]", flush=True)
     for m, qs in mixes.items():
         _, _, totals = plane.serve(qs[1][:REF_QUERIES], k=K,
                                    with_totals=True)
@@ -938,6 +969,8 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
         k1_kw = dict(n_pad=plane.n_pad, L=Lf, k=K)
         got = sparse_candidates_topk(*k1_in, **k1_kw)
         k1_err = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         for j in range(0, len(bad), FALLBACK_CHUNK):
             part = [x[j:j + FALLBACK_CHUNK].contiguous() for x in k1_in[2:]]
             want = sparse_candidates_topk_plain(*k1_in[:2], *part, **k1_kw)
@@ -946,14 +979,21 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
                 fail("K1 differs from its plain version at the fallback "
                      "shape")
             k1_err = max(k1_err, max_abs_err(zip(mine, want)))
-        k1_ms = timed(lambda: sparse_candidates_topk(*k1_in, **k1_kw), 3)
-        n_post = int(fa["lengths"].sum())
-        k1_fallback = dict(B=len(bad), Q=Qf, L=Lf, ms=k1_ms, postings=n_post,
-                           err=k1_err)
+        # the plain version's time over all the unsafe queries, in chunks
+        # (its sort of Q·L candidates a query would not fit at once), with
+        # the comparisons
+        k1_plain = (time.perf_counter() - t0) * 1e3
+        k1_ms = timed(lambda: sparse_candidates_topk(*k1_in, **k1_kw), reps)
+        nb, nf, n_post, n_owner = k1_work(plane, fa, K)
+        bms, bby = bound(nb, nf)
+        k1_fallback = dict(B=len(bad), Q=Qf, L=Lf, ms=k1_ms,
+                           plain_ms=k1_plain, bound_ms=bms, bound_by=bby,
+                           postings=n_post, candidates=n_owner, err=k1_err)
         print(f"# K1 at the fallback shape (B={len(bad)} unsafe queries of "
               f"the checked batch, Q={Qf}, L={Lf}, {n_post} valid "
-              f"postings): {k1_ms:.3f} ms; == plain on all {len(bad)} "
-              f"(bitwise) [{card}]", flush=True)
+              f"postings, {n_owner} candidates): {k1_ms:.4f} ms (bound "
+              f"{bms:.5f} ms by {bby}), plain {k1_plain:.1f} ms; == plain "
+              f"on all {len(bad)} (bitwise) [{card}]", flush=True)
 
     # ---- K4 and K5 times, each mix's checked batch -------------------------
     rows = {"blockmax_scan": {}, "bisect_exact_scores": {}}
@@ -1005,7 +1045,11 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
         out.append(dict(name=name, route="cuda", source=src, replaces=repl,
                         max_abs_err=err, **rows[name]["a"],
                         library_ms=None,
-                        ms_by_mix={m: r["ms"] for m, r in rows[name].items()}))
+                        ms_by_mix={m: r["ms"] for m, r in rows[name].items()},
+                        plain_ms_by_mix={m: r["plain_ms"]
+                                         for m, r in rows[name].items()},
+                        bound_ms_by_mix={m: r["bound_ms"]
+                                         for m, r in rows[name].items()}))
     errs = dict(k3_err=max(ck["k3_err"] for ck in chk.values()),
                 k1_err=k1_fallback["err"] if k1_fallback else 0.0)
     return (out, {f"pruned_{m}": c for m, c in counts.items()}, k1_fallback,
@@ -1734,7 +1778,7 @@ def k9_device_ms(call, n_disp):
     by = device_ms_by_name(call, 1)
     if not by:
         fail("torch.profiler recorded no device event")
-    return sum(v for name, v in by.items() if "k9_" in name) / n_disp
+    return sum(v for name, v in by.items() if "K9Bool" in name) / n_disp
 
 
 def k11_work(args, k):
@@ -2233,10 +2277,18 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     k3_plain = timed(lambda: [topk_merge_plain(*a, **kw) for a, kw in k3], 3)
     k3_b = bound(sum(8 * a[0].numel() + 8 * a[0].shape[0] * kw["k"]
                      for a, kw in k3), 0)
+
+    def k3_library():
+        # torch.topk over the same rows ([a | b] where a call merges two)
+        for a, kw in k3:
+            b = a[2] if len(a) > 2 else kw.get("b_vals")
+            v = a[0] if b is None else torch.cat([a[0], b], 1)
+            torch.topk(v, min(kw["k"], v.shape[1]), dim=1)
+    k3_lib = timed(k3_library, reps)
     print(f"# topk_merge, the hybrid step's {len(k3)} calls: {k3_ms:.4f} ms "
-          f"(bound {k3_b[0]:.5f} ms by {k3_b[1]}), plain {k3_plain:.3f} ms "
-          f"[{card}]", flush=True)
-    out["k3"] = dict(ms=k3_ms, err=k3_err)
+          f"(bound {k3_b[0]:.5f} ms by {k3_b[1]}), plain {k3_plain:.3f} ms, "
+          f"library (torch.topk) {k3_lib:.4f} ms [{card}]", flush=True)
+    out["k3"] = dict(ms=k3_ms, err=k3_err, library_ms=k3_lib)
     kernels = []
     for name, (a, kw), src, repl, what in (
             ("fuse_rank", (k10a, k10k), "fuse_rank.cu",
@@ -2714,7 +2766,11 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K9 bool_bm25_topk at (d)": 163.8216,
               "K9 bool_bm25_topk on the hybrid": 7.5450,
               "K8 ivf_rerank at its first port": 0.0396,
-              "K8 ivf_rerank in the last run before its redesign": 0.0414}
+              "K8 ivf_rerank in the last run before its redesign": 0.0414,
+              "K1 sparse_candidates_topk at mix (a)'s fallback": 39.454,
+              "K1 sparse_candidates_topk at the headline": 0.7447,
+              "K4 blockmax_scan at (a)": 6.9981,
+              "K4 blockmax_scan at (b)": 0.7226}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -3830,6 +3886,9 @@ def main() -> int:
                                     k3_knn, k3_ivf, hy_times["k3"]["err"])
             kd["ms_by_path"] = {"search": kd["ms"],
                                 "hybrid": hy_times["k3"]["ms"]}
+            kd["library_ms_by_path"] = {
+                "search": kd["library_ms"],
+                "hybrid": hy_times["k3"]["library_ms"]}
         if kd["name"] == "knn_scan":
             kd["max_abs_err"] = max(kd["max_abs_err"], hy_times["k6"]["err"])
             kd["hybrid"] = dict(ms=hy_times["k6"]["ms"],
@@ -3850,7 +3909,9 @@ def main() -> int:
         by_path.setdefault("serve", 0)
         kd["launches"] = sum(by_path.values())
         if kd["name"] == "sparse_candidates_topk" and k1_fallback:
-            kd["fallback_ms"] = k1_fallback["ms"]
+            kd["fallback"] = {key: k1_fallback[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "postings",
+                "candidates")}
     print(f"# total {time.perf_counter() - t0:.1f} s")
     print("# before the redesign (PERF.md's kernel table, not measured in "
           "this run): " + ", ".join(f"{k} {v} ms"

@@ -60,11 +60,12 @@ _F = ctypes.c_float
 #: C signatures: pointers and the stream are void*, sizes int
 _SIGNATURES = {
     # docs, imps, P, starts, lengths, idfw, dense, rid, dw, u_ids,
-    # B, S, Q, L, n_pad, k, msm, n_blk, T, C, U, out_vals, out_docs,
-    # out_count, stream
+    # B, S, Q, L, n_pad, k, msm, n_blk, T, C, U, tshift, tpb, W, G,
+    # part_vals, part_docs, part_count, out_vals, out_docs, out_count,
+    # stream
     "sparse_candidates_topk": (
         "es_sparse_candidates_topk",
-        [_P, _P, _I] + [_P] * 7 + [_I] * 11 + [_P] * 4),
+        [_P, _P, _I] + [_P] * 7 + [_I] * 15 + [_P] * 7),
     # W, dense, u_ids, B, S, U, n_blk, T, C, n_pad, k, msm, docs_per_tile,
     # n_tiles, part_vals, part_docs, n_matched, stream
     "dense_stream_topk": (
@@ -82,11 +83,11 @@ _SIGNATURES = {
         "es_topk_merge",
         [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 5),
     # t_docs, t_codes, t_scale, t_off, NB1, BS, sched, w, rho, slack, B, S,
-    # P, n_pad, NB, W, R, kq_idx, prune_active, acc, out_ci, out_cv,
-    # out_counts, stream
+    # P, n_pad, NB, W, R, kq_idx, prune_active, G, acc, part, out_ci,
+    # out_cv, out_counts, stream
     "blockmax_scan": (
         "es_blockmax_scan",
-        [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 9 + [_P] * 5),
+        [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 10 + [_P] * 6),
     # docs, imps, P, starts, lengths, idfw, cand, B, S, Q, R, n_pad,
     # out_score, out_found, stream
     "bisect_exact_scores": (
@@ -227,6 +228,11 @@ _QUERIES = {
         # (Q, k, tshift, W) -> blocks of the tile kernel one SM holds, 0
         # when none fits
         "es_bool_bm25_topk_blocks_per_sm": ([_I] * 4, ctypes.c_int),
+    },
+    "sparse_candidates_topk": {
+        # (Q, k, tshift, W) -> blocks of the tile kernel one SM holds, 0
+        # when none fits
+        "es_sparse_candidates_topk_blocks_per_sm": ([_I] * 4, ctypes.c_int),
     },
 }
 

@@ -33,9 +33,29 @@ import numpy as np
 import torch
 
 from ..kernels import build as _kb
+from .sorted_merge import sm_count
 from .topk import topk_stable
 
 NEG_INF = float("-inf")
+
+#: survivor blocks a K4 launch aims at per SM over its (query, shard) rows
+SURVIVOR_BLOCKS_PER_SM = 8
+#: the most list entries (G·R) K4's finish merges for one row
+SURVIVOR_MERGE_MAX = 4096
+
+
+def blockmax_scan_plan(B: int, S: int, R: int, n_sm: int) -> dict:
+    """K4's launch shape: one scan block a (query, shard) row, then G
+    survivor blocks a row, each over its slice of the row's scored
+    postings (block g takes postings [g·c, (g + 1)·c) of the n_sc·block,
+    c = ceil(n_sc·block / G)). G is the power of two (the finish
+    sorts the G·R entries of a row as one) nearest below what gives
+    ``SURVIVOR_BLOCKS_PER_SM`` blocks an SM over the B·S rows, with G·R at
+    most ``SURVIVOR_MERGE_MAX`` (so that sort stays in shared memory; G = 1
+    when R alone passes it, or when B·S alone fills the card)."""
+    want = -(-SURVIVOR_BLOCKS_PER_SM * n_sm // max(B * S, 1))
+    G = max(1, min(want, SURVIVOR_MERGE_MAX // max(R, 1)))
+    return dict(G=1 << (G.bit_length() - 1))
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -149,7 +169,9 @@ def blockmax_scan(t_docs, t_codes, t_scale, t_off, sched, w, rho, slack, *,
     slots; cv f32[B, S, R] their partials, −inf there; matched, unsafe,
     pruned, n_sc i32[B, S]).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K4.
+    A CPU tensor runs the plain version; a CUDA tensor launches K4 (the
+    scan a row, its survivors over the G blocks a row of
+    :func:`blockmax_scan_plan` and their merge, in one launch call).
     """
     dev = t_docs.device
     kw = dict(n_pad=n_pad, NB=NB, W=W, R=R, kq_idx=kq_idx,
@@ -189,10 +211,14 @@ def blockmax_scan(t_docs, t_codes, t_scale, t_off, sched, w, rho, slack, *,
     counts = torch.empty((4, B, S), dtype=torch.int32, device=dev)
     if rows == 0:
         return ci, cv, counts[0], counts[1], counts[2], counts[3]
+    G = blockmax_scan_plan(B, S, R, sm_count(dev))["G"]
+    # the survivor blocks' lists and counts, and the rows' scan states
+    part = torch.empty(rows * G * (2 * R + 1) + 4 * rows, dtype=torch.int32,
+                       device=dev)
     _kb.launch("blockmax_scan", dev, t_docs.data_ptr(), t_codes.data_ptr(),
                t_scale.data_ptr(), t_off.data_ptr(), NB1, BS,
                sched.data_ptr(), w.data_ptr(), rho.data_ptr(),
                slack.data_ptr(), B, S, P, n_pad, NB, W, R, kq_idx,
-               int(prune_active), acc.data_ptr(), ci.data_ptr(),
-               cv.data_ptr(), counts.data_ptr())
+               int(prune_active), G, acc.data_ptr(), part.data_ptr(),
+               ci.data_ptr(), cv.data_ptr(), counts.data_ptr())
     return ci, cv, counts[0], counts[1], counts[2], counts[3]

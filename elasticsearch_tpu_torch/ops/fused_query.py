@@ -37,14 +37,16 @@ slot, the selection ``sel`` of −inf slots included.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
 
 from ..kernels import build as _kb
 from .blockmax import fma_f32
-from .sorted_merge import _select_topk, merge_runs, run_bits, slice_runs
+from .sorted_merge import (SPARSE_TILE_SHIFT, TILE_BLOCKS_PER_SM,
+                           TILE_EDGES_MAX, TILE_MERGE_MAX, TILE_SHIFT,
+                           _select_topk, merge_runs, run_bits, slice_runs,
+                           sm_count, tile_plan)
 
 NEG_INF = float("-inf")
 
@@ -52,21 +54,13 @@ NEG_INF = float("-inf")
 #: reads the low ``MAX_BOOL_CLAUSES`` bits of a doc's clause mask
 MAX_BOOL_CLAUSES = 8
 
-#: K9's doc tiles: 2^11 docs a shared-memory tile, 2^12 where the slots
-#: hold at most one posting a doc (Q·L <= n_pad): there a tile's fixed
-#: costs (its slots' barriers, its eligibility pass) outweigh its postings
-#: (PERF.md's K9 finding: the tile sizes measured at bool mix (c) and the
-#: hybrid on an H100)
-BOOL_TILE_SHIFT = 11
-BOOL_SPARSE_TILE_SHIFT = 12
-#: blocks a K9 launch aims at per SM: about twice what an SM holds at once
-#: (4 of the tile kernel's blocks at 2,048-doc tiles), so the grid fills
-#: the card twice over
-BOOL_BLOCKS_PER_SM = 8
-#: the most list entries (G·k) K9's merge takes for one (query, shard)
-BOOL_MERGE_MAX = 4096
-#: the most (slot, tile edge) positions a K9 block keeps
-BOOL_EDGES_MAX = 4096
+#: K9's doc tiles and plan sizes: those of the doc-tile kernels
+#: (``sorted_merge``), named here so a measurement can change K9's alone
+BOOL_TILE_SHIFT = TILE_SHIFT
+BOOL_SPARSE_TILE_SHIFT = SPARSE_TILE_SHIFT
+BOOL_BLOCKS_PER_SM = TILE_BLOCKS_PER_SM
+BOOL_MERGE_MAX = TILE_MERGE_MAX
+BOOL_EDGES_MAX = TILE_EDGES_MAX
 
 #: rescore score modes in K11's numbering
 RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
@@ -160,27 +154,12 @@ def bisect_exact_scores(postings_docs, postings_impact, starts, lengths,
 
 def bool_bm25_topk_plan(n_pad: int, B: int, S: int, Q: int, L: int,
                         k: int, n_sm: int) -> dict:
-    """K9's launch shape: tiles of 2^``tile_shift`` docs over [0, n_pad)
-    (``BOOL_SPARSE_TILE_SHIFT`` when the Q slots of at most L postings
-    hold at most one posting a doc, else ``BOOL_TILE_SHIFT``), G blocks a
-    (query, shard), each walking ``tiles_per_block`` consecutive tiles
-    (the last block may walk fewer), ``edge_tiles`` at a time. G aims at
-    ``BOOL_BLOCKS_PER_SM`` blocks an SM over the B·S (query, shard)
-    pairs, with at most one block a tile and G·k at most
-    ``BOOL_MERGE_MAX``, so the merge of the G lists stays small (G = 1
-    when k alone passes it); a block keeps the slots' positions at
-    ``edge_tiles + 1`` tile edges at a time, at most ``BOOL_EDGES_MAX``
-    (Q·(edge_tiles + 1)) unless one tile needs more."""
-    shift = BOOL_SPARSE_TILE_SHIFT if Q * L <= n_pad else BOOL_TILE_SHIFT
-    tile = 1 << shift
-    n_tiles = -(-n_pad // tile)
-    want = -(-BOOL_BLOCKS_PER_SM * n_sm // max(B * S, 1))
-    G = max(1, min(want, n_tiles, BOOL_MERGE_MAX // max(k, 1)))
-    tpb = max(1, -(-n_tiles // G))
-    G = max(1, -(-n_tiles // tpb))
-    W = min(tpb, max(1, BOOL_EDGES_MAX // max(Q, 1) - 1))
-    return dict(tile=tile, tile_shift=shift, n_tiles=n_tiles,
-                tiles_per_block=tpb, edge_tiles=W, G=G)
+    """K9's launch shape: :func:`~.sorted_merge.tile_plan` at the
+    ``BOOL_*`` sizes."""
+    return tile_plan(n_pad, B, S, Q, L, k, n_sm, shift=BOOL_TILE_SHIFT,
+                     sparse_shift=BOOL_SPARSE_TILE_SHIFT,
+                     blocks_per_sm=BOOL_BLOCKS_PER_SM,
+                     merge_max=BOOL_MERGE_MAX, edges_max=BOOL_EDGES_MAX)
 
 
 def bool_bm25_topk_plain(postings_docs, postings_impact, starts, lengths,
@@ -261,7 +240,7 @@ def bool_bm25_topk(postings_docs, postings_impact, starts, lengths, idfw,
     count = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B * S == 0:
         return vals, docs, count
-    plan = bool_bm25_topk_plan(n_pad, B, S, Q, L, k, _sm_count(dev))
+    plan = bool_bm25_topk_plan(n_pad, B, S, Q, L, k, sm_count(dev))
     G = plan["G"]
     # the G lists and counts of each (query, shard), merged by the launch
     part = torch.empty(B * S * G * (2 * k + 1) if G > 1 else 1,
@@ -278,11 +257,6 @@ def bool_bm25_topk(postings_docs, postings_impact, starts, lengths, idfw,
                part.data_ptr() + 8 * n_part, vals.data_ptr(),
                docs.data_ptr(), count.data_ptr())
     return vals, docs, count
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 # ---------------------------------------------------------------------------

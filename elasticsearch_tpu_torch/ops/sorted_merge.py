@@ -19,6 +19,7 @@ L``; a start is clamped to ``P - L`` as ``dynamic_slice`` clamps it.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -28,6 +29,23 @@ from ..kernels import build as _kb
 from .topk import topk_stable
 
 NEG_INF = float("-inf")
+
+#: the doc-tile kernels (K1 here, K9 in ``fused_query``): 2^11 docs a
+#: shared-memory tile, 2^12 where a (query, shard)'s slots hold at most one
+#: posting a doc (Q·L <= n_pad): there a tile's fixed costs (its slots'
+#: barriers, its eligibility pass) outweigh its postings (PERF.md's K9
+#: finding: the tile sizes measured at bool mix (c) and the hybrid on an
+#: H100)
+TILE_SHIFT = 11
+SPARSE_TILE_SHIFT = 12
+#: blocks a tile launch aims at per SM: about twice what an SM holds at
+#: once (4 of the tile kernel's blocks at 2,048-doc tiles), so the grid
+#: fills the card twice over
+TILE_BLOCKS_PER_SM = 8
+#: cap on G·k, the entries the merge kernel reads a (query, shard)
+TILE_MERGE_MAX = 4096
+#: cap on Q·(edge_tiles + 1), a block's table of slot positions
+TILE_EDGES_MAX = 4096
 
 
 def make_impacts(tf: np.ndarray, docs: np.ndarray, doc_len: np.ndarray,
@@ -155,6 +173,50 @@ def bm25_topk_merge_body(postings_docs, postings_impact, starts, lengths,
     return vals[0], docs[0]
 
 
+def tile_plan(n_pad: int, B: int, S: int, Q: int, L: int, k: int,
+              n_sm: int, *, shift: int, sparse_shift: int,
+              blocks_per_sm: int, merge_max: int, edges_max: int) -> dict:
+    """A doc-tile kernel's launch shape (``csrc/tile_topk.cuh``): tiles of
+    2^``tile_shift`` docs over [0, n_pad) (``sparse_shift`` when the Q
+    slots of at most L postings hold at most one posting a doc, else
+    ``shift``), G blocks a (query, shard), each walking
+    ``tiles_per_block`` consecutive tiles (the last block may walk fewer),
+    ``edge_tiles`` at a time. G aims at ``blocks_per_sm`` blocks an SM over
+    the B·S (query, shard) pairs, with at most one block a tile and G·k at
+    most ``merge_max``, so the merge of the G lists stays small (G = 1
+    when k alone passes it, or when B·S alone fills the card); a block
+    keeps the slots' positions at ``edge_tiles + 1`` tile edges at a time,
+    at most ``edges_max`` (Q·(edge_tiles + 1)) unless one tile needs
+    more."""
+    shift = sparse_shift if Q * L <= n_pad else shift
+    tile = 1 << shift
+    n_tiles = -(-n_pad // tile)
+    want = -(-blocks_per_sm * n_sm // max(B * S, 1))
+    G = max(1, min(want, n_tiles, merge_max // max(k, 1)))
+    tpb = max(1, -(-n_tiles // G))
+    G = max(1, -(-n_tiles // tpb))
+    W = min(tpb, max(1, edges_max // max(Q, 1) - 1))
+    return dict(tile=tile, tile_shift=shift, n_tiles=n_tiles,
+                tiles_per_block=tpb, edge_tiles=W, G=G)
+
+
+def sparse_candidates_topk_plan(n_pad: int, B: int, S: int, Q: int, L: int,
+                                k: int, n_sm: int) -> dict:
+    """K1's launch shape: :func:`tile_plan` at this module's ``TILE_*``
+    sizes."""
+    return tile_plan(n_pad, B, S, Q, L, k, n_sm, shift=TILE_SHIFT,
+                     sparse_shift=SPARSE_TILE_SHIFT,
+                     blocks_per_sm=TILE_BLOCKS_PER_SM,
+                     merge_max=TILE_MERGE_MAX, edges_max=TILE_EDGES_MAX)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA card (the tile plans fill
+    them)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def sparse_candidates_topk_plain(postings_docs, postings_impact, starts,
                                  lengths, idfw, *, n_pad: int, L: int,
                                  k: int, min_should_match: int = 1,
@@ -215,7 +277,11 @@ def sparse_candidates_topk(postings_docs, postings_impact, starts, lengths,
     matching candidates, less those the dense tier also matches when
     ``dense`` is given (the tiered step's overlap rule).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K1.
+    A CPU tensor runs the plain version; a CUDA tensor launches K1 (over
+    the doc tiles of :func:`sparse_candidates_topk_plan`, its G lists a
+    (query, shard) merged in the same launch call). Each run's valid prefix
+    must hold docs in strictly ascending order, as the plane's postings
+    do.
     """
     dev = postings_docs.device
     if dev.type == "cpu":
@@ -248,6 +314,12 @@ def sparse_candidates_topk(postings_docs, postings_impact, starts, lengths,
     count = torch.empty((B, S), dtype=torch.int32, device=dev)
     if B * S == 0:
         return vals, docs, count
+    plan = sparse_candidates_topk_plan(n_pad, B, S, Q, L, k, sm_count(dev))
+    G = plan["G"]
+    # the G lists and counts of each (query, shard), merged by the launch
+    part = torch.empty(B * S * G * (2 * k + 1) if G > 1 else 1,
+                       dtype=torch.int32, device=dev)
+    n_part = B * S * G * k
     opt = (lambda t: None if t is None else t.data_ptr())
     _kb.launch("sparse_candidates_topk", dev, postings_docs.data_ptr(),
                postings_impact.data_ptr(), P, starts.data_ptr(),
@@ -256,5 +328,8 @@ def sparse_candidates_topk(postings_docs, postings_impact, starts, lengths,
                opt(dense_w if dense is not None else None),
                opt(u_ids if dense is not None else None), B, S, Q, L,
                n_pad, k, min_should_match, n_blk, T, C, U,
+               plan["tile_shift"], plan["tiles_per_block"],
+               plan["edge_tiles"], G, part.data_ptr(),
+               part.data_ptr() + 4 * n_part, part.data_ptr() + 8 * n_part,
                vals.data_ptr(), docs.data_ptr(), count.data_ptr())
     return vals, docs, count

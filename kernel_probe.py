@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Probe of K16 (``bm25_scatter``), K6 (``knn_scan``), K9
-(``bool_bm25_topk``) and K8 (``ivf_rerank``) on one card, at the inputs
-``chip_smoke.py`` gives them on its main paths.
+(``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``)
+and K4 (``blockmax_scan``) on one card, at the inputs ``chip_smoke.py``
+gives them on its main paths.
 
-    python3 kernel_probe.py [--tree DIR] [--kernels k16,k6,k9,k8]
+    python3 kernel_probe.py [--tree DIR] [--kernels k16,k6,k9,k8,k1,k4]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -41,6 +42,21 @@ JSON lines and writes them to ``--out`` as well.
   postings, built and called through its C entry on each K9 input; and
   this checkout's entry (with the stamps where built) with the plan at
   tiles of 2,048, 4,096 and 8,192 docs.
+- K1 at the pruned route's eager fallback (mix (a)'s checked batch: its
+  unsafe queries by the tree's K4, Q = 8, L from ``ladder_L``, no dense
+  tier, as ``chip_smoke.py`` builds the call) and at the headline's tiered
+  shape (64 x 4 terms, the dense tier of the 2^23-doc plane, the
+  workload's L): the wrapper's CUDA-event mean, its device time by kernel
+  (``torch.profiler``), the grid and blocks an SM, the valid postings and
+  the bytes the bound counts (``chip_smoke.k1_work``).
+- K4 at mixes (a) and (b) of the prune plane: ``P_sched``, the blocks
+  scored of the blocks in the schedules, the wrapper's CUDA-event mean and
+  device time on the checked batch, and the device time of each kernel a
+  dispatch over the mix's timed batches through ``serve``. ``--variants``
+  adds a build of the tree's ``csrc/blockmax_scan.cu`` with ``clock64()``
+  stamps (a block's cycles; in the scan the tier loads, the accumulator's
+  read-modify-write and the window merge a scored step; the survivor pass
+  with the keys pushed and inserted; the verdict with its sort).
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -55,6 +71,7 @@ JSON lines and writes them to ``--out`` as well.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import importlib.util
 import json
@@ -232,10 +249,13 @@ def build_variant(tree, name, edits, scratch, source="knn_scan"):
     csrc = os.path.join(tree, "elasticsearch_tpu_torch", "csrc")
     with open(os.path.join(csrc, f"{source}.cu")) as f:
         src = f.read()
-    if not all(old in src for old, _ in edits if old):
+    if not all(old in src for old, _ in edits if old and old != "^"):
         return None
     for old, new in edits:
-        src = src.replace(old, new) if old else src + new
+        if old == "^":
+            src = new + src
+        else:
+            src = src.replace(old, new) if old else src + new
     path = os.path.join(scratch, f"{source}_{name}.cu")
     with open(path, "w") as f:
         f.write(src)
@@ -384,6 +404,12 @@ K9_VARIANTS = {
                    "        const bool listed = false;")],
     # chunks of 2,048 postings
     "stage2048": [("#define K9_STAGE 1024", "#define K9_STAGE 2048")],
+    # the doc-tile header's cell-free pass for sparse tiles off, or bounded
+    # at 32 / 128 / 512 postings a tile (csrc/tile_topk.cuh)
+    "sparse_off": [("^", "#define TT_SPARSE_MAX 0\n")],
+    "sparse32": [("^", "#define TT_SPARSE_MAX 32\n")],
+    "sparse128": [("^", "#define TT_SPARSE_MAX 128\n")],
+    "sparse512": [("^", "#define TT_SPARSE_MAX 512\n")],
     # the full kernel with clock64() stamps: a block's cycles, those of its
     # edge searches and list offsets, and of its waits for staged chunks
     "phases": [
@@ -650,11 +676,469 @@ def run_k8(rows, reps):
     torch.cuda.empty_cache()
 
 
+#: appended to an unedited copy of a one-block-a-(query, shard)
+#: sparse_candidates_topk.cu: the occupancy of its launch (the same
+#: shared-memory plan as its entry)
+K1_BLOCK_OCCUPANCY = """
+extern "C" int es_probe_k1_blocks_per_sm(int Q, int k) {
+  size_t shm = (size_t)K1_THREADS * 8 + (size_t)Q * 24 + 4;
+  const bool top_shared =
+      shm + (size_t)k * 8 <= (size_t)es_max_shared_bytes();
+  if (top_shared) shm += (size_t)k * 8;
+  auto kernel = top_shared ? sparse_candidates_topk_kernel<true>
+                           : sparse_candidates_topk_kernel<false>;
+  if (es_set_shared(kernel, shm) != 0) return 0;
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, K1_THREADS, shm);
+  return n;
+}
+"""
+
+
+def k1_launch(tree, args, kw):
+    """(design, blocks in the grid, blocks an SM, plan) of K1's launch on
+    these inputs: the tile design's plan and occupancy query, or one block
+    a (query, shard) and its occupancy."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import sorted_merge as sm
+    B, S, Q = args[2].shape
+    k = kw["k"]
+    if hasattr(sm, "sparse_candidates_topk_plan"):
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = sm.sparse_candidates_topk_plan(kw["n_pad"], B, S, Q, kw["L"],
+                                              k, n_sm)
+        per_sm = kb.query("sparse_candidates_topk",
+                          "es_sparse_candidates_topk_blocks_per_sm", Q, k,
+                          plan["tile_shift"], plan["edge_tiles"])
+        return "tiles", B * S * plan["G"], per_sm, plan
+    lib = build_variant(tree, "occupancy", [("", K1_BLOCK_OCCUPANCY)],
+                        scratch_dir(), source="sparse_candidates_topk")
+    fn = lib.es_probe_k1_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return "block a (query, shard)", B * S, fn(Q, k), None
+
+
+#: K1 builds with the doc-tile header's cell-free pass for sparse tiles
+#: off, or bounded at 32 / 128 / 512 postings a tile
+K1_VARIANTS = {name: K9_VARIANTS[name] for name in
+               ("sparse_off", "sparse32", "sparse128", "sparse512")}
+
+
+@contextlib.contextmanager
+def swapped_library(name, lib):
+    """Kernel ``name``'s wrappers launch ``lib`` (a variant build) while
+    the context lasts."""
+    from elasticsearch_tpu_torch.kernels import build as kb
+    sym, argtypes = kb._SIGNATURES[name]
+    getattr(lib, sym).argtypes = argtypes
+    getattr(lib, sym).restype = ctypes.c_int
+    lib.es_error_string.argtypes = [ctypes.c_int]
+    lib.es_error_string.restype = ctypes.c_char_p
+    saved = kb.library(name)
+    kb._libs[name] = lib
+    try:
+        yield
+    finally:
+        kb._libs[name] = saved
+
+
+def k1_row(rows, tree, label, plane, args, kw, reps, libs=None):
+    """One K1 reading: the wrapper's mean, its device time by kernel, the
+    launch's grid and occupancy, and the work the bound counts."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops.sorted_merge import \
+        sparse_candidates_topk
+
+    def call():
+        return sparse_candidates_topk(*args, **kw)
+    ms = cs.timed(call, reps)
+    by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+    design, grid, per_sm, plan = k1_launch(tree, args, kw)
+    a = dict(lengths=args[3], starts=args[2], dense=kw.get("dense"),
+             dense_w=kw.get("dense_w"))
+    nbytes, nops, n_post, n_owner = cs.k1_work(plane, a, kw["k"])
+    B, S, Q = args[2].shape
+    variants = {}
+    for name, lib in (libs or {}).items():
+        if lib is None:
+            variants[name + "_ms"] = "not measured (edit target missing)"
+            continue
+        with swapped_library("sparse_candidates_topk", lib):
+            variants[name + "_ms"] = cs.timed(call, reps)
+    emit(rows, kernel="sparse_candidates_topk", what=label, design=design,
+         B=B, S=S, Q=Q, L=kw["L"], k=kw["k"], n_pad=kw["n_pad"],
+         dense=kw.get("dense") is not None, grid=grid, blocks_per_sm=per_sm,
+         plan=plan, valid_postings=n_post, candidates=n_owner,
+         bound_bytes=nbytes, ms=ms, device_ms=sum(by_name.values()),
+         by_name=by_name, bound_ms=cs.bound(nbytes, nops)[0], **variants)
+
+
+def prune_mixes(dev):
+    """The prune plane and its two traffic mixes, drawn as ``chip_smoke``'s
+    pruned phase draws them: (corpus, plane, {mix: batches}); batch 0 is
+    the warm-up, batch 1 the checked batch."""
+    cs = smoke()
+    rng, corpus, plane, _cs, _ps = cs.prune_plane(dev)
+    mixes = {m: cs.sample_queries(rng, corpus, 1 + cs.PRUNE_BATCHES,
+                                  cs.PRUNE_BATCH, weighted=m == "a")
+             for m in ("a", "b")}
+    return corpus, plane, mixes
+
+
+def k4_call(plane, batch):
+    """(args, kwargs, prep) of the K4 call of ``batch``'s pruned
+    dispatch."""
+    cs = smoke()
+    prep = plane.prepare_pruned(batch, cs.K)
+    a = prep["args"]
+    kq = cs.K * prep["Q"]
+    kw = dict(n_pad=plane.n_pad, NB=plane.blockmax.n_blocks, W=prep["W"],
+              R=prep["R"], kq_idx=min(kq, prep["W"]) - 1,
+              prune_active=kq <= prep["W"])
+    args = [a[n] for n in ("t_docs", "t_codes", "t_scale", "t_off", "sched",
+                           "w", "rho", "slack")]
+    return args, kw, prep
+
+
+def run_k1(rows, reps, tree, variants):
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        DistributedSearchPlane
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    dev = torch.device("cuda")
+    libs = {}
+    if variants and os.path.exists(os.path.join(
+            tree, "elasticsearch_tpu_torch", "csrc", "tile_topk.cuh")):
+        libs = {name: build_variant(tree, name, edits, scratch_dir(),
+                                    source="sparse_candidates_topk")
+                for name, edits in K1_VARIANTS.items()}
+    _corpus, plane, mixes = prune_mixes(dev)
+    batch = mixes["a"][1]
+    args, kw, prep = k4_call(plane, batch)
+    acc = plane.blockmax.scan_workspace(prep["B"] * plane.n_shards, dev)
+    unsafe = blockmax_scan(*args, **kw, acc=acc)[3][:, 0].cpu().numpy()
+    bad = [q for q, u in zip(batch, unsafe) if u]
+    if bad:
+        Qf = prep["Q"]
+        Lf = plane.ladder_L(plane.max_run_len(bad))
+        fa = plane.prepare(bad, cs.K, Q=Qf, L=Lf, tiered=None)["args"]
+        k1_args = [fa[n] for n in ("postings_docs", "postings_impact",
+                                   "starts", "lengths", "idfw")]
+        k1_row(rows, tree, "pruned mix (a) fallback, checked batch", plane,
+               k1_args, dict(n_pad=plane.n_pad, L=Lf, k=cs.K),
+               max(reps // 4, 1), libs)
+    else:
+        emit(rows, kernel="sparse_candidates_topk",
+             what="pruned mix (a) fallback: no unsafe query")
+    del plane, acc
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
+    cs.sample_queries(rng, corpus, 1, batch=12)
+    plane = DistributedSearchPlane([corpus], "body", device=dev)
+    warm = cs.sample_queries(rng, corpus, 1)[0]
+    batches = cs.sample_queries(rng, corpus, cs.TIMED_BATCHES)
+    L1 = cs.workload_L(plane, [warm] + batches)
+    prep = plane.prepare(batches[0], cs.K, Q=cs.N_TERMS, L=L1, tiered=True)
+    a = prep["args"]
+    k1_args = [a[n] for n in ("postings_docs", "postings_impact", "starts",
+                              "lengths", "idfw")]
+    k1_kw = dict(n_pad=plane.n_pad, L=prep["L"], k=cs.K, dense=a["dense"],
+                 dense_rid=a["dense_rid"], dense_w=a["dense_w"],
+                 u_ids=a["u_ids"])
+    k1_row(rows, tree, "headline, search's first timed batch", plane,
+           k1_args, k1_kw, reps, libs)
+    del plane, corpus
+    torch.cuda.empty_cache()
+
+
+#: text edits of the one-block-a-row csrc/blockmax_scan.cu (commit
+#: 8a8b36c's) that stamp its phases with clock64() in thread 0 of each
+#: block: the tier loads, the accumulator's read-modify-write and the
+#: window merge summed over the scored steps, the survivor pass (with the
+#: keys pushed into the candidate buffer and those inserted into the
+#: running top-R), the verdict with the sort, and the block's whole time
+K4_PHASES_BLOCK = [
+    ("#include <stdint.h>\n",
+     "#include <stdint.h>\n"
+     "__device__ long long k4_dbg[10 << 10];\n"
+     "extern \"C\" int es_probe_k4_phases(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k4_dbg, n * 80);\n}\n"
+     "__device__ __forceinline__ long long k4_clk() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t)::\"memory\");\n"
+     "  return t;\n}\n"),
+    ("  for (int i = tid; i < W; i += T) win[i] = -CUDART_INF_F;\n",
+     "  long long dbg_t0 = k4_clk(), dbg_ld = 0, dbg_rmw = 0, dbg_mg = 0,\n"
+     "            dbg_sv = 0, dbg_push = 0, dbg_ins = 0, dbg_sink = 0;\n"
+     "  for (int i = tid; i < W; i += T) win[i] = -CUDART_INF_F;\n"),
+    ("    float av = -CUDART_INF_F;\n    if (tid < BS) {\n",
+     "    float av = -CUDART_INF_F;\n    long long dbg_a = k4_clk();\n"
+     "    long long dbg_b = dbg_a, dbg_c = dbg_a;\n    if (tid < BS) {\n"),
+    ("            1e-9f);\n        av = __fadd_rn(acc_r[d], __fmul_rn(wb, vh));\n"
+     "        acc_r[d] = av;\n",
+     "            1e-9f);\n        dbg_sink += d + __float_as_int(vh);\n"
+     "        dbg_b = k4_clk();\n"
+     "        av = __fadd_rn(acc_r[d], __fmul_rn(wb, vh));\n"
+     "        acc_r[d] = av;\n        dbg_sink += __float_as_int(av);\n"
+     "        dbg_c = k4_clk();\n"),
+    ("      float* t = win;\n      win = win2;\n      win2 = t;\n    }\n",
+     "      float* t = win;\n      win = win2;\n      win2 = t;\n    }\n"
+     "    if (dbg_b != dbg_a) {\n      dbg_ld += dbg_b - dbg_a;\n"
+     "      dbg_rmw += dbg_c - dbg_b;\n      dbg_mg += k4_clk() - dbg_c;\n"
+     "    }\n"),
+    ("  // ---- survivors: each seen doc once, accumulator cleared ---------------\n",
+     "  const long long dbg_s0 = k4_clk();\n"
+     "  // ---- survivors: each seen doc once, accumulator cleared ---------------\n"),
+    ("    cand.flush(round, top);\n  }\n  __syncthreads();\n\n  // ---- verdict",
+     "    __syncthreads();\n    {\n      const int dbg_n = ncand[round % 3];\n"
+     "      if (dbg_n > 0) {\n        if (tid == 0) {\n"
+     "          dbg_push += dbg_n;\n"
+     "          for (int i = 0; i < dbg_n; ++i) {\n"
+     "            dbg_ins += top.beats(buf_s[i], buf_d[i]);\n"
+     "            top.insert(buf_s[i], buf_d[i]);\n          }\n        }\n"
+     "        __syncthreads();\n      }\n    }\n  }\n  __syncthreads();\n"
+     "  dbg_sv = k4_clk() - dbg_s0;\n  const long long dbg_v0 = k4_clk();\n"
+     "\n  // ---- verdict"),
+    ("      __syncthreads();\n    }\n  }\n}\n",
+     "      __syncthreads();\n    }\n  }\n"
+     "  if (tid == 0 && row < (1 << 10)) {\n"
+     "    long long* o = k4_dbg + row * 10;\n"
+     "    o[0] = k4_clk() - dbg_t0;\n    o[1] = n_sc;\n    o[2] = dbg_ld;\n"
+     "    o[3] = dbg_rmw;\n    o[4] = dbg_mg;\n    o[5] = dbg_sv;\n"
+     "    o[6] = dbg_push;\n    o[7] = dbg_ins;\n"
+     "    o[8] = k4_clk() - dbg_v0;\n    o[9] = dbg_sink & 1;\n  }\n}\n"),
+]
+
+K4_PHASE_KEYS = ("block_cycles", "steps_scored", "loads", "acc_rmw",
+                 "window_merge", "survivor_pass", "pushed", "inserted",
+                 "verdict_sort")
+
+#: the same stamps for the three-kernel csrc/blockmax_scan.cu (its scan
+#: kernel, thread 0 of each row): the scan's cycles; at the top of a step
+#: the waits for the ring's copies and the barrier; the add (up to its
+#: value in a register); the compaction; the second barrier; the copies
+#: and prefetches issued; the merges, and the steps that merged
+K4_PHASES_SCAN = [
+    K4_PHASES_BLOCK[0],
+    ("  int slot = 0, slot_ahead = K4_AHEAD;\n",
+     "  int slot = 0, slot_ahead = K4_AHEAD;\n"
+     "  long long dbg_t0 = k4_clk(), dbg_wait = 0, dbg_lk = 0, dbg_cp = 0,\n"
+     "            dbg_bb = 0, dbg_is = 0, dbg_mg = 0, dbg_nm = 0, dbg_x = 0,\n"
+     "            dbg_sink = 0;\n"),
+    ("    asm volatile(\"cp.async.wait_group %0;\\n\" ::\"n\"(K4_AHEAD - 1)\n",
+     "    dbg_x = k4_clk();\n"
+     "    asm volatile(\"cp.async.wait_group %0;\\n\" ::\"n\"(K4_AHEAD - 1)\n"),
+    ("    __syncthreads();\n    const float theta =\n",
+     "    __syncthreads();\n    dbg_wait += k4_clk() - dbg_x;\n"
+     "    dbg_x = k4_clk();\n    const float theta =\n"),
+    ("    // the partials that beat the window's last value, compacted\n",
+     "    dbg_sink += __float_as_int(av);\n"
+     "    dbg_lk += k4_clk() - dbg_x;\n    dbg_x = k4_clk();\n"
+     "    // the partials that beat the window's last value, compacted\n"),
+    ("    // this step's slot is read: copy step j + K4_LEAD's block into it, and\n",
+     "    dbg_cp += k4_clk() - dbg_x;\n    dbg_x = k4_clk();\n"
+     "    // this step's slot is read: copy step j + K4_LEAD's block into it, and\n"),
+    ("    __syncthreads();\n    ring.fetch(slot, lead_blk,",
+     "    __syncthreads();\n    dbg_bb += k4_clk() - dbg_x;\n"
+     "    dbg_x = k4_clk();\n    ring.fetch(slot, lead_blk,"),
+    ("    const int n = n_new[c3];\n    if (n > 0) {\n",
+     "    dbg_is += k4_clk() - dbg_x;\n    dbg_x = k4_clk();\n"
+     "    const int n = n_new[c3];\n    if (n > 0) {\n"),
+    ("    }\n    cur_blk = nxt_blk;\n",
+     "      ++dbg_nm;\n    }\n    dbg_mg += k4_clk() - dbg_x;\n"
+     "    cur_blk = nxt_blk;\n"),
+    ("    o[3] = pruned ? 1 : 0;\n",
+     "    o[3] = pruned ? 1 : 0;\n    if (row < (1 << 10)) {\n"
+     "      long long* q = k4_dbg + row * 10;\n"
+     "      q[0] = k4_clk() - dbg_t0;\n      q[1] = n_sc;\n"
+     "      q[2] = dbg_wait;\n      q[3] = dbg_lk;\n      q[4] = dbg_cp;\n"
+     "      q[5] = dbg_bb;\n      q[6] = dbg_is;\n      q[7] = dbg_mg;\n"
+     "      q[8] = dbg_nm;\n      q[9] = dbg_sink & 1;\n    }\n"),
+]
+
+K4_SCAN_KEYS = ("scan_cycles", "steps_scored", "waits", "add",
+                "compact", "barrier_b", "issue", "window_merge",
+                "merge_steps")
+
+#: text edits of the three-kernel csrc/blockmax_scan.cu that change one
+#: part of its scan (each keeps every output): no prefetch of the
+#: accumulator lines, or their prefetch 1, 2 or 8 steps ahead
+K4_SCAN_VARIANTS = {
+    "no_prefetch": [("        asm volatile(\"prefetch.global.L1 [%0];\\n\" ::\"l\"(acc_r + d));\n",
+                     "        (void)d;\n")],
+    "ahead1": [("#define K4_AHEAD 4\n", "#define K4_AHEAD 1\n")],
+    "ahead2": [("#define K4_AHEAD 4\n", "#define K4_AHEAD 2\n")],
+    "ahead8": [("#define K4_AHEAD 4\n", "#define K4_AHEAD 8\n")],
+}
+
+
+def sm_clock_mhz():
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.split()
+    return clk[0] if clk else "not read"
+
+
+def k4_entry_call(lib, args, kw, acc):
+    """A call of a K4 build's C entry as the wrapper calls it, and its
+    counts (matched, unsafe, pruned, n_sc), for either design of the
+    source (the three-kernel one takes G and a workspace)."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    fn = lib.es_blockmax_scan
+    fn.argtypes = kb._SIGNATURES["blockmax_scan"][1]
+    fn.restype = ctypes.c_int
+    S, NB1, BS = args[0].shape
+    B, _, P = args[4].shape
+    R = kw["R"]
+    dev = args[0].device
+    ci = torch.empty((B, S, R), dtype=torch.int32, device=dev)
+    cv = torch.empty((B, S, R), device=dev)
+    counts = torch.empty((4, B, S), dtype=torch.int32, device=dev)
+    extra, tail, keep = (), (), None
+    if len(fn.argtypes) > 24:
+        from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan_plan
+        G = blockmax_scan_plan(B, S, R, torch.cuda.get_device_properties(
+            0).multi_processor_count)["G"]
+        keep = torch.empty(B * S * G * (2 * R + 1) + 4 * B * S,
+                           dtype=torch.int32, device=dev)
+        extra, tail = (G,), (keep.data_ptr(),)
+
+    def call():
+        err = fn(*(a.data_ptr() for a in args[:4]), NB1, BS,
+                 *(a.data_ptr() for a in args[4:]), B, S, P, kw["n_pad"],
+                 kw["NB"], kw["W"], R, kw["kq_idx"], int(kw["prune_active"]),
+                 *extra, acc.data_ptr(), *tail, ci.data_ptr(), cv.data_ptr(),
+                 counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"K4 build: error {err}")
+        return keep
+    return call, counts
+
+
+def k4_phases(tree, args, kw, acc, reps):
+    """The phases build's reading on these inputs (its C entry called as
+    the wrapper calls it): per row the mean of each stamp, the cycles a
+    scored step of each scan phase, the slowest row's stamps and the
+    build's mean; "not measured" where the tree's source is another
+    design."""
+    cs = smoke()
+    import torch
+    keys, lib = K4_PHASE_KEYS, build_variant(
+        tree, "phases", K4_PHASES_BLOCK, scratch_dir(),
+        source="blockmax_scan")
+    if lib is None:
+        keys, lib = K4_SCAN_KEYS, build_variant(
+            tree, "phases", K4_PHASES_SCAN, scratch_dir(),
+            source="blockmax_scan")
+    if lib is None:
+        return "not measured (edit target missing: another design)"
+    call, _counts = k4_entry_call(lib, args, kw, acc)
+    ms = cs.timed(call, reps)
+    B, S = args[4].shape[:2]
+    n = min(B * S, 1 << 10)
+    buf = (ctypes.c_longlong * (10 * n))()
+    torch.cuda.synchronize()
+    if lib.es_probe_k4_phases(buf, n):
+        return "not measured (copy failed)"
+    a = np.frombuffer(buf, dtype=np.int64).reshape(n, 10)[:, :len(keys)]
+    mean = a.astype(np.float64).mean(0)
+    out = {key: float(v) for key, v in zip(keys, mean)}
+    out.update(ms=ms, rows=n, cycles_max=float(a[:, 0].max()),
+               steps_max=int(a[:, 1].max()), sm_clock_mhz=sm_clock_mhz())
+    steps = max(mean[1], 1.0)
+    if keys is K4_SCAN_KEYS:
+        out["cycles_a_step"] = {key: float(mean[i] / steps)
+                                for i, key in enumerate(keys)
+                                if key not in ("steps_scored",
+                                               "merge_steps")}
+        slow = int(np.argmax(a[:, 0]))
+        out["slowest_row"] = {key: int(v) for key, v in zip(keys, a[slow])}
+        return out
+    out.update(cycles_a_step={key: float(mean[i] / steps) for i, key in
+                              ((2, "loads"), (3, "acc_rmw"),
+                               (4, "window_merge"))},
+               scan_cycles_a_step=float(
+                   (mean[0] - mean[5] - mean[8]) / steps))
+    return out
+
+
+def k4_variants(tree, args, kw, acc, reps):
+    """Each scan variant's CUDA-event mean on these inputs and the steps
+    it scored ("not measured" where its edit target is missing)."""
+    cs = smoke()
+    out = {}
+    for name, edits in K4_SCAN_VARIANTS.items():
+        lib = build_variant(tree, name, edits, scratch_dir(),
+                            source="blockmax_scan")
+        if lib is None:
+            out[name] = "not measured (edit target missing)"
+            continue
+        call, counts = k4_entry_call(lib, args, kw, acc)
+        ms = cs.timed(call, reps)
+        out[name] = dict(ms=ms, blocks_scored=int(counts[3].sum()))
+    return out
+
+
+def run_k4(rows, reps, tree, variants):
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan
+    dev = torch.device("cuda")
+    _corpus, plane, mixes = prune_mixes(dev)
+    for m, batches in mixes.items():
+        args, kw, prep = k4_call(plane, batches[1])
+        acc = plane.blockmax.scan_workspace(prep["B"] * plane.n_shards, dev)
+
+        def call():
+            return blockmax_scan(*args, **kw, acc=acc)
+        out = call()
+        n_sc = out[5].cpu().numpy()
+        ms = cs.timed(call, reps)
+        by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+        row = dict(kernel="blockmax_scan", what=f"pruned mix ({m}), checked "
+                   f"batch", B=prep["B"], Q=prep["Q"], P_sched=prep["P_sched"],
+                   W=prep["W"], R=prep["R"], blocks_scored=int(n_sc.sum()),
+                   blocks_in_schedules=int(prep["sched_lens"].sum()),
+                   unsafe=int(out[3].sum()), pruned=int(out[4].sum()),
+                   matched=out[2][:, 0].cpu().numpy().tolist(), ms=ms,
+                   host_ms=host_ms(call, reps),
+                   device_ms=sum(by_name.values()), by_name=by_name)
+        if variants:
+            row["phases"] = k4_phases(tree, args, kw, acc, reps)
+        emit(rows, **row)
+        if variants:
+            emit(rows, kernel="blockmax_scan", what=f"pruned mix ({m}), scan "
+                 f"variants", **k4_variants(tree, args, kw, acc, reps))
+        # the device time a dispatch over the mix's timed batches
+        plane.serve(batches[0], k=cs.K)
+
+        def serve_all():
+            for b in batches[1:]:
+                plane.serve(b, k=cs.K)
+        by_name = cs.device_ms_by_name(serve_all, 1)
+        n_disp = len(batches) - 1
+        emit(rows, kernel="blockmax_scan",
+             what=f"pruned mix ({m}), serve over the timed batches",
+             dispatches=n_disp,
+             by_name_per_dispatch={n: v / n_disp for n, v in by_name.items()})
+    del plane
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
-    p.add_argument("--kernels", default="k16,k6,k9,k8",
-                   help="comma-separated: which of k16, k6, k9, k8 to probe")
+    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4",
+                   help="comma-separated: which of k16, k6, k9, k8, k1, k4 "
+                   "to probe")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -682,6 +1166,10 @@ def main() -> int:
         run_k9(rows, opts.reps, tree, opts.variants)
     if "k8" in which:
         run_k8(rows, opts.reps)
+    if "k1" in which:
+        run_k1(rows, opts.reps, tree, opts.variants)
+    if "k4" in which:
+        run_k4(rows, opts.reps, tree, opts.variants)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

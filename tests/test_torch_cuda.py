@@ -14,7 +14,8 @@ import torch
 
 from elasticsearch_tpu_torch.kernels import build as kb
 from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
-                                                  blockmax_scan_plain)
+                                                  blockmax_scan_plain,
+                                                  blockmax_scan_plan)
 from elasticsearch_tpu_torch.ops.fused_query import (
     BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, bisect_exact_scores,
     bisect_exact_scores_plain, bool_bm25_topk, bool_bm25_topk_plain,
@@ -24,7 +25,8 @@ from elasticsearch_tpu_torch.ops.knn import (
     ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, knn_shard_scan,
     knn_shard_scan_plain)
 from elasticsearch_tpu_torch.ops.sorted_merge import (
-    sparse_candidates_topk, sparse_candidates_topk_plain)
+    SPARSE_TILE_SHIFT, TILE_SHIFT, sparse_candidates_topk,
+    sparse_candidates_topk_plain, sparse_candidates_topk_plan)
 from elasticsearch_tpu_torch.ops.tiered_bm25 import (
     dense_stream_topk, dense_stream_topk_plain)
 from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
@@ -225,14 +227,15 @@ def test_plane_on_card_matches_plane_on_host(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _prune_planes(cuda, S=1):
+def _prune_planes(cuda, S=1, block=None):
     corpus = synthetic_csr_corpus_fast(np.random.RandomState(12), 1 << 14,
                                        1 << 10, 16)
     corpus["term_ids"] = {f"t{t}": t for t in range(1 << 10)}
     shards = split_csr_shards(corpus, S) if S > 1 else [corpus]
     for sh in shards:
         sh["term_ids"] = corpus["term_ids"]
-    kw = dict(blockmax={}, dense_threshold=1 << 30)
+    kw = dict(blockmax={} if block is None else dict(block=block),
+              dense_threshold=1 << 30)
     gpu = DistributedSearchPlane(shards, "body", device=cuda, **kw)
     cpu = DistributedSearchPlane(shards, "body", device="cpu", **kw)
     return corpus, gpu, cpu
@@ -297,6 +300,60 @@ def test_k4_equals_plain(cuda, S, k, weighted, edit, rerank):
         assert (matched > prep["R"]).any() and got[3].sum() > 0
     if edit is not None:
         assert got[4].sum() > 0
+
+
+@pytest.mark.parametrize("case", ["slices", "stops_early", "runs_into_pad",
+                                  "few_docs", "doc_order", "odd_block",
+                                  "wide_block"])
+def test_k4_scan_and_survivors_equal_plain(cuda, case):
+    """K4 in every output against its plain version, the workspace zero
+    after the call, on: G > 1 survivor slices a row (and the plan's G at
+    this batch); a schedule that stops after its first step or two; pruning inert
+    (k·Q > W), every schedule run into its pad; tail terms, R greater than
+    the docs a row sees; each tier block's entries in doc order rather
+    than the tier's impact order; a tier block of 30 postings (its codes
+    not copied four bytes at a time) and of 1,000 (the scan's widest
+    block). The schedules of the weighted mixes put a doc in consecutive
+    steps (blocks of several terms over 2^14 docs), so a line prefetched
+    ahead is often written again before its step reads it."""
+    block = {"odd_block": 30, "wide_block": 1000}.get(case)
+    corpus, gpu, _ = _prune_planes(cuda, 1, block)
+    k = 200 if case == "runs_into_pad" else 10
+    weighted = case != "few_docs"
+    qs = query_mix(corpus, 40 + len(case), 20, weighted=weighted,
+                   terms=8 if case == "runs_into_pad" else 4)
+    prep = gpu.prepare_pruned(qs, k)
+    edit = _first_step_fails if case == "stops_early" else None
+    ins, kw, _ = _scan_args(gpu, prep, k, edit)
+    if case == "doc_order":
+        docs, order = torch.sort(ins[0], dim=-1, stable=True)
+        ins[:2] = [docs.contiguous(),
+                   torch.gather(ins[1], -1, order).contiguous()]
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G = blockmax_scan_plan(len(qs), 1, prep["R"], n_sm)["G"]
+    assert G > 1
+    acc = gpu.blockmax.scan_workspace(len(qs), cuda)
+    n0 = kb.launches["blockmax_scan"]
+    got = blockmax_scan(*ins, **kw, acc=acc)
+    assert kb.launches["blockmax_scan"] == n0 + 1
+    want = blockmax_scan_plain(*ins, **kw)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+    assert not acc.any(), "the workspace was not left zeroed"
+    _same_bits(blockmax_scan(*ins, **kw, acc=acc), want)
+    matched, _unsafe, pruned, n_sc = (x.cpu().numpy()[:, 0]
+                                      for x in got[2:])
+    lens = prep["sched_lens"][:, 0]
+    if case == "stops_early":
+        # the second step fails unless the slack keeps theta at or below 0
+        # after the first, and then the third does
+        assert pruned.all() and (n_sc <= 2).all() and (n_sc == 1).any()
+    if case == "runs_into_pad":
+        assert not kw["prune_active"] and (n_sc == lens).all()
+    if case == "few_docs":
+        assert (matched < prep["R"]).any()
+    if case in ("slices", "doc_order", "odd_block"):
+        assert n_sc.max() > 11           # past the ring's 11 slots
 
 
 @pytest.mark.parametrize("S", [1, 4])
@@ -679,21 +736,19 @@ def test_k9_bitwise_equals_plain(cuda, seed, S, L, n_pad, k):
     assert fin[2].any()                                    # msm 2, shared
 
 
-def _k9_tile_case(seed, S, n_pad, shift):
-    """K9 inputs over runs placed on the edges of tiles of 2^shift docs,
-    for ``bool_case``'s eight trees of six slots: a run across many tile
-    edges, starting and ending mid-tile; docs on both sides of every tile
-    edge and at n_pad - 1; a dense run over the edge of four tiles; a run
-    whose valid prefix ends in docs at and past n_pad; a random run; at
-    the plan's dense tile size a run of every third doc; and, last in the
-    table, the longest run (the runs sit in order of length), which a
-    slot whose start lies past P - L reads whole (the start clamps). Slots
-    pick runs at random; some are empty; query 2's slots 1 and 2 read one
-    run; one slot starts below 0 (clamped to the first run). Returns
-    (args, L)."""
+def _tile_runs(rng, S, n_pad, shift, B, Q):
+    """Postings runs on the edges of tiles of 2^shift docs and B x Q slots
+    over them: a run across many tile edges, starting and ending mid-tile;
+    docs on both sides of every tile edge and at n_pad - 1; a dense run
+    over the edge of four tiles; a run whose valid prefix ends in docs at
+    and past n_pad; a random run; at the dense tile size (2^11) a run of
+    every third doc; and, last in the table, the longest run (the runs sit
+    in order of length), which a slot whose start lies past P - L reads
+    whole (the start clamps). Slots pick runs at random; some are empty;
+    query 2's slots 1 and 2 read one run; one slot starts below 0
+    (clamped to the first run). Returns (docs, imps, starts, lengths,
+    L)."""
     T = 1 << shift
-    rng = np.random.RandomState(seed)
-    _, bq = bool_case(seed, S=S)
     runs = [np.arange(T - 3, min(9 * T + 5, n_pad), 3),
             np.unique(np.r_[np.arange(0, n_pad, T),
                             np.arange(T - 1, n_pad, T), n_pad - 1]),
@@ -713,13 +768,22 @@ def _k9_tile_case(seed, S, n_pad, shift):
     docs = np.tile(flat, (S, 1))
     imps = rng.choice(np.array([0.5, 0.75, 1.0, 1.25, 1.5], np.float32),
                       size=(S, P))
-    B, Q = bq["cbits"].shape
     pick = rng.randint(0, len(runs), size=(B, S, Q))
     starts, lengths = st[pick], lens[pick]
     lengths[rng.rand(B, S, Q) < 0.15] = 0
     starts[2, :, 2], lengths[2, :, 2] = starts[2, :, 1], lengths[2, :, 1]
     starts[5, :, 0], lengths[5, :, 0] = P + 5, L
     starts[6, :, 3], lengths[6, :, 3] = -7, lens[0]
+    return docs, imps, starts, lengths, L
+
+
+def _k9_tile_case(seed, S, n_pad, shift):
+    """K9 inputs over :func:`_tile_runs`, for ``bool_case``'s eight trees
+    of six slots. Returns (args, L)."""
+    rng = np.random.RandomState(seed)
+    _, bq = bool_case(seed, S=S)
+    B, Q = bq["cbits"].shape
+    docs, imps, starts, lengths, L = _tile_runs(rng, S, n_pad, shift, B, Q)
     args = [docs, imps, starts, lengths] + [
         bq[n] for n in ("idfw", "cbits", "req", "neg", "shd", "msm")]
     return args, L
@@ -785,6 +849,88 @@ def test_k9_bool_case_over_many_blocks_bitwise_equals_plain(cuda, seed, S, L,
     fin = np.isfinite(v)
     assert fin[0].any() and (v[0][fin[0]] == 0.0).all()   # filter-only
     assert not fin[3].any()                                # a must, no slot
+
+
+#: K1's tile cases: eight queries of six slots
+K1_B, K1_Q = 8, 6
+
+
+def _k1_tile_case(cuda, seed, S, n_pad, shift, *, k, msm=1, dense=False,
+                  use_u=False):
+    """K1's arguments over :func:`_tile_runs` (idfw of 0.5, 1 or 2), with
+    a dense tier of 8 rows (through ``u_ids`` with ``use_u``)."""
+    rng = np.random.RandomState(seed)
+    docs, imps, starts, lengths, L = _tile_runs(rng, S, n_pad, shift, K1_B,
+                                                K1_Q)
+    idfw = rng.choice(np.array([0.5, 1.0, 2.0], np.float32),
+                      size=(K1_B, K1_Q))
+    args = [_t(a, cuda) for a in (docs, imps, starts, lengths, idfw)]
+    kw = dict(n_pad=n_pad, L=L, k=k, min_should_match=msm)
+    if dense:
+        C = 1024 if n_pad % 1024 == 0 else n_pad
+        d = dense_case(seed + 7, S=S, B=K1_B, Q=K1_Q, T=8, n_pad=n_pad, C=C,
+                       U=6 if use_u else None, density=0.5)
+        kw.update(dense=_t(d["bits"], cuda).view(torch.bfloat16),
+                  dense_rid=_t(d["rid"], cuda), dense_w=_t(d["w"], cuda),
+                  u_ids=None if d["u_ids"] is None else
+                  _t(d["u_ids"], cuda))
+    return args, kw
+
+
+def _k1_against_plain(args, kw):
+    n0 = kb.launches["sparse_candidates_topk"]
+    got = sparse_candidates_topk(*args, **kw)
+    assert kb.launches["sparse_candidates_topk"] == n0 + 1
+    want = sparse_candidates_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _same(got, want)
+    return got
+
+
+@pytest.mark.parametrize("seed,S,n_pad,k,shift,msm,dense,use_u,G", [
+    # sparse slots (tiles of 2^12 docs), more than one block a query
+    (1, 1, 1 << 20, 10, SPARSE_TILE_SHIFT, 1, False, False, 128),
+    (2, 3, 1 << 20, 128, SPARSE_TILE_SHIFT, 2, True, True, 32),
+    # dense slots (tiles of 2^11 docs): runs across many blocks' ranges
+    (5, 1, 1 << 20, 10, TILE_SHIFT, 1, True, False, 128),
+    (6, 2, 1 << 20, 128, TILE_SHIFT, 3, False, False, 32),
+    # k = 30,000: one block a (query, shard), its list in device memory
+    (3, 1, 1 << 15, 30000, TILE_SHIFT, 1, True, True, 1),
+    # n_pad not a multiple of the tile, nor of the dense tier's 1,024
+    (4, 2, 3 * (1 << TILE_SHIFT) + 1234, 10, TILE_SHIFT, 2, True, False,
+     4)])
+def test_k1_tile_and_range_edges_bitwise_equal_plain(cuda, seed, S, n_pad, k,
+                                                     shift, msm, dense,
+                                                     use_u, G):
+    """K1 over runs on its tiles' and ranges' edges (``_tile_runs``: docs
+    on both sides of tile edges, runs longer than a block's range, two
+    slots on one run, starts and lengths that clamp, docs at and past
+    n_pad), with and without the dense tier, against its plain version,
+    bitwise, one launch a call; the plan's tile size and G as stated."""
+    args, kw = _k1_tile_case(cuda, seed, S, n_pad, shift, k=k, msm=msm,
+                             dense=dense, use_u=use_u)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = sparse_candidates_topk_plan(n_pad, K1_B, S, K1_Q, kw["L"], k,
+                                       n_sm)
+    assert plan["tile_shift"] == shift
+    if n_sm == 132:
+        assert plan["G"] == G
+    got = _k1_against_plain(args, kw)
+    assert (got[2].cpu().numpy() > 0).any()
+
+
+@pytest.mark.parametrize("dense,use_u", [(False, False), (True, False),
+                                         (True, True)])
+def test_k1_every_msm_bitwise_equals_plain(cuda, dense, use_u):
+    """min_should_match from 1 to Q (the dense tier's positive values
+    count toward it, and a match the dense tier also holds is left out of
+    the count), over many blocks a query, bitwise."""
+    for msm in range(1, K1_Q + 1):
+        args, kw = _k1_tile_case(cuda, 11, 2, 1 << 18, TILE_SHIFT, k=128,
+                                 msm=msm, dense=dense, use_u=use_u)
+        got = _k1_against_plain(args, kw)
+        if msm == 1:
+            assert (got[2].cpu().numpy() > 0).all()
 
 
 def _k8_case(seed, *, S, n_pad, D, B, R):
