@@ -1058,6 +1058,11 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
 
 #: exact kNN at the GloVe shape (``bench.py:bench_knn``): 1.2M rows of
 #: d = 100, cosine, k = 100, batches of 16
+#: K3 calls a dispatch: exact kNN's chunk reduce (one call, whatever the
+#: row's length) and shard reduce; IVF's chunk reduce, window top-k and
+#: shard reduce; the hybrid's chunk reduce and its two sides' shard
+#: reduces
+KNN_K3_CALLS, IVF_K3_CALLS, HY_K3_CALLS = 2, 3, 3
 KNN_ROWS = 1_200_000
 KNN_DIM = 100
 KNN_K = 100
@@ -1261,6 +1266,10 @@ def run_knn_exact(card, *, reps=20):
     lat, st, counts, n_disp, (vals, hits) = drive(
         plane, batches, lambda qs, stg: plane.serve(qs, k=KNN_K, stages=stg),
         kb, required=("knn_scan", "topk_merge"))
+    if len(k3_calls) != KNN_K3_CALLS or counts["knn_scan"] != n_disp or \
+            counts["topk_merge"] != KNN_K3_CALLS * n_disp:
+        fail(f"knn_exact: launches {counts} over {n_disp} dispatches, "
+             f"{len(k3_calls)} K3 calls in the checked step")
     n_q = len(lat) * KNN_BATCH
     print(f"# knn_exact: {n_q / lat.sum():.1f} q/s, p50 "
           f"{np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
@@ -1514,6 +1523,10 @@ def run_knn_ivf(card, *, reps=20):
         required=("ivf_scan", "ivf_rerank", "topk_merge"),
         stage_keys=("prep_ms", "dispatch_ms", "fetch_ms",
                     "ann_quantized_bytes", "ann_exact_bytes"))
+    if len(k3_calls) != IVF_K3_CALLS or \
+            counts["topk_merge"] != IVF_K3_CALLS * n_disp:
+        fail(f"knn_ivf: launches {counts} over {n_disp} dispatches, "
+             f"{len(k3_calls)} K3 calls in the checked step")
     n_q = len(lat) * KNN_BATCH
     r_kernel, r_plain = recall(ivf_hits, exact), recall(plain_hits, exact)
     print(f"# knn_ivf: {n_q / lat.sum():.1f} q/s, p50 "
@@ -2181,7 +2194,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                     "d2h_bytes"))
     if any(counts[n] != n_disp for n in ("bool_bm25_topk", "knn_scan",
                                          "fuse_rank")) or \
-            counts["topk_merge"] < 3 * n_disp or counts["rescore_reorder"] \
+            counts["topk_merge"] != HY_K3_CALLS * n_disp or \
+            len(k3) != HY_K3_CALLS or counts["rescore_reorder"] \
             or counts["sparse_candidates_topk"]:
         fail(f"hybrid: launches {counts} over {n_disp} dispatches")
     n_q = len(lat) * HY_BATCH
@@ -2285,10 +2299,18 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
             v = a[0] if b is None else torch.cat([a[0], b], 1)
             torch.topk(v, min(kw["k"], v.shape[1]), dim=1)
     k3_lib = timed(k3_library, reps)
+    # the card's share of both (torch.profiler): the calls are short, so
+    # back-to-back events measure their host side as well
+    k3_dev = sum(device_ms_by_name(
+        lambda: [topk_merge(*a, **kw) for a, kw in k3], reps).values())
+    k3_lib_dev = sum(device_ms_by_name(k3_library, reps).values())
     print(f"# topk_merge, the hybrid step's {len(k3)} calls: {k3_ms:.4f} ms "
-          f"(bound {k3_b[0]:.5f} ms by {k3_b[1]}), plain {k3_plain:.3f} ms, "
-          f"library (torch.topk) {k3_lib:.4f} ms [{card}]", flush=True)
-    out["k3"] = dict(ms=k3_ms, err=k3_err, library_ms=k3_lib)
+          f"(on the card {k3_dev:.4f}; bound {k3_b[0]:.5f} ms by "
+          f"{k3_b[1]}), plain {k3_plain:.3f} ms, library (torch.topk) "
+          f"{k3_lib:.4f} ms (on the card {k3_lib_dev:.4f}) [{card}]",
+          flush=True)
+    out["k3"] = dict(ms=k3_ms, err=k3_err, library_ms=k3_lib,
+                     device_ms=k3_dev, library_device_ms=k3_lib_dev)
     kernels = []
     for name, (a, kw), src, repl, what in (
             ("fuse_rank", (k10a, k10k), "fuse_rank.cu",
@@ -2770,7 +2792,10 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K1 sparse_candidates_topk at mix (a)'s fallback": 39.454,
               "K1 sparse_candidates_topk at the headline": 0.7447,
               "K4 blockmax_scan at (a)": 6.9981,
-              "K4 blockmax_scan at (b)": 0.7226}
+              "K4 blockmax_scan at (b)": 0.7226,
+              "K3 topk_merge, the hybrid step's four calls": 0.7350,
+              "K3 topk_merge, exact kNN's three calls": 0.4367,
+              "K21 knn_outlier at (l)": 39.1531}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -3889,6 +3914,9 @@ def main() -> int:
             kd["library_ms_by_path"] = {
                 "search": kd["library_ms"],
                 "hybrid": hy_times["k3"]["library_ms"]}
+            kd["device_ms_by_path"] = {
+                "hybrid": hy_times["k3"]["device_ms"],
+                "hybrid_library": hy_times["k3"]["library_device_ms"]}
         if kd["name"] == "knn_scan":
             kd["max_abs_err"] = max(kd["max_abs_err"], hy_times["k6"]["err"])
             kd["hybrid"] = dict(ms=hy_times["k6"]["ms"],

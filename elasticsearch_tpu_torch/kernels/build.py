@@ -78,10 +78,11 @@ _SIGNATURES = {
         "es_bool_bm25_topk",
         [_P, _P, _I] + [_P] * 8 + [_I] * 11 + [_P] * 7),
     # a_vals, a_ids, ma, b_vals, b_ids, mb, R, k, dedup, seg_len,
-    # seg_stride, fill_id, out_vals, out_ids, out_sel, workspace, stream
+    # seg_stride, fill_id, G, L, S0, S1, glob0, glob1, out_vals, out_ids,
+    # out_sel, workspace, stream
     "topk_merge": (
         "es_topk_merge",
-        [_P, _P, _I, _P, _P] + [_I] * 7 + [_P] * 5),
+        [_P, _P, _I, _P, _P] + [_I] * 13 + [_P] * 5),
     # t_docs, t_codes, t_scale, t_off, NB1, BS, sched, w, rho, slack, B, S,
     # P, n_pad, NB, W, R, kq_idx, prune_active, G, acc, part, out_ci,
     # out_cv, out_counts, stream
@@ -161,7 +162,7 @@ _SIGNATURES = {
     "tree_eval": (
         "es_tree_eval",
         [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P] * 2),
-    # X, n, f, kk, sq (workspace), dk, stream
+    # X, n, f, kk, sq (workspace of n + 1), dk, stream
     "knn_outlier": (
         "es_knn_outlier",
         [_P] + [_I] * 3 + [_P] * 3),
@@ -173,10 +174,6 @@ _SIGNATURES = {
 
 #: other C functions of a library: name -> (argtypes, restype)
 _QUERIES = {
-    "topk_merge": {
-        # (m, R) -> workspace bytes, 0 when a row fits shared memory
-        "es_topk_merge_workspace_bytes": ([_I, _I], ctypes.c_longlong),
-    },
     "bm25_scatter": {
         # () -> slots whose inputs ride in the launch's parameters
         "es_bm25_scatter_param_slots": ([], ctypes.c_int),
@@ -351,8 +348,10 @@ def launch(name: str, device: torch.device, *args) -> None:
     if device.index not in (None, 0):
         raise ValueError(f"{name}: the kernels run on cuda:0, got {device}")
     lib = library(name)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, _SIGNATURES[name][0])(*args, stream)
+    # the current stream's raw handle (a torch.cuda.Stream object costs
+    # about 4 µs a call)
+    err = getattr(lib, _SIGNATURES[name][0])(
+        *args, torch._C._cuda_getCurrentRawStream(0))
     if err != 0:
         raise RuntimeError(f"{name}: launch refused: "
                            f"{lib.es_error_string(err).decode()} ({err})")

@@ -26,7 +26,8 @@ from typing import Optional
 import torch
 
 from ..kernels import build as _kb
-from .topk import NEG_INF, topk_merge, topk_stable
+from .topk import (H100_SHARED_OPTIN, NEG_INF, card_limits, topk_merge,
+                   topk_merge_row_max, topk_stable)
 
 #: rows per tile of K6/K7 (``KS_ROWS`` in ``csrc/knn_common.cuh``)
 TILE_ROWS = 128
@@ -35,32 +36,28 @@ QUERY_TILE = 16
 #: tiles a K6 block tracks in its live-tile bitmap (``K6_BM_WORDS`` · 32
 #: in ``csrc/knn_scan.cu``); past them it reads every tile
 K6_BITMAP_TILES = 4096
-#: cap on chunks · k, the entries of a row of the scans' partial lists
-_MAX_PARTIALS = 1 << 15
-#: longest K3 row of the chunk reduce's first stage
-_REDUCE_ROW = 1 << 12
 
 
 def scan_chunks(rows: int, k: int, S: int, B: int, n_sm: int,
-                per_sm: int = 4, max_tiles: Optional[int] = None) -> int:
+                per_sm: int = 4, max_tiles: Optional[int] = None,
+                shared: int = H100_SHARED_OPTIN) -> int:
     """Blocks along the row axis of K6/K7 for ``rows`` rows a shard:
     ``per_sm`` blocks on each of ``n_sm`` SMs over the (shard, query tile)
     grid, at least enough that a block takes at most ``max_tiles`` tiles,
     a multiple of the SM count past one wave, and few enough that K3's
-    reduce row (chunks · k) stays at most 2^15 entries."""
+    reduce row (chunks · k) stays within what its plan reduces in shared
+    memory (:func:`~.topk.topk_merge_row_max` for a block's ``shared``
+    bytes)."""
     tiles = max(-(-rows // TILE_ROWS), 1)
     q_tiles = max(-(-B // QUERY_TILE), 1)
     target = max(1, per_sm * n_sm // max(S * q_tiles, 1))
     if max_tiles:
         target = max(target, -(-tiles // max_tiles))
-    chunks = min(tiles, target, max(1, _MAX_PARTIALS // max(k, 1)))
+    chunks = min(tiles, target,
+                 max(1, topk_merge_row_max(max(k, 1), shared) // max(k, 1)))
     if chunks > n_sm:
         chunks -= chunks % n_sm
     return chunks
-
-
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=256)
@@ -72,22 +69,10 @@ def _k6_blocks_per_sm(B: int, D: int, k: int) -> int:
 
 
 def reduce_chunks(part_v, part_i, *, k: int, fill: int):
-    """Each row's top-k over its C chunk lists [R, C, k] (K3), exactly.
-
-    K3 runs one block a row and does O(k · row) work, so a long row is
-    split: while C · k exceeds ``_REDUCE_ROW`` and the group is even, the
-    group of chunks halves; K3 then reduces each group, and once more the
-    groups' lists. Ids are unique within a row, so both stages keep K3's
-    (value desc, id asc) order. Returns (f32[R, k], i32[R, k])."""
+    """Each row's top-k over its C chunk lists [R, C, k]: one K3 call on
+    the [R, C · k] rows (K3 spreads a long row over several blocks itself,
+    :func:`~.topk.topk_merge_plan`). Returns (f32[R, k], i32[R, k])."""
     R, C, _ = part_v.shape
-    g = C
-    while g * k > _REDUCE_ROW and g % 2 == 0:
-        g //= 2
-    if g < C:
-        part_v, part_i = topk_merge(part_v.reshape(R * (C // g), g * k),
-                                    part_i.reshape(R * (C // g), g * k),
-                                    k=k, fill_id=fill)
-        C //= g
     return topk_merge(part_v.reshape(R, C * k), part_i.reshape(R, C * k),
                       k=k, fill_id=fill)
 
@@ -160,8 +145,9 @@ def knn_scan_partials(vecs, vn, exists, qq, qn, *, l2: bool, kk: int):
     _kb.check(exists, "exists", torch.bool, (S, n_pad), dev)
     _kb.check(qq, "qq", torch.float32, (B, D), dev)
     _kb.check(qn, "qn", torch.float32, (B,), dev)
-    C = scan_chunks(n_pad, kk, S, B, _sm_count(dev),
-                    _k6_blocks_per_sm(B, D, kk), K6_BITMAP_TILES)
+    n_sm, shared = card_limits(dev.index)
+    C = scan_chunks(n_pad, kk, S, B, n_sm, _k6_blocks_per_sm(B, D, kk),
+                    K6_BITMAP_TILES, shared)
     part_v = torch.empty((B, S, C, kk), dtype=torch.float32, device=dev)
     part_i = torch.empty((B, S, C, kk), dtype=torch.int32, device=dev)
     if B * S == 0:
@@ -274,7 +260,8 @@ def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
     _kb.check(qn, "qn", torch.float32, (B,), dev)
     _kb.check(probed, "probed", torch.int32, (B, nprobe), dev)
     _kb.check(u_blocks, "u_blocks", torch.int32, (S, P), dev)
-    C = scan_chunks(P * blk, r_cand, S, B, _sm_count(dev))
+    n_sm, shared = card_limits(dev.index)
+    C = scan_chunks(P * blk, r_cand, S, B, n_sm, shared=shared)
     part_v = torch.empty((B, S, C, r_cand), dtype=torch.float32, device=dev)
     part_p = torch.empty((B, S, C, r_cand), dtype=torch.int32, device=dev)
     if B * S == 0:

@@ -705,7 +705,7 @@ def knn_kdist(X, kk: int):
                          f"and kk in [1, n - 1]; got n = {n}, f = {f}, "
                          f"kk = {kk}")
     _kb.check(X, "X", torch.float32, (n, f), dev)
-    sq = torch.empty(n, dtype=torch.float32, device=dev)
+    sq = torch.empty(n + 1, dtype=torch.float32, device=dev)
     dk = torch.empty(n, dtype=torch.float32, device=dev)
     _kb.launch("knn_outlier", dev, X.data_ptr(), n, f, int(kk),
                sq.data_ptr(), dk.data_ptr())

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Probe of K16 (``bm25_scatter``), K6 (``knn_scan``), K9
-(``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``)
-and K4 (``blockmax_scan``) on one card, at the inputs ``chip_smoke.py``
-gives them on its main paths.
+(``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``),
+K4 (``blockmax_scan``), K3 (``topk_merge``) and K21 (``knn_outlier``) on
+one card, at the inputs ``chip_smoke.py`` gives them on its main paths.
 
-    python3 kernel_probe.py [--tree DIR] [--kernels k16,k6,k9,k8,k1,k4]
+    python3 kernel_probe.py [--tree DIR]
+                            [--kernels k16,k6,k9,k8,k1,k4,k3,k21]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -57,6 +58,21 @@ JSON lines and writes them to ``--out`` as well.
   stamps (a block's cycles; in the scan the tier loads, the accumulator's
   read-modify-write and the window merge a scored step; the survivor pass
   with the keys pushed and inserted; the verdict with its sort).
+- K3 on the calls one dispatch makes on the headline's ``search``, the
+  pruned step (mix (a)'s checked batch), the exact kNN step and the
+  hybrid step (recorded with the smoke's planes and inputs): each call's shape, plan (where the tree's K3 has one),
+  CUDA-event mean, device time (``torch.profiler``) and host time a
+  call; each path's calls together beside ``torch.topk`` over the same
+  rows; on the kNN paths the chunk reduce as one call and as the
+  two-stage split ``reduce_chunks`` made before.
+- K21 at outlier detection (l)'s input (recorded from
+  ``start_analytics`` on the smoke's flights frame): CUDA-event mean,
+  device time, blocks an SM, the bound; a build with ``clock64()``
+  stamps of either design (the one-thread-a-row kernel's tile copy, FMAs
+  and epilogue; the tiled kernel's wait, copies, FMAs, epilogue and
+  inserts) and, for the tiled design, builds with a part left out, a
+  size or the epilogue's rounding changed, beside the unedited source
+  built the same way (``K21_VARIANTS``), timed in order and in reverse.
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -1133,12 +1149,508 @@ def run_k4(rows, reps, tree, variants):
     torch.cuda.empty_cache()
 
 
+def k3_paths(dev):
+    """(path, recorded K3 calls) of one dispatch of the headline's
+    ``search``, the pruned step, the exact kNN step and the hybrid step,
+    at ``chip_smoke.py``'s shapes and inputs."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import knn, tiered_bm25
+    from elasticsearch_tpu_torch.parallel import dist_search
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedKnnPlane, DistributedSearchPlane, fused_search_device,
+        knn_step)
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    mods = (dist_search, knn, tiered_bm25)
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
+    cs.sample_queries(rng, corpus, 1, batch=12)
+    plane = DistributedSearchPlane([corpus], "body", device=dev)
+    warm = cs.sample_queries(rng, corpus, 1)[0]
+    batches = cs.sample_queries(rng, corpus, cs.TIMED_BATCHES)
+    L1 = cs.workload_L(plane, [warm] + batches)
+    calls = []
+    with cs.recording(calls, ("topk_merge",), mods):
+        plane.search(batches[0], k=cs.K, Q=cs.N_TERMS, L=L1, tiered=True)
+    yield "headline search", calls
+    del plane, corpus, calls
+    torch.cuda.empty_cache()
+    yield "pruned step (a)", pruned_k3_calls(dev)
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(1234)
+    vecs = rng.randn(cs.KNN_ROWS, cs.KNN_DIM).astype(np.float32)
+    qs = [rng.randn(cs.KNN_BATCH, cs.KNN_DIM).astype(np.float32)
+          for _ in range(2)]
+    plane = DistributedKnnPlane([dict(vectors=vecs)], similarity="cosine",
+                                device=dev)
+    del vecs
+    v, vn, ex = plane._device_arrays()
+    calls = []
+    with cs.recording(calls, ("topk_merge",), mods):
+        knn_step(v, vn, ex, torch.from_numpy(qs[1]).to(dev),
+                 n_pad=plane.n_pad, k=cs.KNN_K, similarity="cosine",
+                 block=plane.block)
+    yield "exact kNN step", calls
+    del plane, v, vn, ex, calls
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(1234)
+    corpus = cs.hybrid_corpus(rng, cs.HY_DOCS)
+    tplane = DistributedSearchPlane([corpus], "body", device=dev)
+    vecs = cs.hybrid_vectors(cs.HY_DOCS, cs.HY_DIM)
+    kplane = DistributedKnnPlane([dict(vectors=vecs)],
+                                 similarity="dot_product", device=dev)
+    del vecs
+    kplane._device_arrays()
+    batches, _el, _p, _dense = cs.hybrid_traffic(rng, corpus, tplane,
+                                                 cs.HY_DIM)
+    calls = []
+    with cs.recording(calls, ("topk_merge",), mods):
+        fused_search_device(tplane, kplane, batches[1], fusion="rrf")
+    yield "hybrid step", calls
+    del tplane, kplane, corpus, calls
+    torch.cuda.empty_cache()
+
+
+def pruned_k3_calls(dev):
+    """The two K3 calls of pruned mix (a)'s checked batch, as the pruned
+    step makes them (and ``chip_smoke.check_pruned_kernels`` checks them):
+    the B·S rows of K4's R survivors, rescored by K5, to k, then the
+    shard reduce; as recorded calls."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan
+    from elasticsearch_tpu_torch.ops.fused_query import bisect_exact_scores
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    _corpus, plane, mixes = prune_mixes(dev)
+    args, kw, prep = k4_call(plane, mixes["a"][1])
+    acc = plane.blockmax.scan_workspace(prep["B"] * plane.n_shards, dev)
+    ci = blockmax_scan(*args, **kw, acc=acc)[0]
+    a = prep["args"]
+    score = bisect_exact_scores(a["postings_docs"], a["postings_impact"],
+                                a["starts"], a["lengths"], a["idfw"], ci,
+                                n_pad=plane.n_pad)[0]
+    B, S, R = prep["B"], plane.n_shards, prep["R"]
+    kk = min(cs.K, plane.n_pad)
+    a1 = (score.reshape(B * S, R), ci.reshape(B * S, R))
+    kw1 = dict(k=kk, fill_id=plane.n_pad)
+    v1, d1 = topk_merge(*a1, **kw1)
+    a2 = (v1.view(B, S * kk), d1.view(B, S * kk))
+    kw2 = dict(k=min(cs.K, S * kk), fill_id=S * plane.n_pad, seg_len=kk,
+               seg_stride=plane.n_pad)
+    return [("topk_merge", a1, kw1, None), ("topk_merge", a2, kw2, None)]
+
+
+def k3_shape(args, kw):
+    """A K3 call's (R, ma, mb, k, dedup, seg_len, seg_stride, with_sel)."""
+    R, ma = args[0].shape
+    b = args[2] if len(args) > 2 else kw.get("b_vals")
+    return dict(R=R, ma=ma, mb=0 if b is None else b.shape[1], k=kw["k"],
+                dedup=bool(kw.get("dedup", False)),
+                seg_len=kw.get("seg_len"), seg_stride=kw.get("seg_stride", 0),
+                with_sel=bool(kw.get("with_sel", False)))
+
+
+def k3_rows(args):
+    """The rows a K3 call reduces ([a | b]), for the library yardstick."""
+    import torch
+    b = args[2] if len(args) > 2 else None
+    return args[0] if b is None else torch.cat([args[0], b], 1)
+
+
+def run_k3(rows, reps):
+    """K3 on each path's recorded calls: each call's shape, plan (where
+    the tree's K3 has one), CUDA-event mean, device time (``torch.profiler``)
+    and host time a call; then the path's calls together beside the
+    yardstick, ``torch.topk`` over the same rows, timed in the same
+    call."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import topk as topk_mod
+    dev = torch.device("cuda")
+    plan_of = getattr(topk_mod, "topk_merge_plan", None)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for path, calls in k3_paths(dev):
+        k3 = [(a, kw) for _n, a, kw, _o in cs.of(calls, "topk_merge")]
+        for a, kw in k3:
+            shape = k3_shape(a, kw)
+            plan = plan_of(shape["R"], shape["ma"] + shape["mb"], kw["k"],
+                           shape["dedup"], n_sm) if plan_of else \
+                "one block of 256 threads a row, k serial passes"
+
+            def call(a=a, kw=kw):
+                return topk_mod.topk_merge(*a, **kw)
+            by_name = cs.device_ms_by_name(call, reps)
+            emit(rows, kernel="topk_merge", what=f"{path}, one call",
+                 **shape, plan=plan, ms=cs.timed(call, reps),
+                 host_ms=host_ms(call, reps),
+                 device_ms=sum(by_name.values()), by_name=by_name)
+
+        def all_calls():
+            return [topk_mod.topk_merge(*a, **kw) for a, kw in k3]
+
+        def library():
+            for a, kw in k3:
+                x = k3_rows(a)
+                torch.topk(x, min(kw["k"], x.shape[1]), dim=1)
+        got = {name: dict(ms=cs.timed(fn, reps), host_ms=host_ms(fn, reps))
+               for name, fn in (("k3", all_calls), ("library", library))}
+        for name, fn in (("k3", all_calls), ("library", library)):
+            by_name = cs.device_ms_by_name(fn, reps)
+            got[name].update(device_ms=sum(by_name.values()),
+                             by_name=by_name)
+        emit(rows, kernel="topk_merge", what=f"{path}, all {len(k3)} calls",
+             calls=len(k3), **{f"{n}_{key}": v for n, d in got.items()
+                               for key, v in d.items()})
+        if path.startswith(("exact", "hybrid")):
+            k3_split_row(rows, reps, k3)
+
+
+def k3_split_row(rows, reps, k3):
+    """The kNN chunk reduce (the path's longest K3 row) as one call and
+    as the two-stage split ``reduce_chunks`` made before K3 spread a row
+    over blocks (groups of chunks halved while longer than 4,096
+    entries), with this tree's K3: CUDA-event and device times."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops.topk import topk_merge
+    a, kw = max(k3, key=lambda c: c[0][0].shape[0] * c[0][0].shape[1])
+    k, fill = kw["k"], kw["fill_id"]
+    v, i = a[0], a[1]
+    R, m = v.shape
+    C = m // k
+    if C * k != m or kw.get("seg_stride"):
+        return
+    if R * m == 0 or C < 2:
+        return
+    g = C
+    while g * k > 1 << 12 and g % 2 == 0:
+        g //= 2
+
+    def one():
+        return topk_merge(v, i, k=k, fill_id=fill)
+
+    def two():
+        pv, pi = topk_merge(v.reshape(R * (C // g), g * k),
+                            i.reshape(R * (C // g), g * k), k=k,
+                            fill_id=fill) if g < C else (v, i)
+        return topk_merge(pv.reshape(R, -1), pi.reshape(R, -1), k=k,
+                          fill_id=fill)
+    out = {}
+    for name, fn in (("one_call", one), ("two_stage", two)):
+        by_name = cs.device_ms_by_name(fn, reps)
+        out[name] = dict(ms=cs.timed(fn, reps),
+                         device_ms=sum(by_name.values()))
+    emit(rows, kernel="topk_merge", what="kNN chunk reduce: one call or two",
+         R=R, chunks=C, k=k, group=g, **out)
+
+
+#: text edits of the one-thread-a-row csrc/knn_outlier.cu (commit
+#: fd32fbc's) that stamp its phases with clock64() in every thread: the
+#: tile copy with its two barriers, the FMAs (up to a value of the last
+#: accumulator), the epilogue with its inserts, and the block's whole time;
+#: a block's record holds thread 0's stamps and the largest epilogue of its
+#: threads
+K21_PHASES = [
+    ("#define K21_FC 16\n",
+     "#define K21_FC 16\n"
+     "__device__ long long k21_dbg[8 << 11];\n"
+     "extern \"C\" int es_probe_k21_phases(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k21_dbg, n * 64);\n}\n"
+     "__device__ __forceinline__ long long k21_clk() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t)::\"memory\");\n"
+     "  return t;\n}\n"),
+    ("  float thr = CUDART_INF_F;\n",
+     "  float thr = CUDART_INF_F;\n"
+     "  long long dbg_t0 = k21_clk(), dbg_cp = 0, dbg_fma = 0, dbg_epi = 0,\n"
+     "            dbg_x = 0, dbg_ins = 0, dbg_sink = 0;\n"),
+    ("      __syncthreads();                  // the previous chunk's reads "
+     "are done\n",
+     "      dbg_x = k21_clk();\n"
+     "      __syncthreads();                  // the previous chunk's reads "
+     "are done\n"),
+    ("      __syncthreads();\n#pragma unroll\n      for (int dd = 0; dd < "
+     "K21_FC; ++dd) {\n",
+     "      __syncthreads();\n      dbg_cp += k21_clk() - dbg_x;\n"
+     "      dbg_x = k21_clk();\n"
+     "#pragma unroll\n      for (int dd = 0; dd < K21_FC; ++dd) {\n"),
+    ("            acc[jj + 3] = __fmaf_rn(x, c4.w, acc[jj + 3]);\n"
+     "          }\n        }\n      }\n    }\n    if (live) {\n",
+     "            acc[jj + 3] = __fmaf_rn(x, c4.w, acc[jj + 3]);\n"
+     "          }\n        }\n      }\n"
+     "      dbg_sink += __float_as_int(acc[K21_COLS - 1]);\n"
+     "      dbg_fma += k21_clk() - dbg_x;\n    }\n"
+     "    dbg_x = k21_clk();\n    if (live) {\n"),
+    ("          if (d2 < thr) thr = k21_insert(lst, tid, kk, d2);\n"
+     "        }\n      }\n    }\n  }\n",
+     "          if (d2 < thr) {\n            thr = k21_insert(lst, tid, kk, "
+     "d2);\n            ++dbg_ins;\n          }\n"
+     "        }\n      }\n      dbg_sink += __float_as_int(thr);\n    }\n"
+     "    dbg_epi += k21_clk() - dbg_x;\n  }\n"),
+    ("    dk[i] = __fsqrt_rn(__fdiv_rn(s, (float)kk));\n  }\n}\n",
+     "    dk[i] = __fsqrt_rn(__fdiv_rn(s, (float)kk));\n  }\n"
+     "  if (blockIdx.x < (1 << 11)) {\n"
+     "    long long* o = k21_dbg + blockIdx.x * 8;\n"
+     "    if (tid == 0) o[4] = o[7] = 0;\n"
+     "    __syncthreads();\n"
+     "    atomicMax((unsigned long long*)(o + 4), (unsigned long long)"
+     "dbg_epi);\n    atomicAdd((unsigned long long*)(o + 7), "
+     "(unsigned long long)dbg_ins);\n"
+     "    if (tid == 0) {\n"
+     "      o[0] = k21_clk() - dbg_t0;\n      o[1] = dbg_cp;\n"
+     "      o[2] = dbg_fma;\n      o[3] = dbg_epi;\n      o[5] = dbg_ins;\n"
+     "      o[6] = dbg_sink & 1;\n    }\n  }\n}\n"),
+    ("",
+     "\nextern \"C\" int es_knn_outlier_blocks_per_sm(int kk) {\n"
+     "  const size_t lst_bytes = (size_t)kk * K21_ROWS * sizeof(float);\n"
+     "  if (es_set_shared(k21_kdist, lst_bytes) != 0) return 0;\n"
+     "  int nb = 0;\n"
+     "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, k21_kdist, "
+     "K21_ROWS, lst_bytes);\n  return nb;\n}\n"),
+]
+
+#: text edits of the register-tiled csrc/knn_outlier.cu that leave one
+#: part out or change a size; each keeps the other parts' work alive (the
+#: results are wrong, the times are the point)
+K21_VARIANTS = {
+    # the source as it is, built as the variants are: their yardstick
+    "as_is": [],
+    # the epilogue's two roundings on every row, never fma(-2, acc, s)
+    "two_roundings": [("    k21_body<true>(", "    k21_body<false>(")],
+    # no row's pairs ever go to the insert
+    "no_inserts": [("        cand[a] = thr[a] > 0.0f &&\n",
+                    "        cand[a] = thr[a] < 0.0f &&\n")],
+    # no epilogue: d2, the mins and the inserts run on no tile
+    "no_epilogue": [("    if (ch != nch - 1) continue;",
+                     "    if (ch != nch - 1 || __float_as_int(acc[0][0]) "
+                     "!= 0x7fc01234) continue;")],
+    # one column tile copied, then computed on again and again
+    "no_copies": [("    if (s + 1 < n_stages)\n      k21_stage(",
+                   "    if (s + 1 < (n < 0 ? n_stages : 1))\n      "
+                   "k21_stage(")],
+    # no wait and no barrier at the top of a stage
+    "no_sync": [("    asm volatile(\"cp.async.wait_group 0;\\n\" ::: "
+                 "\"memory\");\n    __syncthreads();\n    int t0",
+                 "    int t0")],
+    # two tiles a stage, not four
+    "sub2": [("#define K21_SUB 4\n", "#define K21_SUB 2\n")],
+    # one block an SM: up to 255 registers a thread
+    "one_block_an_sm": [("__global__ void __launch_bounds__(K21_THREADS, 2)",
+                         "__global__ void __launch_bounds__(K21_THREADS, 1)")],
+}
+
+#: the same stamps for the register-tiled csrc/knn_outlier.cu (thread 0
+#: of each block): the block's whole time, the wait and barrier at the top
+#: of a stage, the stage's copies issued, the FMAs of a tile (up to a
+#: value of the last accumulator), the d2 epilogue, the inserts' section
+#: (the mins, the vote, the turns); the largest inserts' section of the
+#: block's threads and the turns they took
+K21_PHASES_TILES = [
+    ("#define K21_THREADS 256\n",
+     "#define K21_THREADS 256\n" + K21_PHASES[0][1].split("\n", 1)[1]),
+    ("  const int diag = r0 / K21_BN;\n",
+     "  const int diag = r0 / K21_BN;\n"
+     "  long long dbg_t0 = k21_clk(), dbg_w = 0, dbg_is = 0, dbg_fm = 0,\n"
+     "            dbg_ep = 0, dbg_in = 0, dbg_x = 0, dbg_turns = 0,\n"
+     "            dbg_sink = 0;\n"),
+    ("    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+     "    __syncthreads();\n",
+     "    dbg_x = k21_clk();\n"
+     "    asm volatile(\"cp.async.wait_group 0;\\n\" ::: \"memory\");\n"
+     "    __syncthreads();\n    dbg_w += k21_clk() - dbg_x;\n"
+     "    dbg_x = k21_clk();\n"),
+    ("    asm volatile(\"cp.async.commit_group;\\n\" ::: \"memory\");\n"
+     "    const float* sqc = sqc_s[sqb];\n",
+     "    asm volatile(\"cp.async.commit_group;\\n\" ::: \"memory\");\n"
+     "    dbg_is += k21_clk() - dbg_x;\n"
+     "    const float* sqc = sqc_s[sqb];\n"),
+    ("      const float* cs = cols_s[s & 1] + u * (K21_BN * K21_FC);\n",
+     "      const float* cs = cols_s[s & 1] + u * (K21_BN * K21_FC);\n"
+     "      dbg_x = k21_clk();\n"),
+    ("      if (ch != nch - 1) continue;\n",
+     "      dbg_sink += __float_as_int(acc[K21_TM - 1][K21_TN - 1]);\n"
+     "      dbg_fm += k21_clk() - dbg_x;\n      dbg_x = k21_clk();\n"
+     "      if (ch != nch - 1) continue;\n"),
+    ("      // ---- inserts: a row whose min beats its threshold (the list's\n",
+     "      dbg_sink += __float_as_int(acc[0][0]);\n"
+     "      dbg_ep += k21_clk() - dbg_x;\n      dbg_x = k21_clk();\n"
+     "      // ---- inserts: a row whose min beats its threshold (the list's\n"),
+    ("      if (!__any_sync(0xffffffffu, any)) continue;\n",
+     "      if (!__any_sync(0xffffffffu, any)) {\n"
+     "        dbg_in += k21_clk() - dbg_x;\n        continue;\n      }\n"),
+    ("          if (turn & (1u << lane)) {\n",
+     "          if (turn & (1u << lane)) {\n            ++dbg_turns;\n"),
+    ("        if (row[a] < n) thr[a] = ls[kk - 1];\n      }\n    }\n  }\n",
+     "        if (row[a] < n) thr[a] = ls[kk - 1];\n      }\n"
+     "      dbg_in += k21_clk() - dbg_x;\n    }\n  }\n"),
+    ("    dk[i] = __fsqrt_rn(__fdiv_rn(s, (float)kk));\n  }\n}\n",
+     "    dk[i] = __fsqrt_rn(__fdiv_rn(s, (float)kk));\n  }\n"
+     "  if (blockIdx.x < (1 << 11)) {\n"
+     "    long long* o = k21_dbg + blockIdx.x * 8;\n"
+     "    if (tid == 0) o[6] = o[7] = 0;\n    __syncthreads();\n"
+     "    atomicMax((unsigned long long*)(o + 6), (unsigned long long)"
+     "dbg_in);\n    atomicAdd((unsigned long long*)(o + 7), "
+     "(unsigned long long)dbg_turns);\n"
+     "    if (tid == 0) {\n      o[0] = k21_clk() - dbg_t0;\n"
+     "      o[1] = dbg_w;\n      o[2] = dbg_is;\n      o[3] = dbg_fm;\n"
+     "      o[4] = dbg_ep;\n      o[5] = dbg_in + (dbg_sink & 1);\n    }\n"
+     "  }\n}\n"),
+]
+
+K21_TILE_PHASE_KEYS = ("block_cycles", "wait_and_barrier", "copies_issued",
+                       "fmas", "d2_epilogue", "inserts_section",
+                       "inserts_section_max_thread", "turns_block")
+
+K21_PHASE_KEYS = ("block_cycles", "tile_copy", "fmas", "epilogue",
+                  "epilogue_max_thread", "inserts_thread0", "sink",
+                  "inserts_block")
+
+
+def k21_input(dev):
+    """(X, kk) of outlier detection (l): the standardised flights frame as
+    ``chip_smoke.py``'s ML phase hands it to K21 (recorded from
+    ``start_analytics``)."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.xpack import ml
+    rng = np.random.RandomState(1234)
+    frame = cs.flights_frame(rng, cs.ML_FRAME_DOCS)
+    svc = ml.MlService(cs.frame_search(frame), lambda index, lines: None,
+                       device=dev)
+    cs.ml_model(rng)
+    got = []
+    orig = ml.knn_kdist
+
+    def rec(X, kk):
+        got.append((X, kk))
+        return orig(X, kk)
+    svc.put_analytics("probe-outliers", {
+        "source": {"index": "kibana_sample_data_flights"},
+        "dest": {"index": "probe-outliers"},
+        "analysis": {"outlier_detection": {}}})
+    ml.knn_kdist = rec
+    try:
+        svc.start_analytics("probe-outliers")
+    finally:
+        ml.knn_kdist = orig
+    (X, kk), = got
+    return X, kk
+
+
+def k21_phases(tree, X, kk, reps):
+    """The phases build's reading (its C entry called as the wrapper calls
+    it): the mean of each stamp over the blocks, the SM clock, and the
+    build's CUDA-event mean; "not measured" where the tree's source is
+    another design."""
+    cs = smoke()
+    import torch
+    keys, lib = K21_PHASE_KEYS, build_variant(
+        tree, "phases", K21_PHASES, scratch_dir(), source="knn_outlier")
+    if lib is None:
+        keys, lib = K21_TILE_PHASE_KEYS, build_variant(
+            tree, "phases", K21_PHASES_TILES, scratch_dir(),
+            source="knn_outlier")
+    if lib is None:
+        return "not measured (edit target missing: another design)"
+    call = k21_entry_call(lib, X, kk)
+    n = X.shape[0]
+    ms = cs.timed(call, reps)
+    nb = min(-(-n // (128 if keys is K21_PHASE_KEYS else 64)), 1 << 11)
+    buf = (ctypes.c_longlong * (8 * nb))()
+    call()
+    torch.cuda.synchronize()
+    if lib.es_probe_k21_phases(buf, nb):
+        return "not measured (copy failed)"
+    a = np.frombuffer(buf, dtype=np.int64).reshape(nb, 8)
+    mean = a.astype(np.float64).mean(0)
+    out = {key: float(v) for key, v in zip(keys, mean) if key != "sink"}
+    out.update(ms=ms, blocks_read=nb, sm_clock_mhz=sm_clock_mhz(),
+               cycles_max=float(a[:, 0].max()))
+    occ = getattr(lib, "es_knn_outlier_blocks_per_sm", None)
+    if occ is not None:
+        occ.argtypes = [ctypes.c_int]
+        occ.restype = ctypes.c_int
+        out["blocks_per_sm"] = occ(kk)
+    return out
+
+
+def k21_entry_call(lib, X, kk):
+    """A call of a K21 build's C entry as the wrapper makes it."""
+    import torch
+    fn = lib.es_knn_outlier
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    n, f = X.shape
+    sq = torch.empty(n + 1, device=X.device)
+    dk = torch.empty(n, device=X.device)
+
+    def call():
+        if fn(X.data_ptr(), n, f, kk, sq.data_ptr(), dk.data_ptr(),
+              torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("a K21 build refused the launch")
+    return call
+
+
+def k21_variants(tree, X, kk, reps):
+    """Each of ``K21_VARIANTS``' builds' CUDA-event means on (l)'s input,
+    timed in order and again in reverse order ("not measured" where the
+    tree's source is another design)."""
+    cs = smoke()
+    out, calls = {}, {}
+    for name, edits in K21_VARIANTS.items():
+        lib = build_variant(tree, name, edits, scratch_dir(),
+                            source="knn_outlier")
+        if lib is None:
+            out[name] = "not measured (edit target missing: another design)"
+        else:
+            calls[name] = k21_entry_call(lib, X, kk)
+    for name in list(calls) + list(calls)[::-1]:
+        out.setdefault(name, []).append(cs.timed(calls[name], reps))
+    return out
+
+
+def run_k21(rows, reps, tree):
+    """K21 at (l)'s input: CUDA-event mean, device time, the launch's
+    blocks an SM and registers, the bound, the library yardstick, and the
+    phases build's stamps (the parent's one-thread-a-row design)."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.xpack import ml
+    dev = torch.device("cuda")
+    X, kk = k21_input(dev)
+    n, f = X.shape
+
+    def call():
+        return ml.knn_kdist(X, kk)
+    ms = cs.timed(call, reps)
+    by_name = cs.device_ms_by_name(call, 2)
+    lib = kb.library("knn_outlier")
+    occ = getattr(lib, "es_knn_outlier_blocks_per_sm", None)
+    per_sm = "not measured"
+    if occ is not None:
+        occ.argtypes = [ctypes.c_int]
+        occ.restype = ctypes.c_int
+        per_sm = occ(kk)
+    regs = [ln.strip() for ln in kb.ptxas_report.get("knn_outlier",
+                                                     "").splitlines()
+            if "registers" in ln or "spill" in ln]
+    emit(rows, kernel="knn_outlier", what="(l) outlier detection", n=n, f=f,
+         kk=kk, ms=ms, device_ms=sum(by_name.values()), by_name=by_name,
+         blocks_per_sm=per_sm, ptxas=regs,
+         bound_ms=cs.bound(4 * n * f + 4 * n, 2 * n * n * f)[0],
+         phases=k21_phases(tree, X, kk, max(reps // 2, 1)),
+         variants=k21_variants(tree, X, kk, max(reps // 2, 1)))
+    del X
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
-    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4",
-                   help="comma-separated: which of k16, k6, k9, k8, k1, k4 "
-                   "to probe")
+    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4,k3,k21",
+                   help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
+                   "k3, k21 to probe")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -1170,6 +1682,10 @@ def main() -> int:
         run_k1(rows, opts.reps, tree, opts.variants)
     if "k4" in which:
         run_k4(rows, opts.reps, tree, opts.variants)
+    if "k3" in which:
+        run_k3(rows, opts.reps)
+    if "k21" in which:
+        run_k21(rows, max(opts.reps // 4, 2), tree)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

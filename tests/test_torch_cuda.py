@@ -161,6 +161,103 @@ def test_k3_long_rows_equal_plain(cuda, m, k, dedup):
         assert np.array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
+def _chunk_lists(seed, R, C, k, n_pad=1 << 22):
+    """K6-like partial lists [R, C·k]: C lists of k (score desc, row asc)
+    with unique rows in a row, randn scores on a 2^-12 grid (ties), a
+    -inf tail in a quarter of the lists."""
+    rng = np.random.RandomState(seed)
+    v = np.round(rng.randn(R, C, k) * 4096) / 4096
+    v = v.astype(np.float32)
+    ids = np.stack([rng.permutation(n_pad)[:C * k].reshape(C, k)
+                    for _ in range(R)]).astype(np.int32)
+    tail = rng.rand(R, C) < 0.25
+    v[tail, k // 2:] = -np.inf
+    order = np.lexsort((ids, -v), axis=-1)
+    v = np.take_along_axis(v, order, -1)
+    ids = np.where(np.isfinite(v), np.take_along_axis(ids, order, -1), n_pad)
+    return v.reshape(R, C * k), ids.reshape(R, C * k).astype(np.int32)
+
+
+@pytest.mark.parametrize("R,C,k,seg", [
+    (64, 33, 128, False),       # the hybrid's old first stage, 64 x 4,224
+    (16, 4, 128, False),        # its second, 16 x 512
+    (16, 132, 128, False),      # the hybrid's one call now, 16 x 16,896
+    (16, 264, 100, False),      # exact kNN's, 16 x 26,400
+    (16, 1, 128, True),         # the shard reduce of one shard
+    (16, 8, 100, True)])        # and of eight
+def test_k3_at_the_hybrid_shapes(cuda, R, C, k, seg):
+    """K3 at the kNN paths' shapes equals its plain version bit for bit:
+    the chunk reduce over several blocks and a merge, and the shard
+    reduces (ids globalised as s · n_pad + row)."""
+    n_pad = 1 << 22
+    v, ids = _chunk_lists(R + C + k, R, C, k, n_pad)
+    kw = dict(k=k, fill_id=n_pad)
+    if seg:
+        kw.update(seg_len=k, seg_stride=n_pad, fill_id=C * n_pad,
+                  with_sel=True)
+    n0 = kb.launches["topk_merge"]
+    got = topk_merge(_t(v, cuda), _t(ids, cuda), **kw)
+    assert kb.launches["topk_merge"] == n0 + 1
+    want = topk_merge_plain(_t(v, cuda), _t(ids, cuda), **kw)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case", ["dup_ids", "dup_ids_dedup", "nan",
+                                  "fill", "k_past_m", "signed_zero",
+                                  "one_key"])
+def test_k3_edge_entries(cuda, case):
+    """K3 equals its plain version bit for bit where the order leans on
+    its last tie-breakers: duplicate ids without dedup (equal values come
+    out in column order, over the select's column bytes), with dedup,
+    NaN and ids at or past ``fill_id`` (no part), k past the row, -0 and
+    +0 (equal values), and one key repeated over a whole row."""
+    rng = np.random.RandomState(len(case))
+    R, m, k, fill = 6, 3000, 100, 1 << 20
+    v = rng.choice(np.array([0.5, 1.0, 2.0, 3.0], np.float32), (R, m))
+    ids = rng.randint(0, 40, (R, m)).astype(np.int32)
+    kw = dict(k=k, fill_id=fill, with_sel=True)
+    if case == "dup_ids_dedup":
+        kw.update(dedup=True, with_sel=False)
+    elif case == "nan":
+        v[rng.rand(R, m) < 0.3] = np.nan
+    elif case == "fill":
+        ids = rng.randint(0, 200, (R, m)).astype(np.int32)
+        kw["fill_id"] = 100
+    elif case == "k_past_m":
+        v, ids, kw["k"] = v[:, :70], ids[:, :70], 300
+    elif case == "signed_zero":
+        v = rng.choice(np.array([0.0, -0.0, 1.0, -1.0], np.float32),
+                       (R, m))
+        ids = rng.randint(0, 1000, (R, m)).astype(np.int32)
+    elif case == "one_key":
+        v[:], ids[:] = 1.0, 7
+    got = topk_merge(_t(v, cuda), _t(ids, cuda), **kw)
+    want = topk_merge_plain(_t(v, cuda), _t(ids, cuda), **kw)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
+@pytest.mark.parametrize("R,m,k,dedup", [
+    (4, 30000, 128, False),     # a 30,000-entry row over many blocks
+    (4, 20000, 100, True),      # 40,000 entries ([a | b]), dedup, merged
+    (3, 40000, 2000, False),    # survivors of 4,096, a merge of 8,000
+    (1, 1_000_000, 2000, False)])   # the merge past shared memory
+def test_k3_long_rows_over_blocks(cuda, R, m, k, dedup):
+    """Rows the old kernel held in a device-memory workspace: K3 splits
+    them over blocks (and, past shared memory, into its workspace) and
+    equals its plain version bit for bit."""
+    c = topk_lists_case(m % 97, R=R, m=m, n_pad=1 << 22)
+    a = (_t(c["a_vals"], cuda), _t(c["a_docs"], cuda))
+    b = (_t(c["b_vals"], cuda), _t(c["b_docs"], cuda)) if dedup else \
+        (None, None)
+    kw = dict(k=k, dedup=dedup, fill_id=1 << 22, with_sel=not dedup)
+    got = topk_merge(*a, *b, **kw)
+    want = topk_merge_plain(*a, *b, **kw)
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+
+
 def test_kernels_refuse_sizes_beyond_shared_memory(cuda):
     """Sizes whose tables cannot fit one block's shared memory are refused
     with an error that says so, not launched."""
@@ -1597,6 +1694,35 @@ def test_k21_bitwise_equals_plain(cuda, n, f, kk, dups):
     _same_bits((got,), (want,))
 
 
+@pytest.mark.parametrize("n,f,kk,sq_big", [
+    (1000, 8, 5, 0.0),          # n not a multiple of the 64-row block
+    (64 * 3 + 1, 8, 5, 0.0),    # one row in the last block
+    (4096 + 17, 8, 5, 0.0),     # a last column tile of 17
+    (2000, 8, 5, 1e36),         # |x|^2 up to 1e37: the FMA form
+    (2000, 8, 5, 1e37),         # up to 5e37, past 2^124: two roundings
+    (500, 3, 7, 0.0),           # f not a multiple of 4
+    (700, 20, 16, 0.0)])        # three feature stages, the last partial
+def test_k21_tiles_equal_plain(cuda, n, f, kk, sq_big):
+    """K21's register tiles equal its plain version bit for bit: rows and
+    columns past n (the peeled edge tile), the diagonal, duplicate rows
+    (zero distances), rows of large magnitude (squared norms ``sq_big``
+    times 1..10, or 1..5) on either side of the bound that picks
+    fma(-2, acc, s) over two roundings."""
+    X = outlier_frame(n + f, n, f, duplicates=n // 40)
+    if sq_big:
+        u = np.random.RandomState(n).randn(10, f)
+        mult = np.arange(1, 11) if sq_big < 1e37 else \
+            np.repeat(np.arange(1, 6), 2)
+        X[:10] = u / np.linalg.norm(u, axis=1, keepdims=True) * \
+            np.sqrt(sq_big * mult)[:, None]
+    X = _t(X, cuda)
+    got = tml.knn_kdist(X, kk)
+    want = tml.knn_kdist_plain(X, kk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all()
+    _same_bits((got,), (want,))
+
+
 @pytest.mark.parametrize("n,f,C,bad", [
     (1, 1, 1, False), (300, 4, 2, False), (1000, 8, 3, True),
     (5000, 8, 2, False), (2000, 30, 12, False)])
@@ -1629,18 +1755,18 @@ def test_ml_kernels_refuse_what_they_cannot_launch(cuda):
     C entries given them anyway return the size code, whose message says
     so; nothing is counted."""
     before = dict(kb.launches)
-    X = _t(outlier_frame(5, 600, 4), cuda)
+    X = _t(outlier_frame(5, 1000, 4), cuda)
     with pytest.raises(RuntimeError, match="knn_outlier: launch refused: "
                        "the sizes need more shared memory"):
-        tml.knn_kdist(X, 512)
-    for kk in (0, 600):                             # kk outside [1, n - 1]
+        tml.knn_kdist(X, 900)
+    for kk in (0, 1000):                            # kk outside [1, n - 1]
         with pytest.raises(ValueError, match=r"kk in \[1, n - 1\]; got "
-                           rf"n = 600, f = 4, kk = {kk}"):
+                           rf"n = 1000, f = 4, kk = {kk}"):
             tml.knn_kdist(X, kk)
     size_msg = "launch refused: a size argument is outside the range"
     ws = torch.empty(600, device=cuda)
     with pytest.raises(RuntimeError, match="knn_outlier: " + size_msg):
-        kb.launch("knn_outlier", cuda, X.data_ptr(), 600, 4, 600,
+        kb.launch("knn_outlier", cuda, X.data_ptr(), 1000, 4, 1000,
                   ws.data_ptr(), ws.data_ptr())
     Xb = torch.ones(64, 5, device=cuda)
     y = torch.zeros(64, dtype=torch.int32, device=cuda)
@@ -1665,11 +1791,13 @@ def test_ml_kernels_refuse_what_they_cannot_launch(cuda):
 
 
 def test_ml_kernels_limits_on_this_card(cuda):
-    """The largest sizes each refusal leaves: K21's list takes kk * 128 * 4
-    bytes beside its 4,352 static bytes, K22's tile (256 (F1 + C + 2) +
-    F1 C) * 4; one past each is refused."""
+    """The largest sizes each refusal leaves: K21's lists take kk * 64 * 4
+    bytes beside its 36,864 static bytes, at least the 445 of the
+    one-thread-a-row kernel; K22's tile (256 (F1 + C + 2) + F1 C) * 4; one
+    past each is refused."""
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    kk_max = (optin - 4352) // 512
+    kk_max = (optin - 36864) // 256
+    assert kk_max >= 445
     X = _t(outlier_frame(6, kk_max + 2, 2), cuda)
     got = tml.knn_kdist(X, kk_max)
     torch.cuda.synchronize()

@@ -458,8 +458,9 @@ def test_ivf_step_pieces_match_the_plain_reference_window():
 
 @pytest.mark.parametrize("C,k", [(264, 100), (33, 100), (528, 40), (4, 5)])
 def test_chunk_reduce_equals_one_pass(C, k):
-    """The two-stage K3 reduce of the scans' chunk lists keeps exactly the
-    one-pass top-k (ids unique in a row, −inf slots filled)."""
+    """The K3 reduce of the scans' chunk lists (one call over the [R, C·k]
+    rows) keeps exactly the one-pass top-k (ids unique in a row, −inf
+    slots filled)."""
     rng = np.random.RandomState(C)
     R, fill = 3, 1 << 20
     v = rng.choice(np.linspace(0.0, 1.0, 50, dtype=np.float32),
@@ -488,7 +489,7 @@ def test_chunk_reduce_equals_one_pass(C, k):
     (1 << 20, 40, 1, 32, 132, 4, None, 264),
     # the bitmap floor: 2^25 rows are 262,144 tiles, 64 blocks at least
     (1 << 25, 10, 1, 16, 8, 1, tk.K6_BITMAP_TILES, 64),
-    # K3's cap on chunks · k wins
+    # K3's cap on chunks · k wins (its 2^15-entry floor at k = 10,000)
     (1 << 21, 10000, 1, 16, 132, 2, tk.K6_BITMAP_TILES, 3),
     # fewer tiles than blocks
     (300, 10, 2, 3, 132, 2, tk.K6_BITMAP_TILES, 3)])
@@ -497,10 +498,11 @@ def test_scan_chunks_sizes_the_grid(rows, k, S, B, n_sm, per_sm, max_tiles,
     """K6/K7's blocks along the row axis: ``per_sm`` an SM over the
     (shard, query tile) grid, enough that a K6 block's tiles fit its
     live-tile bitmap, a multiple of the SM count past one wave, and at
-    most 2^15 // k."""
+    most K3's row cap over k (``topk_merge_row_max``: 2^15 entries where
+    two lists of k pass a block's shared memory)."""
     got = tk.scan_chunks(rows, k, S, B, n_sm, per_sm, max_tiles)
     assert got == want
     tiles = -(-rows // tk.TILE_ROWS)
-    assert 1 <= got <= tiles and got * k <= 1 << 15
+    assert 1 <= got <= tiles and got * k <= tk.topk_merge_row_max(k)
     if got > n_sm:
         assert got % n_sm == 0
