@@ -486,8 +486,9 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
     from elasticsearch_tpu_torch.ops.sorted_merge import (
         sparse_candidates_topk, sparse_candidates_topk_plain)
     from elasticsearch_tpu_torch.ops.tiered_bm25 import (
-        dense_stream_partials, dense_stream_topk_plain, k2_tiling)
-    from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
+        dense_stream_partials, dense_stream_topk_plain, dense_stream_topk_plan)
+    from elasticsearch_tpu_torch.ops.topk import (card_limits, topk_merge,
+                                                  topk_merge_plain)
     from elasticsearch_tpu_torch.parallel.dist_search import \
         DistributedSearchPlane
     from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
@@ -595,7 +596,9 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
     rows_used = int(sum(np.count_nonzero(np.any(Wn[:, s] != 0, axis=0))
                         for s in range(S_)))
     nnz_w = int(np.count_nonzero(Wn))
-    per, n_tiles = k2_tiling(plane.n_pad, K)
+    k2_plan = dense_stream_topk_plan(B_, S_, W.shape[2], plane.n_pad, K,
+                                     *card_limits(0))
+    per, n_tiles = k2_plan["tile"], k2_plan["n_tiles"]
     k2_bytes = 2 * rows_used * plane.n_pad + Wn.nbytes \
         + 8 * B_ * S_ * n_tiles * K + 4 * B_ * S_
     k2_flops = 2 * nnz_w * plane.n_pad
@@ -672,7 +675,9 @@ def run(*, n_docs=N_DOCS, timed_batches=TIMED_BATCHES,
               f"{kd['launches'] / n_disp:.2f} launches/dispatch [{card}]")
     print(f"# K1 inputs: {n_post} valid postings, {n_owner} candidates; "
           f"K2 inputs: {rows_used} dense rows used, {nnz_w} non-zero "
-          f"weights, U={prep['U']}, {n_tiles} tiles of {per} docs")
+          f"weights, U={prep['U']}, {n_tiles} tiles of {per} docs, "
+          f"{k2_plan['QB']} queries a block, a ring of "
+          f"{k2_plan['rows_max']} rows a pass")
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return kernels, card, corpus
@@ -2795,7 +2800,11 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K4 blockmax_scan at (b)": 0.7226,
               "K3 topk_merge, the hybrid step's four calls": 0.7350,
               "K3 topk_merge, exact kNN's three calls": 0.4367,
-              "K21 knn_outlier at (l)": 39.1531}
+              "K21 knn_outlier at (l)": 39.1531,
+              "K2 dense_stream_topk at the headline": 3.8095,
+              "K12 agg_masked_scan, the route's prefix": 4.9246,
+              "K12 agg_masked_scan, the caches' counts": 2.4039,
+              "K12 agg_masked_scan, the caches' sums": 2.4962}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",

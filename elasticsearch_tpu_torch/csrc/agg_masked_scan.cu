@@ -2,17 +2,27 @@
 //
 // Replaces elasticsearch_tpu/ops/aggs.py:masked_ordinal_counts (:46),
 // masked_ordinal_sums (:63) and masked_rank_prefix (:113): gather the
-// query's doc mask at each pair (jnp.take with fill: a doc in [-n_pad, 0)
-// wraps, any other doc outside [0, n_pad) gathers false), take the
-// masked-count prefix c (c[i] = masked pairs before pair i), and the
+// query's doc mask at each pair's doc (jnp.take with fill: a doc in
+// [-n_pad, 0) wraps, any other doc outside [0, n_pad) gathers false), take
+// the masked-count prefix c (c[i] = masked pairs before pair i), and the
 // per-run counts c[off[v+1]] - c[off[v]]; or the per-run masked value
 // sums.
 //
 // Bound: bytes. The pairs (4 bytes a doc, 4 more with values, 4 written a
-// prefix entry) stream once; the mask is gathered at random (pairs sorted
-// by (ordinal, value) reach their docs in no order), and a gathered byte
-// costs the card a 32-byte sector of a mask far larger than L2. So the
-// counts and prefix modes gather the mask exactly once: pass 1 packs the
+// prefix entry) stream once and the byte mask is read once; but the pairs,
+// sorted by (ordinal, value), reach their docs in no order, and a byte
+// gathered from a mask far larger than the L2 costs the card a 32-byte
+// sector of device memory. So pass 0 packs the byte mask into bits, one a
+// doc (33.5 MB at n_pad 2^28, which the 50 MB L2 holds), reading the bytes
+// once, coalesced; every later gather reads a bit of it. The bits are
+// written and read under an evict-last L2 policy and the pair docs and
+// values with streaming (evict-first) loads, so that the bits stay in L2
+// while the pairs pass through it (c is stored plainly: a streaming store
+// of it cost the prefix mode more than the hints saved). After the last
+// gather a pass discards the bits' L2 lines (dead by then, so never
+// written back), and no evict-last line outlives the call.
+//
+// The counts and prefix modes gather each pair's bit once: pass 1 packs the
 // gathered bits of 32 pairs into one word with a warp ballot (1/8 byte a
 // pair) and sums each tile's bits; pass 2 scans the tile sums in one
 // block; pass 3 scans the words' popcounts within each tile (cub
@@ -40,13 +50,43 @@
 #define K12_SCAN_THREADS 1024
 #define K12_CHUNK 65536                     // pairs a chunk (sums mode)
 
+// Bit i of the result: byte i of x is not 0.
+__device__ __forceinline__ unsigned k12_bits4(unsigned x) {
+  return ((__vcmpne4(x, 0u) & 0x01010101u) * 0x01020408u) >> 24;
+}
+
+// Pass 0: the byte mask packed 32 docs a word (bit j of word w: doc
+// 32w + j), docs past n_pad clear. A thread a word: two 16-byte loads
+// where the mask is 16-byte aligned and the word lies whole in it.
+__global__ void __launch_bounds__(K12_THREADS)
+k12_pack_kernel(const unsigned char* __restrict__ mask, int n_pad,
+                long long n_mwords, unsigned* __restrict__ mbits) {
+  const long long w = (long long)blockIdx.x * K12_THREADS + threadIdx.x;
+  if (w >= n_mwords) return;
+  const long long d0 = w * 32;
+  unsigned word = 0;
+  if (((uintptr_t)mask & 15) == 0 && d0 + 32 <= n_pad) {
+    const uint4* src = reinterpret_cast<const uint4*>(mask + d0);
+    const uint4 a = __ldcs(src), b = __ldcs(src + 1);
+    const unsigned v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) word |= k12_bits4(v[i]) << (4 * i);
+  } else {
+    for (int j = 0; j < 32 && d0 + j < n_pad; ++j)
+      word |= (unsigned)(mask[d0 + j] != 0) << j;
+  }
+  asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;" ::"l"(mbits + w),
+               "r"(word), "l"(es_l2_evict_last())
+               : "memory");
+}
+
 // Pass 1: the mask bits of a tile's pairs as words, and the tile's count.
 // Warp w of the block packs words w*32 .. w*32+31 of the tile: step j
 // reads 32 neighbouring pair docs and ballots their bits into word j,
 // which lane j keeps.
 __global__ void __launch_bounds__(K12_THREADS)
 k12_bits_kernel(const int* __restrict__ docs, long long Mp,
-                const unsigned char* __restrict__ mask, int n_pad,
+                const unsigned* __restrict__ mbits, int n_pad,
                 long long n_words, unsigned* __restrict__ bits,
                 int* __restrict__ tile_sums) {
   typedef cub::BlockReduce<int, K12_THREADS> Reduce;
@@ -54,17 +94,20 @@ k12_bits_kernel(const int* __restrict__ docs, long long Mp,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long w0 = (long long)blockIdx.x * K12_TILE_WORDS + warp * 32;
+  const unsigned long long pol = es_l2_evict_last();
   int d[32];
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
     const long long i = (w0 + j) * 32 + lane;
-    d[j] = i < Mp ? docs[i] : -1 - n_pad;     // out of range: gathers false
+    d[j] = i < Mp ? __ldcs(docs + i) : -1 - n_pad;  // out of range: false
   }
+  bool g[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) g[j] = es_gather_bits(mbits, n_pad, d[j], pol);
   unsigned mine = 0;
 #pragma unroll
   for (int j = 0; j < 32; ++j) {
-    const unsigned word = __ballot_sync(0xffffffffu,
-                                        es_gather_mask(mask, n_pad, d[j]));
+    const unsigned word = __ballot_sync(0xffffffffu, g[j]);
     if (lane == j) mine = word;
   }
   const long long wi = w0 + lane;
@@ -161,7 +204,7 @@ k12_chunk_sums_kernel(const int* __restrict__ offsets, int Vp,
                       const int* __restrict__ chunk_base,
                       const int* __restrict__ docs,
                       const float* __restrict__ vals,
-                      const unsigned char* __restrict__ mask, int n_pad,
+                      const unsigned* __restrict__ mbits, int n_pad,
                       double* __restrict__ partial) {
   typedef cub::BlockReduce<double, K12_THREADS> Reduce;
   __shared__ typename Reduce::TempStorage tmp;
@@ -175,9 +218,13 @@ k12_chunk_sums_kernel(const int* __restrict__ offsets, int Vp,
   const long long start = (long long)offsets[lo] +
                           (long long)(g - chunk_base[lo]) * K12_CHUNK;
   const long long end = min(start + K12_CHUNK, (long long)offsets[lo + 1]);
+  const unsigned long long pol = es_l2_evict_last();
   double s = 0.0;
-  for (long long i = start + threadIdx.x; i < end; i += K12_THREADS)
-    if (es_gather_mask(mask, n_pad, docs[i])) s += (double)vals[i];
+  for (long long i = start + threadIdx.x; i < end; i += K12_THREADS) {
+    const int doc = __ldcs(docs + i);
+    const float v = __ldcs(vals + i);
+    if (es_gather_bits(mbits, n_pad, doc, pol)) s += (double)v;
+  }
   const double total = Reduce(tmp).Sum(s);
   if (threadIdx.x == 0) partial[g] = total;
 }
@@ -199,21 +246,50 @@ __global__ void k12_run_sums_kernel(const int* __restrict__ chunk_base,
   if (lane == 0) sums[v] = (float)s;
 }
 
+// The L2 lines of [lo, lo + 128 n_lines) dropped, their data left
+// undefined.
+__global__ void __launch_bounds__(K12_THREADS)
+k12_discard_kernel(char* lo, long long n_lines) {
+  const long long i = (long long)blockIdx.x * K12_THREADS + threadIdx.x;
+  if (i < n_lines)
+    asm volatile("discard.global.L2 [%0], 128;" ::"l"(lo + i * 128)
+                 : "memory");
+}
+
+// Discards the bit mask's whole 128-byte lines (at most a line at each end
+// stays, in the workspace's other sections or past it).
+static void k12_discard_bits(unsigned* mbits, long long n_mwords,
+                             cudaStream_t st) {
+  const uintptr_t lo = ((uintptr_t)mbits + 127) & ~(uintptr_t)127;
+  const uintptr_t hi = (uintptr_t)(mbits + n_mwords) & ~(uintptr_t)127;
+  if (hi <= lo) return;
+  const long long n = (long long)((hi - lo) / 128);
+  k12_discard_kernel<<<(unsigned)((n + K12_THREADS - 1) / K12_THREADS),
+                       K12_THREADS, 0, st>>>((char*)lo, n);
+}
+
 static long long k12_align(long long b) { return (b + 15) & ~15LL; }
 
 static long long k12_max_chunks(int Vp, long long Mp) {
   return Mp / K12_CHUNK + Vp;
 }
 
-// Workspace bytes for mode 0 (counts), 1 (counts + prefix), 2 (sums).
-extern "C" long long es_agg_masked_scan_workspace_bytes(int Vp, int Mp,
-                                                        int mode) {
+// Bytes of the packed mask at the workspace's head.
+static long long k12_mask_bytes(int n_pad) {
+  return k12_align(4 * (((long long)n_pad + 31) / 32));
+}
+
+// Workspace bytes for mode 0 (counts), 1 (counts + prefix), 2 (sums): the
+// packed mask, then the mode's tables (ops/aggs.py:
+// masked_scan_workspace_bytes sizes the buffer).
+static long long k12_workspace_bytes(int Vp, int Mp, int n_pad, int mode) {
   const long long n_words = ((long long)Mp + 31) / 32;
   const long long n_tiles = (n_words + K12_TILE_WORDS - 1) / K12_TILE_WORDS;
   if (mode == 2)
-    return k12_align(4LL * (Vp + 1)) + 8LL * k12_max_chunks(Vp, Mp);
-  return k12_align(4 * n_words) + k12_align(4 * (n_tiles + 1)) +
-         k12_align(4 * (n_words + 1));
+    return k12_mask_bytes(n_pad) + k12_align(4LL * (Vp + 1)) +
+           8LL * k12_max_chunks(Vp, Mp);
+  return k12_mask_bytes(n_pad) + k12_align(4 * n_words) +
+         k12_align(4 * (n_tiles + 1)) + k12_align(4 * (n_words + 1));
 }
 
 extern "C" int es_agg_masked_scan(const int* offsets, int Vp,
@@ -222,10 +298,18 @@ extern "C" int es_agg_masked_scan(const int* offsets, int Vp,
                                   const unsigned char* mask, int n_pad,
                                   int mode, int* out_counts, int* out_c,
                                   float* out_sums, void* workspace,
-                                  void* stream) {
+                                  long long workspace_bytes, void* stream) {
   if (mode < 0 || mode > 2) return ES_ERR_ARG;
+  if (k12_workspace_bytes(Vp, Mp, n_pad, mode) > workspace_bytes)
+    return ES_ERR_SIZE;
   cudaStream_t st = (cudaStream_t)stream;
-  char* ws = (char*)workspace;
+  unsigned* mbits = (unsigned*)workspace;
+  char* ws = (char*)workspace + k12_mask_bytes(n_pad);
+  const long long n_mwords = ((long long)n_pad + 31) / 32;
+  const bool gathers = mode == 2 ? Vp > 0 && Mp > 0 : Mp > 0;
+  if (gathers && n_mwords > 0)
+    k12_pack_kernel<<<(unsigned)((n_mwords + K12_THREADS - 1) / K12_THREADS),
+                      K12_THREADS, 0, st>>>(mask, n_pad, n_mwords, mbits);
   if (mode == 2) {
     if (Vp == 0) return (int)cudaGetLastError();
     int* chunk_base = (int*)ws;
@@ -236,8 +320,9 @@ extern "C" int es_agg_masked_scan(const int* offsets, int Vp,
     const long long grid = k12_max_chunks(Vp, Mp);
     if (grid > 0)
       k12_chunk_sums_kernel<<<(unsigned)grid, K12_THREADS, 0, st>>>(
-          offsets, Vp, chunk_base, pair_docs, pair_vals, mask, n_pad,
+          offsets, Vp, chunk_base, pair_docs, pair_vals, mbits, n_pad,
           partial);
+    if (gathers) k12_discard_bits(mbits, n_mwords, st);
     const long long threads = 32LL * Vp;
     k12_run_sums_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
         chunk_base, Vp, partial, out_sums);
@@ -250,7 +335,8 @@ extern "C" int es_agg_masked_scan(const int* offsets, int Vp,
   int* wprefix = (int*)((char*)tile_prefix + k12_align(4 * (n_tiles + 1)));
   if (n_tiles > 0) {
     k12_bits_kernel<<<(unsigned)n_tiles, K12_THREADS, 0, st>>>(
-        pair_docs, Mp, mask, n_pad, n_words, bits, tile_prefix);
+        pair_docs, Mp, mbits, n_pad, n_words, bits, tile_prefix);
+    k12_discard_bits(mbits, n_mwords, st);
   }
   k12_scan_kernel<<<1, K12_SCAN_THREADS, 0, st>>>(tile_prefix, (int)n_tiles);
   if (n_tiles > 0) {

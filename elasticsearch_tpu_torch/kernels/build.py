@@ -67,10 +67,11 @@ _SIGNATURES = {
         "es_sparse_candidates_topk",
         [_P, _P, _I] + [_P] * 7 + [_I] * 15 + [_P] * 7),
     # W, dense, u_ids, B, S, U, n_blk, T, C, n_pad, k, msm, docs_per_tile,
-    # n_tiles, part_vals, part_docs, n_matched, stream
+    # n_tiles, QB, top_shared, rows_max, part_vals, part_docs, n_matched,
+    # workspace, workspace_bytes, stream
     "dense_stream_topk": (
         "es_dense_stream_topk",
-        [_P] * 3 + [_I] * 11 + [_P] * 4),
+        [_P] * 3 + [_I] * 14 + [_P] * 4 + [_L, _P]),
     # docs, imps, P, starts, lengths, idfw, cbits, req, neg, shd, msm,
     # B, S, Q, L, n_pad, k, nc, tshift, tpb, W, G, part_vals, part_docs,
     # part_count, out_vals, out_docs, out_count, stream
@@ -121,10 +122,10 @@ _SIGNATURES = {
         "es_rescore_reorder",
         [_P] * 7 + [_I] * 5 + [_P] * 4),
     # offsets, Vp, pair_docs, pair_vals, Mp, mask, n_pad, mode, out_counts,
-    # out_c, out_sums, workspace, stream
+    # out_c, out_sums, workspace, workspace_bytes, stream
     "agg_masked_scan": (
         "es_agg_masked_scan",
-        [_P, _I, _P, _P, _I, _P, _I, _I] + [_P] * 5),
+        [_P, _I, _P, _P, _I, _P, _I, _I] + [_P] * 4 + [_L, _P]),
     # c, n_c, offsets, V, vals, M, ordinals, lo, hi, frac, B, R, mode, out,
     # stream
     "agg_rank_pick": (
@@ -199,10 +200,6 @@ _QUERIES = {
     "rescore_reorder": {
         # (n, B) -> workspace bytes, 0 when a row's sort fits
         "es_rescore_reorder_workspace_bytes": ([_I] * 2, ctypes.c_longlong),
-    },
-    "agg_masked_scan": {
-        # (Vp, Mp, mode) -> workspace bytes
-        "es_agg_masked_scan_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     },
     "agg_bucket_reduce": {
         # (Mp, n_buckets, sums) -> workspace bytes, 0 for counts

@@ -100,6 +100,32 @@ def gather_mask(mask: torch.Tensor, pair_docs: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: K12's sizes, as ``csrc/agg_masked_scan.cu`` defines them: pair words
+#: a tile of its bit passes, pairs a chunk of its sums mode
+K12_TILE_WORDS = 256
+K12_CHUNK = 65536
+
+
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def masked_scan_workspace_bytes(Vp: int, Mp: int, n_pad: int,
+                                mode: str) -> int:
+    """K12's workspace, in the order ``es_agg_masked_scan`` lays it out
+    (the entry refuses fewer bytes than its sections take): the mask
+    packed one bit a doc, then the counts and prefix modes' pair bits, tile
+    sums and word prefix, or the sums mode's run chunk table and f64 chunk
+    partials."""
+    mask = _align16(4 * -(-n_pad // 32))
+    if mode == "sums":
+        return mask + _align16(4 * (Vp + 1)) + 8 * (Mp // K12_CHUNK + Vp)
+    n_words = -(-Mp // 32)
+    n_tiles = -(-n_words // K12_TILE_WORDS)
+    return mask + _align16(4 * n_words) + _align16(4 * (n_tiles + 1)) \
+        + _align16(4 * (n_words + 1))
+
+
 def masked_scan_plain(offsets, pair_docs, mask, pair_vals=None, *,
                       mode: str):
     """Plain version of K12 (see :func:`masked_scan`)."""
@@ -158,8 +184,7 @@ def masked_scan(offsets, pair_docs, mask, pair_vals=None, *, mode: str):
         counts = torch.empty(Vp, dtype=torch.int32, device=dev)
         if mode == "prefix":
             c = torch.empty(Mp + 1, dtype=torch.int32, device=dev)
-    ws_bytes = _kb.query("agg_masked_scan",
-                         "es_agg_masked_scan_workspace_bytes", Vp, Mp, code)
+    ws_bytes = masked_scan_workspace_bytes(Vp, Mp, n_pad, mode)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev) \
         if ws_bytes else None
     _kb.launch("agg_masked_scan", dev, offsets.data_ptr(), Vp,
@@ -169,7 +194,7 @@ def masked_scan(offsets, pair_docs, mask, pair_vals=None, *, mode: str):
                None if counts is None else counts.data_ptr(),
                None if c is None else c.data_ptr(),
                None if sums is None else sums.data_ptr(),
-               None if ws is None else ws.data_ptr())
+               None if ws is None else ws.data_ptr(), ws_bytes)
     if mode == "sums":
         return sums
     return (counts, c) if mode == "prefix" else counts

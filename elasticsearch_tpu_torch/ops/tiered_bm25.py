@@ -14,6 +14,7 @@ dimension S: dense rows are [S, n_blk, T, C], per-query inputs [B, S, ...].
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -21,14 +22,23 @@ import torch
 
 from ..kernels import build as _kb
 from .sorted_merge import sparse_candidates_topk
-from .topk import topk_merge, topk_stable
+from .topk import H100_SHARED_OPTIN, card_limits, topk_merge, topk_stable
 
 NEG_INF = float("-inf")
 
-#: docs per K2 block; tiles grow so that K3's reduce row (k·tiles) stays
-#: short enough for shared memory
-_K2_TILE = 1 << 15
-_K2_MAX_PARTIALS = 1 << 14
+#: K2's sizes, as ``csrc/dense_stream_topk.cu`` defines them: queries a
+#: block, a query's candidate buffer, the non-zero weights a query keeps in
+#: shared memory, the ring's slots, docs a pass and passes a chunk
+K2_QUERIES = 64
+K2_CAND = 64
+K2_NZ = 16
+K2_STAGES = 4
+K2_PASS = 128
+K2_MAX_PASSES = 8
+#: a tile is a multiple of this many docs (of every chunk the ring takes)
+K2_TILE_ALIGN = K2_PASS * K2_MAX_PASSES
+#: K3's first call reduces rows of n_tiles · k tile lists: at most this
+K2_MAX_PARTIALS = 1 << 14
 
 
 # ---------------------------------------------------------------------------
@@ -144,13 +154,78 @@ def dense_stream_topk_plain(W, dense, *, k: int, u_ids=None,
             torch.stack(nm_out, 1))
 
 
-def k2_tiling(n_pad: int, k: int):
-    """(docs per K2 block, tiles per shard): tiles of 2^15 docs, grown so
-    that K3's reduce row (tiles · k) stays near 2^14 entries, short enough
-    for its shared memory."""
-    per = max(_K2_TILE, -(-n_pad * k // _K2_MAX_PARTIALS))
-    per = -(-per // 1024) * 1024
-    return per, -(-n_pad // per)
+def _align16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def k2_shared_bytes(QB: int, U: int, k: int, top_shared: bool,
+                    rows_max: int) -> int:
+    """Dynamic shared memory of K2's tile kernel (``k2_shared_bytes`` of
+    the source): candidate buffers, per-query state, weights, staged row
+    ids, the lists when they sit there, the ring's barriers, and the ring
+    of ``K2_STAGES`` slots of ``rows_max`` rows of one pass."""
+    return (_align16(QB * K2_CAND * 8) + _align16(QB * 16)
+            + _align16(QB * K2_NZ * 8) + _align16(U * 4)
+            + (_align16(QB * k * 8) if top_shared else 0)
+            + _align16(K2_STAGES * 16) + K2_STAGES * rows_max * K2_PASS * 2)
+
+
+def k2_workspace_bytes(B: int, S: int, U: int, n_tiles: int, QB: int,
+                       rows_max: int) -> int:
+    """K2's workspace, in the order ``es_dense_stream_topk`` lays it out
+    (the entry refuses fewer bytes than its sections take): each query's
+    compacted (staged row, weight) pairs [B·S, U], their counts,
+    the staged rows' ids [S, U] and their number a shard; and, when U rows
+    may pass one group of the ring (U > ``rows_max``), each block's sums
+    between row groups (1 KB a query)."""
+    groups = -(-B // QB)
+    carry = n_tiles * S * groups * QB * 1024 if U > rows_max else 0
+    return (_align16(8 * B * S * U) + _align16(4 * B * S)
+            + _align16(4 * S * U) + _align16(4 * S) + carry)
+
+
+def dense_stream_topk_plan(B: int, S: int, U: int, n_pad: int, k: int,
+                           n_sm: int, shared: int = H100_SHARED_OPTIN
+                           ) -> dict:
+    """K2's launch shape: groups of at most ``K2_QUERIES`` queries (every
+    query of a headline batch in one block, which reads each row slice
+    once), doc tiles (multiples of ``K2_TILE_ALIGN`` docs) enough for one
+    block an SM over the card, one wave, at most ``K2_MAX_PARTIALS // k``
+    tiles so that K3's row of tile lists stays short; the lists in shared
+    memory when they take at most a quarter of the ``shared`` bytes a
+    block may have; the ring (``rows_max`` rows of a pass, at most
+    ``K2_MAX_PASSES`` passes of U rows) filling the rest (where not even
+    one row fits, one row, which the C entry refuses)."""
+    QB = max(1, min(B, K2_QUERIES))
+    groups = -(-B // QB)
+    want = -(-n_sm // max(S * groups, 1))
+    tiles = max(1, min(want, K2_MAX_PARTIALS // max(k, 1),
+                       -(-n_pad // K2_TILE_ALIGN)))
+    per = -(-n_pad // tiles)
+    per = -(-per // K2_TILE_ALIGN) * K2_TILE_ALIGN
+    n_tiles = -(-n_pad // per)
+    row = K2_STAGES * K2_PASS * 2
+    top_shared = _align16(QB * k * 8) <= shared // 4
+    rows = (shared - k2_shared_bytes(QB, U, k, top_shared, 0)) // row
+    if rows < 1 and top_shared:
+        top_shared = False
+        rows = (shared - k2_shared_bytes(QB, U, k, False, 0)) // row
+    rows = max(1, min(rows, K2_MAX_PASSES * max(U, 1)))
+    return dict(QB=QB, groups=groups, tile=per, n_tiles=n_tiles,
+                top_shared=top_shared, rows_max=rows,
+                shared_bytes=k2_shared_bytes(QB, U, k, top_shared, rows),
+                blocks=n_tiles * S * groups,
+                workspace_bytes=k2_workspace_bytes(B, S, U, n_tiles, QB,
+                                                   rows))
+
+
+@functools.lru_cache(maxsize=256)
+def _k2_launch_plan(B: int, S: int, U: int, n_pad: int, k: int, index):
+    """:func:`dense_stream_topk_plan` on card ``index`` as the C entry
+    takes it."""
+    p = dense_stream_topk_plan(B, S, U, n_pad, k, *card_limits(index))
+    return (p["tile"], p["n_tiles"], p["QB"], int(p["top_shared"]),
+            p["rows_max"], p["workspace_bytes"])
 
 
 def dense_stream_partials(W, dense, *, k: int, u_ids=None,
@@ -172,21 +247,24 @@ def dense_stream_partials(W, dense, *, k: int, u_ids=None,
     if u_ids is None and U != T:
         raise ValueError("dense_stream_topk: W spans all T rows unless "
                          "u_ids selects them")
-    if C % 4:
+    if C % 4 or dense.data_ptr() % 8:
         raise ValueError("dense_stream_topk: block width must be a "
-                         "multiple of 4")
-    per, n_tiles = k2_tiling(n_pad, k)
+                         "multiple of 4 and the rows 8-byte aligned")
+    per, n_tiles, QB, top_shared, rows_max, ws_bytes = _k2_launch_plan(
+        B, S, U, n_pad, k, dev.index)
     part_v = torch.empty((B, S, n_tiles, k), dtype=torch.float32,
                          device=dev)
     part_d = torch.empty((B, S, n_tiles, k), dtype=torch.int32, device=dev)
     n_matched = torch.zeros((B, S), dtype=torch.int32, device=dev)
     if B * S:
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
         _kb.launch("dense_stream_topk", dev, W.data_ptr(),
                    dense.data_ptr(),
                    None if u_ids is None else u_ids.data_ptr(), B, S, U,
                    n_blk, T, C, n_pad, k, min_should_match, per, n_tiles,
-                   part_v.data_ptr(), part_d.data_ptr(),
-                   n_matched.data_ptr())
+                   QB, top_shared, rows_max, part_v.data_ptr(),
+                   part_d.data_ptr(), n_matched.data_ptr(), ws.data_ptr(),
+                   ws_bytes)
     return part_v, part_d, n_matched
 
 

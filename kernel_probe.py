@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Probe of K16 (``bm25_scatter``), K6 (``knn_scan``), K9
 (``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``),
-K4 (``blockmax_scan``), K3 (``topk_merge``) and K21 (``knn_outlier``) on
-one card, at the inputs ``chip_smoke.py`` gives them on its main paths.
+K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
+(``dense_stream_topk``) and K12 (``agg_masked_scan``) on one card, at the
+inputs ``chip_smoke.py`` gives them on its main paths, and of
+``chip_smoke.py``'s aggregation phase (``aggs``).
 
     python3 kernel_probe.py [--tree DIR]
-                            [--kernels k16,k6,k9,k8,k1,k4,k3,k21]
+                            [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,aggs]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -73,6 +75,29 @@ JSON lines and writes them to ``--out`` as well.
   inserts) and, for the tiled design, builds with a part left out, a
   size or the epilogue's rounding changed, beside the unedited source
   built the same way (``K21_VARIANTS``), timed in order and in reverse.
+- K2 at the headline's call (``chip_smoke.check_kernels``' inputs: the
+  2^23-doc tiered plane, search's first timed batch, 64 x 4 terms drawn
+  ∝ df, k = 10): the wrapper's CUDA-event mean, its host time a call, the
+  device time of each kernel (``torch.profiler``), blocks in the grid and
+  blocks an SM, the registers (``ptxas``), the rows used and the bytes the
+  bound counts, and a digest of K2 → K3's (vals, docs, n_matched), equal
+  between two trees that compute the same top-k. ``--variants`` adds a
+  build with ``clock64()`` stamps of either design (the rounds design: row
+  loads, FMAs, the flush's barrier, thread 0's inserts; the ring: the
+  waits for a slot, scoring, selection, pushes and merges) and, for the
+  ring, builds with a part left out or a size changed
+  (``K2_RING_VARIANTS``).
+- K12 on config #3's route (``masked_rank_prefix`` at 165,346,692 pairs,
+  n_pad 2^28, a 25 % mask) and on the caches' three calls at 2^28 padded
+  pairs (counts and sums over the stand-in segment's ordinal CSR, the
+  prefix under the HLL register max): CUDA-event mean, host time, the
+  device time of each pass and a digest of the outputs. ``--variants``
+  adds builds with no L2 cache hints, with c written by streaming stores,
+  and with the bits' lines left in L2 (``K12_VARIANTS``), each timed in
+  turn with the tree's build on each call.
+- ``aggs``: ``chip_smoke.run_aggs`` against ``--tree``'s package: config
+  #3's route (aggs/s, p50, p99, its stages, on stdout) and the K12–K15
+  rows through the caches (about 3 minutes; not in the default list).
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -1645,12 +1670,517 @@ def run_k21(rows, reps, tree):
     torch.cuda.empty_cache()
 
 
+#: text edits of the one-warp-set-a-query-tile csrc/dense_stream_topk.cu
+#: (the rounds design, one block a query tile and doc tile) that stamp
+#: thread 0 of each block with clock64(): the
+#: row loads (each load waited for), the FMAs after them, the flush's
+#: first barrier, and the rest of the flush (thread 0 inserting the
+#: round's candidates, then the second barrier), summed over the block's
+#: rounds
+K2_PHASES_ROUNDS = [
+    ('#include "topk_common.cuh"\n',
+     '#include "topk_common.cuh"\n'
+     "__device__ long long k2_dbg[8 << 12];\n"
+     "extern \"C\" int es_probe_k2_phases(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k2_dbg, n * 64);\n}\n"
+     "__device__ __forceinline__ long long k2_clk() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t)::\"memory\");\n"
+     "  return t;\n}\n"),
+    ("  int round = 0;\n",
+     "  int round = 0;\n"
+     "  long long dbg_t0 = k2_clk(), dbg_ld = 0, dbg_fma = 0, dbg_bar = 0,\n"
+     "            dbg_ins = 0, dbg_sink = 0;\n"),
+    ("          const uint2 raw = *reinterpret_cast<const uint2*>(\n"
+     "              dense + ((rows_s + (size_t)blk * T + row) * C + off));\n",
+     "          const long long dbg_a = k2_clk();\n"
+     "          const uint2 raw = *reinterpret_cast<const uint2*>(\n"
+     "              dense + ((rows_s + (size_t)blk * T + row) * C + off));\n"
+     "          dbg_sink += raw.x;\n"
+     "          const long long dbg_b = k2_clk();\n"
+     "          dbg_ld += dbg_b - dbg_a;\n"),
+    ("            cnt[j] += (w > 0.0f) & (r[j] > 0.0f);\n          }\n",
+     "            cnt[j] += (w > 0.0f) & (r[j] > 0.0f);\n          }\n"
+     "          dbg_sink += __float_as_int(acc[0]);\n"
+     "          dbg_fma += k2_clk() - dbg_b;\n"),
+    ("      cand.flush(round, top);\n",
+     "      {\n        const long long dbg_c = k2_clk();\n"
+     "        __syncthreads();\n"
+     "        const long long dbg_d = k2_clk();\n"
+     "        dbg_bar += dbg_d - dbg_c;\n"
+     "        const int dbg_n = cand.count[round % 3];\n"
+     "        if (dbg_n > 0) {\n"
+     "          if (tid == 0)\n"
+     "            for (int i = 0; i < dbg_n; ++i) top.insert(cand.s[i], "
+     "cand.d[i]);\n"
+     "          __syncthreads();\n        }\n"
+     "        dbg_ins += k2_clk() - dbg_d;\n      }\n"),
+    ("  __syncthreads();\n  for (int bi = 0; bi < nb; ++bi) {\n",
+     "  if (tid == 0) {\n"
+     "    const int dbg_id = (blockIdx.z * gridDim.y + blockIdx.y) * "
+     "gridDim.x + blockIdx.x;\n"
+     "    if (dbg_id < (1 << 12)) {\n"
+     "      long long* o = k2_dbg + dbg_id * 8;\n"
+     "      o[0] = k2_clk() - dbg_t0;\n      o[1] = dbg_ld;\n"
+     "      o[2] = dbg_fma;\n      o[3] = dbg_bar;\n      o[4] = dbg_ins;\n"
+     "      o[5] = round;\n      o[6] = dbg_sink & 1;\n    }\n  }\n"
+     "  __syncthreads();\n  for (int bi = 0; bi < nb; ++bi) {\n"),
+]
+
+K2_ROUND_KEYS = ("block_cycles", "row_loads", "fmas", "flush_barriers",
+                 "inserts_thread0", "rounds")
+
+#: the occupancy of the rounds design at one launch (its plan: the largest
+#: query tile whose tables fit, the lists in shared memory if they fit)
+K2_OCC_ROUNDS = """
+extern "C" int es_probe_k2_blocks_per_sm(int QB, int U, int k, int ts,
+                                         int rows_max) {
+  (void)QB; (void)ts; (void)rows_max;
+  const size_t max_shm = (size_t)es_max_shared_bytes();
+  const size_t base = (size_t)K2_CHUNK * 8;
+  int bt = K2_BT_MAX;
+  while (bt > 1 && base + (size_t)bt * U * 8 > max_shm) bt >>= 1;
+  size_t shm = base + (size_t)bt * U * 8;
+  const bool top = shm + (size_t)bt * k * 8 <= max_shm;
+  if (top) shm += (size_t)bt * k * 8;
+  auto kernel = top ? dense_stream_topk_kernel<true>
+                    : dense_stream_topk_kernel<false>;
+  if (es_set_shared(kernel, shm) != 0) return 0;
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, K2_THREADS, shm);
+  return n;
+}
+"""
+
+#: the same for the ring design (msm 1, 16-byte copies)
+K2_OCC_RING = """
+extern "C" int es_probe_k2_blocks_per_sm(int QB, int U, int k, int ts,
+                                         int rows_max) {
+  const size_t shm = k2_shared_bytes(QB, U, k, ts, rows_max);
+  auto kernel = ts ? k2_tile_kernel<false, true, 16>
+                   : k2_tile_kernel<false, false, 16>;
+  if (es_set_shared(kernel, shm) != 0) return 0;
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, K2_THREADS, shm);
+  return n;
+}
+"""
+
+#: text edits of the ring design that stamp thread 0 of each block (warp
+#: 0's first lane) with clock64(): the wait for a step's copies, the
+#: scoring (weights and staged rows read, FMAs), the selection's tests and
+#: counts, the pushes with their merges (and the pushing passes), and the
+#: tile's end (last merges, lists written, counts); "issue" stays 0 (a
+#: copying warp of its own issues the copies)
+K2_PHASES_RING = [
+    K2_PHASES_ROUNDS[0],
+    ("  int qn[K2_QW], nm[K2_QW], tdq[K2_QW];\n",
+     "  long long dbg_t0 = k2_clk(), dbg_wait = 0, dbg_issue = 0,\n"
+     "            dbg_score = 0, dbg_step = 0, dbg_merge = 0, dbg_nm = 0,\n"
+     "            dbg_x = 0, dbg_step_at = 0;\n"
+     "  int qn[K2_QW], nm[K2_QW], tdq[K2_QW];\n"),
+    ("  for (int t = 0; t < nsteps; ++t) {\n"
+     "    k2_bar_wait(full0 + 8 * (t % K2_STAGES), (t / K2_STAGES) & 1);\n",
+     "  for (int t = 0; t < nsteps; ++t) {\n"
+     "    if (t) dbg_step += k2_clk() - dbg_step_at;\n"
+     "    dbg_x = k2_clk();\n"
+     "    k2_bar_wait(full0 + 8 * (t % K2_STAGES), (t / K2_STAGES) & 1);\n"
+     "    dbg_wait += k2_clk() - dbg_x;\n"
+     "    dbg_step_at = k2_clk();\n"),
+    ("        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n",
+     "        const long long dbg_e = k2_clk();\n"
+     "        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};\n"),
+    ("        if (!last) {\n",
+     "        dbg_score += k2_clk() - dbg_e + (__float_as_int(a[0]) == 7);\n"
+     "        if (!last) {\n"),
+    ("        if (mb > tb || (mb == tb && tdq[qi] > cdoc)) {\n",
+     "        const long long dbg_m = k2_clk();\n"
+     "        if ((mb > tb || (mb == tb && tdq[qi] > cdoc)) && ++dbg_nm) {\n"),
+    ("            if (lane == 0) st.ncand[q] = nc + total;\n"
+     "            __syncwarp();\n          }\n        }\n",
+     "            if (lane == 0) st.ncand[q] = nc + total;\n"
+     "            __syncwarp();\n          }\n        }\n"
+     "        dbg_merge += k2_clk() - dbg_m;\n"),
+    ("  // the tile's end: the last candidates, the lists, the counts\n",
+     "  const long long dbg_end = k2_clk();\n"
+     "  if (nsteps) dbg_step += dbg_end - dbg_step_at;\n"
+     "  // the tile's end: the last candidates, the lists, the counts\n"),
+    ("      atomicAdd(&n_matched[(size_t)(b0 + q) * S + s], tot);\n  }\n}\n",
+     "      atomicAdd(&n_matched[(size_t)(b0 + q) * S + s], tot);\n  }\n"
+     "  if (tid == 0) {\n"
+     "    const int dbg_id = (blockIdx.z * gridDim.y + blockIdx.y) * "
+     "gridDim.x + blockIdx.x;\n"
+     "    if (dbg_id < (1 << 12)) {\n"
+     "      long long* o = k2_dbg + dbg_id * 8;\n"
+     "      o[0] = k2_clk() - dbg_t0;\n      o[1] = dbg_wait;\n"
+     "      o[2] = dbg_issue;\n      o[3] = dbg_score;\n"
+     "      o[4] = dbg_step - dbg_score - dbg_merge;\n"
+     "      o[5] = dbg_merge;\n      o[6] = dbg_nm;\n"
+     "      o[7] = k2_clk() - dbg_end;\n    }\n  }\n}\n"),
+]
+
+#: text edits of the ring design that leave one part out (the results
+#: are wrong; the times say what the part costs): no copies (the ring's
+#: slots keep what they hold), no scoring (no weight is read: every score
+#: is 0 and no doc is pushed), no pushes (docs are counted and the warp's
+#: best tested, none pushed); or with candidate buffers of 32, a ring of
+#: two slots, or 12 or 8 scoring warps (6 or 8 queries each)
+K2_RING_VARIANTS = {
+    "no_copies": [
+        ("        if (lane == 0) k2_bar_expect(full, (unsigned)(nrows * len * 2));"
+         "\n", "        if (lane == 0) k2_bar_arrive(full);\n"),
+        ("            k2_bulk(slot", "            if (n < 0) k2_bulk(slot")],
+    "no_scoring": [("        for (; e < e1; ++e) {\n",
+                    "        for (; e < 0; ++e) {\n")],
+    "cand32": [("#define K2_CAND 64\n", "#define K2_CAND 32\n")],
+    "warps12": [("#define K2_THREADS 512\n", "#define K2_THREADS 384\n"),
+                ("#define K2_QW 4\n", "#define K2_QW 6\n")],
+    "warps8": [("#define K2_THREADS 512\n", "#define K2_THREADS 256\n"),
+               ("#define K2_QW 4\n", "#define K2_QW 8\n")],
+    "stages2": [("#define K2_STAGES 4\n", "#define K2_STAGES 2\n")],
+    "no_pushes": [("        if (mb > tb || (mb == tb && tdq[qi] > cdoc)) {\n",
+                   "        if (mb == 1234567) {\n")],
+}
+
+K2_RING_KEYS = ("block_cycles", "wait_and_barrier", "issue", "scoring",
+                "selection", "pushes_and_merges", "push_calls", "tile_end")
+
+
+def k2_design(src: str) -> str:
+    """Which design a dense_stream_topk.cu source is: "ring" or
+    "rounds"."""
+    return "ring" if "k2_tile_kernel" in src else "rounds"
+
+
+def k2_headline(dev):
+    """The headline's K2 call, as ``chip_smoke.check_kernels`` makes it:
+    the 2^23-doc tiered plane, search's first timed batch (64 queries of
+    four terms drawn ∝ df) at the workload's L. Returns (W, dense, u_ids,
+    plane)."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.parallel.dist_search import \
+        DistributedSearchPlane
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
+    cs.sample_queries(rng, corpus, 1, batch=12)
+    plane = DistributedSearchPlane([corpus], "body", device=dev)
+    warm = cs.sample_queries(rng, corpus, 1)[0]
+    batches = cs.sample_queries(rng, corpus, cs.TIMED_BATCHES)
+    L1 = cs.workload_L(plane, [warm] + batches)
+    a = plane.prepare(batches[0], cs.K, Q=cs.N_TERMS, L=L1,
+                      tiered=True)["args"]
+    return a["W"], a["dense"], a["u_ids"], plane
+
+
+def k2_launch_shape(tb, B, S, U, n_pad, k):
+    """(QB, top_shared, rows_max, blocks) of a tree's K2 launch: the ring
+    design's plan, or the rounds design's (query tiles of up to 16, tiles of
+    ``k2_tiling``)."""
+    if hasattr(tb, "dense_stream_topk_plan"):
+        p = tb.dense_stream_topk_plan(B, S, U, n_pad, k,
+                                      *tb.card_limits(0))
+        return p["QB"], int(p["top_shared"]), p["rows_max"], p["blocks"]
+    _per, n_tiles = tb.k2_tiling(n_pad, k)
+    return 16, 1, 0, -(-B // 16) * n_tiles * S
+
+
+def k2_phases(tree, design, call_entry, shape, reps):
+    """The phases build's reading: the mean over the blocks of each stamp,
+    the SM clock, the build's CUDA-event mean, blocks an SM."""
+    cs = smoke()
+    import torch
+    if design == "ring":
+        keys, edits, occ = K2_RING_KEYS, K2_PHASES_RING, K2_OCC_RING
+    else:
+        keys, edits, occ = K2_ROUND_KEYS, K2_PHASES_ROUNDS, K2_OCC_ROUNDS
+    lib = build_variant(tree, "phases", edits + [("", occ)], scratch_dir(),
+                        source="dense_stream_topk")
+    if lib is None:
+        return "not measured (edit target missing)"
+    call = call_entry(lib)
+    ms = cs.timed(call, reps)
+    call()
+    torch.cuda.synchronize()
+    nb = min(shape[3], 1 << 12)
+    buf = (ctypes.c_longlong * (8 * nb))()
+    if lib.es_probe_k2_phases(buf, nb):
+        return "not measured (copy failed)"
+    a = np.frombuffer(buf, dtype=np.int64).reshape(nb, 8)[:, :len(keys)]
+    out = {key: float(v) for key, v in zip(keys, a.astype(np.float64)
+                                           .mean(0))}
+    out.update(ms=ms, blocks_read=nb, sm_clock_mhz=sm_clock_mhz(),
+               cycles_max=float(a[:, 0].max()))
+    return out
+
+
+def k2_blocks_per_sm(tree, design, shape, U, k):
+    lib = build_variant(tree, "occupancy", [
+        ("", K2_OCC_RING if design == "ring" else K2_OCC_ROUNDS)],
+        scratch_dir(), source="dense_stream_topk")
+    fn = lib.es_probe_k2_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    return fn(shape[0], U, k, shape[1], shape[2])
+
+
+def run_k2(rows, reps, tree, variants):
+    """K2 at the headline: CUDA-event mean and device time of the tree's
+    wrapper (K2's own launch, before K3), the grid and blocks an SM, the
+    registers, the rows used and the bytes the bound counts, and a digest
+    of K2 → K3's (vals, docs, n_matched); with ``variants`` the stamps of
+    the tree's design."""
+    cs = smoke()
+    import hashlib
+    import importlib
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    tb = importlib.import_module("elasticsearch_tpu_torch.ops.tiered_bm25")
+    dev = torch.device("cuda")
+    W, dense, u_ids, plane = k2_headline(dev)
+    B, S, U = W.shape
+    n_pad = plane.n_pad
+    k = cs.K
+
+    def call():
+        return tb.dense_stream_partials(W, dense, k=k, u_ids=u_ids)
+    ms = cs.timed(call, reps)
+    by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+    vals, docs, nm = tb.dense_stream_topk(W, dense, k=k, u_ids=u_ids)
+    h = hashlib.sha1()
+    for t in (vals, docs, nm):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    Wn = W.cpu().numpy()
+    rows_used = int(sum(np.count_nonzero(np.any(Wn[:, s] != 0, axis=0))
+                        for s in range(S)))
+    nnz_w = int(np.count_nonzero(Wn))
+    part_v = call()[0]
+    n_lists = part_v.shape[2]
+    nbytes = 2 * rows_used * n_pad + Wn.nbytes + 8 * B * S * n_lists * k \
+        + 4 * B * S
+    shape = k2_launch_shape(tb, B, S, U, n_pad, k)
+    src = open(os.path.join(tree, "elasticsearch_tpu_torch", "csrc",
+                            "dense_stream_topk.cu")).read()
+    design = k2_design(src)
+    regs = [ln.strip() for ln in kb.ptxas_report.get(
+        "dense_stream_topk", "").splitlines()
+        if "registers" in ln or "spill" in ln]
+    row = dict(kernel="dense_stream_topk", what="headline, search's first "
+               "timed batch", design=design, B=B, S=S, U=U, n_pad=n_pad, k=k,
+               u_ids=u_ids is not None, rows_used=rows_used, nnz_w=nnz_w,
+               tiles=n_lists, bound_bytes=nbytes,
+               bound_ms=cs.bound(nbytes, 2 * nnz_w * n_pad)[0], ms=ms,
+               host_ms=host_ms(call, reps),
+               device_ms=sum(by_name.values()), by_name=by_name,
+               blocks=shape[3], blocks_per_sm=k2_blocks_per_sm(
+                   tree, design, shape, U, k),
+               ptxas=regs, digest=h.hexdigest(),
+               matched=int(nm.sum()))
+    if variants:
+        def entry(lib):
+            fn = lib.es_dense_stream_topk
+            fn.argtypes = kb._SIGNATURES["dense_stream_topk"][1]
+            fn.restype = ctypes.c_int
+            pv = torch.empty_like(part_v)
+            pd = torch.empty(part_v.shape, dtype=torch.int32, device=dev)
+            cnt = torch.zeros((B, S), dtype=torch.int32, device=dev)
+            C = dense.shape[3]
+            uptr = None if u_ids is None else u_ids.data_ptr()
+            if design == "ring":
+                p = tb.dense_stream_topk_plan(B, S, U, n_pad, k,
+                                              *tb.card_limits(0))
+                ws = torch.empty(p["workspace_bytes"], dtype=torch.uint8,
+                                 device=dev)
+                args = (W.data_ptr(), dense.data_ptr(), uptr, B, S, U,
+                        dense.shape[1], dense.shape[2], C, n_pad, k, 1,
+                        p["tile"], p["n_tiles"], p["QB"],
+                        int(p["top_shared"]), p["rows_max"], pv.data_ptr(),
+                        pd.data_ptr(), cnt.data_ptr(), ws.data_ptr(),
+                        p["workspace_bytes"])
+            else:
+                per, n_tiles = tb.k2_tiling(n_pad, k)
+                args = (W.data_ptr(), dense.data_ptr(), uptr, B, S, U,
+                        dense.shape[1], dense.shape[2], C, n_pad, k, 1, per,
+                        n_tiles, pv.data_ptr(), pd.data_ptr(),
+                        cnt.data_ptr())
+
+            def run():
+                if fn(*args, torch.cuda.current_stream().cuda_stream):
+                    raise RuntimeError("a K2 build refused the launch")
+            return run
+        row["phases"] = k2_phases(tree, design, entry, shape,
+                                  max(reps // 2, 1))
+        if design == "ring":
+            calls = {"as_is": entry(build_variant(
+                tree, "as_is", [], scratch_dir(),
+                source="dense_stream_topk"))}
+            for name, edits in K2_RING_VARIANTS.items():
+                lib = build_variant(tree, name, edits, scratch_dir(),
+                                    source="dense_stream_topk")
+                calls[name] = entry(lib) if lib is not None else None
+            row["variants"] = {
+                name: cs.timed(fn, reps) if fn is not None else
+                "not measured (edit target missing)"
+                for name, fn in calls.items()}
+    emit(rows, **row)
+    del plane, W, dense
+    torch.cuda.empty_cache()
+
+
+def k12_route_inputs(dev):
+    """Config #3's route, as ``chip_smoke.run_aggs`` builds it: 165,346,692
+    pairs in (ordinal, value) order, n_pad 2^28, the first 25 % mask."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.utils.shapes import round_up_pow2
+    rng = np.random.default_rng(1234)
+    off, docs_s, vals_s = cs.agg_columns(rng, cs.AGG_DOCS, cs.AGG_V)
+    n_pad = round_up_pow2(cs.AGG_DOCS)
+    mask_h = np.zeros(n_pad, bool)
+    mask_h[:cs.AGG_DOCS] = rng.random(cs.AGG_DOCS, dtype=np.float32) < \
+        cs.AGG_DENSITY
+    return (torch.from_numpy(off).to(dev), torch.from_numpy(docs_s).to(dev),
+            torch.from_numpy(vals_s).to(dev), torch.from_numpy(mask_h).to(dev),
+            off, docs_s, vals_s)
+
+
+#: K12 builds: "no_hints", the bit mask written and gathered and the pair
+#: streams read with plain stores and loads; "c_evict_first", c written
+#: with streaming stores; "no_discard", the bits' L2 lines left in L2
+K12_PLAIN_GATHER = """
+__device__ __forceinline__ bool k12_plain_gather(const unsigned* bits,
+                                                 int n_pad, int doc,
+                                                 unsigned long long) {
+  long long d = doc < 0 ? (long long)doc + n_pad : (long long)doc;
+  return d >= 0 && d < n_pad && ((bits[d >> 5] >> (d & 31)) & 1u);
+}
+"""
+K12_VARIANTS = {"no_hints": [
+    ("^", K12_PLAIN_GATHER),
+    ("es_gather_bits(", "k12_plain_gather("),
+    ("__ldcs(", "*("),
+    ("""  asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;" ::"l"(mbits + w),
+               "r"(word), "l"(es_l2_evict_last())
+               : "memory");""", "  mbits[w] = word;")],
+    "c_evict_first": [("c[i + 1] = p + __popc(word & upto);",
+                       "__stcs(c + i + 1, p + __popc(word & upto));")],
+    "no_discard": [("k12_discard_bits(mbits, n_mwords, st);", "(void)0;")]}
+
+
+def run_k12(rows, reps, tree, variants):
+    """K12 on config #3's route (``masked_rank_prefix``) and on the
+    caches' three calls at 2^28 padded pairs (counts and sums over the
+    ordinal CSR of the stand-in segment's keyword, the prefix under the
+    HLL register max): CUDA-event mean and device time of each pass
+    (``torch.profiler``), and a digest of the outputs; with ``variants``
+    each call's mean through the builds of ``K12_VARIANTS`` and the tree's
+    again, in turn (tree, variant, tree, variant), and the variant's
+    digest."""
+    cs = smoke()
+    import hashlib
+    import types
+    import torch
+    from elasticsearch_tpu_torch.ops import aggs
+    dev = torch.device("cuda")
+    off_d, docs_d, vals_d, mask_d, off, docs_s, vals_s = \
+        k12_route_inputs(dev)
+    n = cs.AGG_DOCS
+
+    def digest(ts):
+        h = hashlib.sha1()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    libs = {name: build_variant(tree, name, edits, scratch_dir(),
+                                source="agg_masked_scan")
+            for name, edits in K12_VARIANTS.items()} if variants else {}
+
+    def row(what, call, nbytes):
+        ms = cs.timed(call, reps)
+        by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+        out = call()
+        extra = {}
+        for name, lib in libs.items():
+            if lib is None:
+                extra[name] = "not measured (edit target missing)"
+                continue
+            times = []
+            for turn in range(2):
+                with swapped_library("agg_masked_scan", lib):
+                    times.append(cs.timed(call, reps))
+                    if turn == 0:
+                        vout = call()
+                times.append(cs.timed(call, reps))
+            extra[name] = dict(
+                ms=times[0::2], tree_ms=times[1::2],
+                digest=digest(vout if isinstance(vout, tuple) else (vout,)))
+        emit(rows, kernel="agg_masked_scan", what=what, ms=ms,
+             host_ms=host_ms(call, reps),
+             device_ms=sum(by_name.values()), by_name=by_name,
+             bound_ms=cs.bound(nbytes, 0)[0],
+             digest=digest(out if isinstance(out, tuple) else (out,)),
+             **({"variants": extra} if extra else {}))
+    row(f"route: masked_rank_prefix, {n} pairs",
+        lambda: aggs.masked_rank_prefix(off_d, docs_d, mask_d),
+        (cs.AGG_V + 1) * 4 + n * 4 + n + cs.AGG_V * 4 + (n + 1) * 4)
+    # the caches of a stand-in segment of the same columns
+    ords_s = np.repeat(np.arange(cs.AGG_V, dtype=np.int32), np.diff(off))
+    ords_doc = np.empty(n, np.int32)
+    ords_doc[docs_s] = ords_s
+    vals_doc = np.empty(n, np.float32)
+    vals_doc[docs_s] = vals_s
+    del ords_s, off_d, docs_d, vals_d
+    seg = types.SimpleNamespace(
+        n_docs=n, n_pad=mask_d.shape[0],
+        keyword_fields={"vendor": types.SimpleNamespace(
+            dv_docs_host=np.arange(n, dtype=np.int32),
+            dv_ords_host=ords_doc,
+            ord_terms=[f"v{o:03d}" for o in range(cs.AGG_V)])},
+        numeric_fields={"fare": types.SimpleNamespace(
+            docs_host=np.arange(n, dtype=np.int32),
+            vals_host=vals_doc.astype(np.float64))})
+    k_off, k_docs, _V = aggs.ordinal_csr(seg, "vendor")
+    hll = aggs.hll_sketch_pairs(seg, "fare")
+    Mp = k_docs.shape[0]
+    k_vals = np.zeros(Mp, np.float32)
+    k_docs_h = k_docs.cpu().numpy()
+    k_vals[:n] = vals_doc[k_docs_h[:n]]
+    k_vals_d = torch.from_numpy(k_vals).to(dev)
+    row(f"caches: counts (ordinal CSR, {Mp} pairs)",
+        lambda: aggs.masked_ordinal_counts(k_off, k_docs, mask_d),
+        Mp * 4 + n + 4 * len(k_off))
+    row(f"caches: sums (ordinal CSR, {Mp} pairs)",
+        lambda: aggs.masked_ordinal_sums(k_off, k_docs, k_vals_d, mask_d),
+        Mp * 8 + n + 4 * len(k_off))
+    row(f"caches: the register max's prefix ({hll['docs_dev'].shape[0]} "
+        f"pairs)",
+        lambda: aggs.masked_rank_prefix(hll["off_dev"], hll["docs_dev"],
+                                        mask_d),
+        hll["docs_dev"].shape[0] * 8 + n)
+    del seg, hll, k_off, k_docs, k_vals_d, mask_d
+    torch.cuda.empty_cache()
+
+
+def run_aggs_phase(rows):
+    """Config #3's aggregation phase of ``chip_smoke.py`` (``run_aggs``)
+    against ``--tree``'s package: the route's aggs/s, p50 and p99 (its
+    printed lines) and the K12–K15 rows through the caches."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.device import card_info
+    agg_rows, counts = cs.run_aggs(card_info())
+    emit(rows, kernel="aggs_phase", kernel_rows=agg_rows, launches=counts)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
-    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4,k3,k21",
+    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21 to probe")
+                   "k3, k21, k2, k12 to probe, and aggs (chip_smoke.py's "
+                   "aggregation phase)")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -1686,6 +2216,12 @@ def main() -> int:
         run_k3(rows, opts.reps)
     if "k21" in which:
         run_k21(rows, max(opts.reps // 4, 2), tree)
+    if "k2" in which:
+        run_k2(rows, opts.reps, tree, opts.variants)
+    if "k12" in which:
+        run_k12(rows, max(opts.reps // 2, 2), tree, opts.variants)
+    if "aggs" in which:
+        run_aggs_phase(rows)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

@@ -100,18 +100,50 @@ def test_k1_bitwise_equals_plain(cuda, Q, k, msm, tiered, use_u):
         assert np.array_equal(g, w)
 
 
-@pytest.mark.parametrize("k,msm,use_u", [(10, 1, False), (100, 1, True),
-                                         (10, 2, True),
-                                         # top-k lists in device memory
-                                         (2000, 1, True)])
-def test_k2_matches_plain(cuda, k, msm, use_u):
-    S, B, Q = 2, 20, 4
-    d = dense_case(3 + k, S=S, B=B, Q=Q, T=48, n_pad=8192, C=2048,
-                   U=32 if use_u else None)
+#: K2 cases (k, msm, use_u, dense_case keywords): the four first cases;
+#: every query on the same rows; every doc matched (a tile's candidates
+#: overflow a query's buffer many times, then merge); 70 queries (a group
+#: of 64 and one of 6) and 5 (idle warps); 512 used rows, more than the
+#: ring's slot holds (row groups) and more non-zero weights a query than
+#: shared memory keeps, with msm 1 and 3; blocks of 1,028 docs (8-byte
+#: copies, a ragged last tile)
+K2_CASES = [
+    (10, 1, False, {}), (100, 1, True, {}), (10, 2, True, {}),
+    (2000, 1, True, {}),
+    (10, 1, False, dict(B=64, n_pad=1 << 16, C=4096, shared=True)),
+    (100, 1, True, dict(density=1.0, n_pad=1 << 15, T=64)),
+    (10, 2, False, dict(density=1.0, B=8, Q=3)),
+    (10, 1, False, dict(B=70)), (10, 1, True, dict(B=5)),
+    (10, 1, True, dict(S=1, Q=128, T=1024, U=512)),
+    (10, 3, True, dict(S=1, Q=128, T=1024, U=512)),
+    (10, 1, False, dict(n_pad=8224, C=1028))]
+
+
+@pytest.mark.parametrize("k,msm,use_u,case", K2_CASES)
+def test_k2_matches_plain(cuda, monkeypatch, k, msm, use_u, case):
+    from elasticsearch_tpu_torch.ops import tiered_bm25 as tb
+    kw = dict(S=2, B=20, Q=4, T=48, n_pad=8192, C=2048)
+    kw.update(case)
+    if use_u:
+        kw.setdefault("U", 32)
+    S, B = kw["S"], kw["B"]
+    d = dense_case(3 + k, **kw)
     dense = _t(d["bits"], cuda).view(torch.bfloat16)
     W = _t(d["W"], cuda)
     u = None if d["u_ids"] is None else _t(d["u_ids"], cuda)
+    n0 = kb.launches["dense_stream_topk"]
     got = dense_stream_topk(W, dense, k=k, u_ids=u, min_should_match=msm)
+    assert kb.launches["dense_stream_topk"] == n0 + 1
+    # the C entry lays out exactly the workspace the plan sizes: one byte
+    # less is refused
+    plan = tb._k2_launch_plan(B, S, W.shape[2], kw["n_pad"], k,
+                              W.device.index)
+    monkeypatch.setattr(tb, "_k2_launch_plan",
+                        lambda *a: plan[:-1] + (plan[-1] - 1,))
+    with pytest.raises(RuntimeError, match="outside the range"):
+        dense_stream_topk(W, dense, k=k, u_ids=u, min_should_match=msm)
+    monkeypatch.undo()
+    assert kb.launches["dense_stream_topk"] == n0 + 1
     want = dense_stream_topk_plain(W, dense, k=k + 1, u_ids=u,
                                    min_should_match=msm)
     torch.cuda.synchronize()
@@ -268,7 +300,8 @@ def test_kernels_refuse_sizes_beyond_shared_memory(cuda):
             torch.full((1, L), 64, dtype=torch.int32, device=cuda),
             torch.ones((1, L), device=cuda), z, z.clone(),
             torch.ones((1, Q), device=cuda), n_pad=64, L=L, k=10)
-    U = 40000
+    # K2 keeps the staged rows' ids, 4 bytes a column: 60,000 pass 227 KB
+    U = 60000
     with pytest.raises(RuntimeError, match="shared memory"):
         dense_stream_topk(torch.ones((1, 1, U), device=cuda),
                           torch.ones((1, 1, U, 4), dtype=torch.bfloat16,
@@ -1268,6 +1301,11 @@ AGG_CASES = [(0, 1 << 10, 5, 1 << 10, 0.5, "perm"),
              (2, 1 << 18, 4000, 1 << 16, 0.3, "wild"),
              (3, 1 << 16, 7, 1 << 16, 1.0, "wild"),
              (4, 1 << 16, 64, 1 << 16, 0.0, "perm")]
+#: K12 also at n_pad and pair counts that are not multiples of 32 (no
+#: padding), and a mask of 2^29 docs whose bits (64 MB) pass the L2
+K12_CASES = AGG_CASES + [(5, 1000, 13, (1 << 12) + 5, 0.5, "wild", False),
+                         (6, 77, 3, 37, 1.0, "wild", False),
+                         (7, 1 << 20, 256, 1 << 29, 0.25, "wild")]
 
 
 def _agg_inputs(cuda, case):
@@ -1280,9 +1318,20 @@ def _sum_tol(abs_mass):
     return 2.0 ** -22 * abs_mass
 
 
-@pytest.mark.parametrize("case", AGG_CASES)
-def test_k12_matches_plain(cuda, case):
+@pytest.mark.parametrize("case", K12_CASES)
+def test_k12_matches_plain(cuda, monkeypatch, case):
     c, t = _agg_inputs(cuda, case)
+    # the C entry lays out exactly the workspace the wrapper sizes: one
+    # byte less is refused in every mode
+    size = aggs.masked_scan_workspace_bytes
+    monkeypatch.setattr(aggs, "masked_scan_workspace_bytes",
+                        lambda *a: size(*a) - 1)
+    for mode in ("counts", "prefix", "sums"):
+        with pytest.raises(RuntimeError, match="outside the range"):
+            aggs.masked_scan(t["off"], t["docs"], t["mask"],
+                             t["vals"] if mode == "sums" else None,
+                             mode=mode)
+    monkeypatch.undo()
     for mode in ("counts", "prefix"):
         n0 = kb.launches["agg_masked_scan"]
         got = aggs.masked_scan(t["off"], t["docs"], t["mask"], mode=mode)

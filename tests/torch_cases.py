@@ -118,9 +118,10 @@ def bool_case(seed: int, *, S: int, L: int = 48, n_pad: int = 4096):
 
 def dense_case(seed: int, *, S: int, B: int, Q: int, T: int,
                n_pad: int = 4096, C: int = 1024, U=None,
-               density: float = 0.3) -> dict:
+               density: float = 0.3, shared: bool = False) -> dict:
     """Dense rows (bf16 bits [S, n_blk, T, C]) and the slot inputs the
-    tiered step takes: rid/w [B, S, Q] and W [B, S, U or T]."""
+    tiered step takes: rid/w [B, S, Q] and W [B, S, U or T]; ``shared``
+    gives every query the first query's rows."""
     rng = np.random.RandomState(seed)
     n_blk = n_pad // C
     vals = rng.choice(np.array([0.3, 0.6, 0.9, 1.2], np.float32),
@@ -133,6 +134,8 @@ def dense_case(seed: int, *, S: int, B: int, Q: int, T: int,
         u_ids = np.stack([np.sort(rng.choice(T, size=U, replace=False))
                           for _ in range(S)]).astype(np.int32)
     rid = rng.randint(0, width, size=(B, S, Q)).astype(np.int32)
+    if shared:
+        rid[:] = rid[:1]
     w = rng.choice(np.array([0.0, 0.5, 1.0, 2.0], np.float32),
                    size=(B, S, Q))
     W = np.zeros((B, S, width), np.float32)
@@ -278,11 +281,11 @@ def fusion_case(seed: int, *, B: int, W: int, S: int = 2,
                 UP=max(n_pad_t, n_pad_k), pad_id=S * max(n_pad_t, n_pad_k))
 
 
-def agg_pairs_case(seed, M, V, n_pad, density, docs_kind):
+def agg_pairs_case(seed, M, V, n_pad, density, docs_kind, pad=True):
     """An ordinal CSR of M pairs in V runs (zero-length runs included), as
     the aggregation kernels (K12–K15) take it, padded to powers of two as
-    the caches pad: offsets repeat their last value, docs carry the
-    ``n_pad`` sentinel, values are 0. Docs are drawn from the real docs
+    the caches pad (``pad``): offsets repeat their last value, docs carry
+    the ``n_pad`` sentinel, values are 0. Docs are drawn from the real docs
     ("perm") or also hold ids in [-n_pad, 0) that wrap and ids past either
     end that gather False ("wild")."""
     rng = np.random.RandomState(seed)
@@ -301,7 +304,13 @@ def agg_pairs_case(seed, M, V, n_pad, density, docs_kind):
     vals[rng.rand(M) < 0.1] = 7.25              # duplicate values
     for v in range(V):                           # ascending within a run
         vals[off[v]:off[v + 1]].sort()
-    mask = rng.rand(n_pad) < density
+    if n_pad > 1 << 24:          # a byte a doc: no float per doc
+        mask = np.frombuffer(rng.bytes(n_pad), np.uint8) < density * 256
+    else:
+        mask = rng.rand(n_pad) < density
+    if not pad:
+        return dict(off=off, docs=docs, vals=vals, mask=mask, M=M,
+                    n_pad=n_pad)
     Mp = 1 << max(M - 1, 0).bit_length()
 
     def pad(a, size, fill):
