@@ -134,13 +134,12 @@ times its size). Phases, each fatal on failure:
     max(1, |W|) of its plain version and of a numpy f64 run (a planted
     TF32 run must land outside that bar), the written results recomputed
     from the gated arrays; K20 launched once a call
-    and a doc, K21 once an outlier run, K22 once a step; docs/s and
+    and a doc, K21 once an outlier run, K22 once a run; docs/s and
     p50/p99, the analytics' wall split (frame load, standardise, kernel,
     tail, write), each kernel's time beside its bound, plain version and
     library call;
-13. a comment line with K16's, K6's, K9's, K8's, K1's and K4's times
-    before their redesign (from PERF.md's kernel table, not measured in
-    this run),
+13. a comment line with the redesigned kernels' times before their
+    redesign (from PERF.md's kernel table, not measured in this run),
     the ``kernels``
     JSON line, the whole run's seconds, the card line, and the final
     status line.
@@ -2763,6 +2762,67 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
               f"{lib_ms:.4f} ms; "
               + ", ".join(f"{k} {v:.4f} ms" for k, v in by_mode.items())
               + f" [{card}]", flush=True)
+    # K14's sums mode beside its counts: its own bound (the counts' bytes
+    # and the value of each pair it adds; also with 32 bytes for each
+    # sector of values such pairs touch) and library call
+    k14 = next(r for r in rows if r["name"] == "agg_bucket_reduce")
+    hit = aggs.gather_mask(md, h_docs) & (h_ids >= 0) & (h_ids < nb)
+    sectors = torch.zeros((Mp + 7) // 8, dtype=torch.bool, device=dev)
+    sectors[hit.nonzero().squeeze(1) // 8] = True
+    k14_bytes = Mp * 4 + n_in * 4 + n_docs + nb * 4
+    n_hit, n_sectors = int(hit.sum()), int(sectors.sum())
+    del hit, sectors
+
+    def lib_k14_sums():
+        mm = md[r_docs.long()] & (r_ids >= 0) & (r_ids < nb)
+        return torch.bincount(torch.where(mm, r_ids, nb),
+                              weights=torch.where(mm, r_vals, 0.0),
+                              minlength=nb + 1)
+    k14.update(
+        sums_ms=k14["ms_by_mode"]["sums"],
+        sums_bound_ms=bound(k14_bytes + 4 * n_hit, 0)[0],
+        sums_bound_by="bytes",
+        sums_bound_sector_ms=bound(k14_bytes + 32 * n_sectors, 0)[0],
+        sums_library_ms=timed(lib_k14_sums, reps),
+        sums_library_call="torch.bincount(weights=) after the gather "
+                          "(float atomics: not the same bits run to run)")
+    # K13's register mode alone on the HLL prefix, beside its bound (the
+    # offsets, c at both ends of a run and a lower-bound search's probes,
+    # the rho and the register a run) and a library call computing the
+    # whole masked register max (scatter_reduce_ amax after the gather)
+    k13 = next(r for r in rows if r["name"] == "agg_rank_pick")
+    hc = aggs.masked_rank_prefix(hll["off_dev"], hll["docs_dev"], md)[1]
+    V = hll["off_dev"].shape[0] - 1
+    n_real = hll["n_pairs"]
+    reg_d = torch.from_numpy(hll["reg"].astype(np.int64)).to(dev)
+    hd, hr = hll["docs_dev"][:n_real], hll["rhos_dev"][:n_real]
+    log_h = int(np.ceil(np.log2(hc.shape[0] + 1))) + 1
+
+    def lib_regs():
+        return torch.zeros(hll["m"], dtype=torch.int32, device=dev) \
+            .scatter_reduce_(0, reg_d, torch.where(md[hd.long()], hr, 0),
+                             "amax")
+    k13.update(
+        registers_ms=timed(lambda: aggs.register_max(hc, hll["off_dev"],
+                                                     hll["rhos_dev"]), reps),
+        registers_bound_ms=bound((V + 1) * 4 + V * (2 + log_h) * 4
+                                 + V * 8, 0)[0],
+        registers_bound_by="bytes",
+        registers_library_ms=timed(lib_regs, reps),
+        registers_library_call="scatter_reduce_ amax after the gather "
+                               "(the whole masked register max)")
+    print(f"# agg_rank_pick registers: {k13['registers_ms']:.4f} ms alone "
+          f"({V} runs over the HLL prefix; bound "
+          f"{k13['registers_bound_ms']:.6f} ms by bytes), library "
+          f"(scatter_reduce_ amax after the gather, K12's part too) "
+          f"{k13['registers_library_ms']:.4f} ms [{card}]", flush=True)
+    del hc, reg_d
+    print(f"# agg_bucket_reduce sums: {k14['sums_ms']:.4f} ms (bound "
+          f"{k14['sums_bound_ms']:.5f} ms by bytes: the counts' "
+          f"{k14_bytes} and {n_hit} values; "
+          f"{k14['sums_bound_sector_ms']:.5f} ms at the {n_sectors} 32-byte "
+          f"value sectors they touch), library (torch.bincount with "
+          f"weights) {k14['sums_library_ms']:.4f} ms [{card}]", flush=True)
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return rows, path
@@ -2804,7 +2864,9 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K2 dense_stream_topk at the headline": 3.8095,
               "K12 agg_masked_scan, the route's prefix": 4.9246,
               "K12 agg_masked_scan, the caches' counts": 2.4039,
-              "K12 agg_masked_scan, the caches' sums": 2.4962}
+              "K12 agg_masked_scan, the caches' sums": 2.4962,
+              "K22 logreg_train, (m)'s 500 steps": 10.156,
+              "K14 agg_bucket_reduce, the caches' sums": 3.8224}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -3706,7 +3768,7 @@ def run_ml(card, *, reps=10):
             "dependent_variable": "FlightDelay"}}, ["FlightDelayMin"],
         "ml_classification", "logreg_train", "_train_logreg")
     c = paths["ml_classification"]
-    if c["logreg_train"] != ML_STEPS or any(
+    if c["logreg_train"] != 1 or any(
             v for k, v in c.items() if k != "logreg_train"):
         fail(f"(m): launches {c}")
     Xb, yd, C = args[0], args[1], args[2]
@@ -3784,31 +3846,39 @@ def run_ml(card, *, reps=10):
           f"lands {err_tf32:.3g}); predictions equal the f64 run's on "
           f"{int(sep.sum())} separated rows ({n_true} predicted True); "
           f"written results equal the gated W's", flush=True)
-    k22_ms = timed(lambda: ml.logreg_train(Xb, yd, C, ML_STEPS), 2)
+    k22_ms = timed(lambda: ml.logreg_train(Xb, yd, C, ML_STEPS), 5)
     k22_plain = timed(lambda: ml.logreg_train_plain(Xb, yd, C, ML_STEPS), 2)
-    Wl = W.clone()
 
     def lib_k22():
-        p = torch.softmax(Xb @ Wl, dim=1)
-        return Xb.T @ (p - Yd)
-    k22_lib = timed(lib_k22, 50)
+        Wl = torch.zeros_like(W)
+        for _ in range(ML_STEPS):
+            p = torch.softmax(Xb @ Wl, dim=1)
+            Wl = Wl - 0.5 * (Xb.T @ (p - Yd) / Xb.shape[0] + 1e-4 * Wl)
+        return Wl
+    k22_lib = timed(lib_k22, 2)
     nb, F1 = Xb.shape
-    # a step reads Xb and y once and reads and writes W
-    bms, bby = bound(4 * nb * F1 + 4 * nb + 8 * F1 * C,
-                     4 * nb * F1 * C + 6 * nb * C)
+    # a run reads Xb and y once and writes W; every step does its FMAs
+    # (two products of 2 n F1 C) and its softmax and residuals (6 n C)
+    bms, bby = bound(4 * nb * F1 + 4 * nb + 4 * F1 * C,
+                     ML_STEPS * (4 * nb * F1 * C + 6 * nb * C))
+    # the one-launch-a-step kernel's bound: Xb and y again every step
+    step_bytes = bound(4 * nb * F1 + 4 * nb + 8 * F1 * C, 0)[0]
     rows.append(dict(
         name="logreg_train", route="cuda",
         source="elasticsearch_tpu_torch/csrc/logreg_train.cu",
         replaces="elasticsearch_tpu/xpack/ml.py:660",
-        max_abs_err=float((W - Wp).abs().max()), ms=k22_ms / ML_STEPS,
-        ms_train=k22_ms, plain_ms=k22_plain / ML_STEPS,
-        bound_ms=bms, bound_by=bby, library_ms=k22_lib,
-        library_call="torch.matmul x2 + torch.softmax, one step",
+        max_abs_err=float((W - Wp).abs().max()), ms=k22_ms,
+        ms_step=k22_ms / ML_STEPS, steps=ML_STEPS, plain_ms=k22_plain,
+        bound_ms=bms, bound_by=bby,
+        bound_ms_rereading=ML_STEPS * step_bytes, library_ms=k22_lib,
+        library_call=f"torch.matmul x2 + torch.softmax a step, "
+                     f"{ML_STEPS} steps",
         stages_s=split_m, accuracy=metrics["accuracy"]))
-    print(f"# logreg_train: {k22_ms / ML_STEPS:.4f} ms a step, "
-          f"{k22_ms:.3f} ms for {ML_STEPS} steps (bound {bms:.5f} ms a step "
-          f"by {bby}), plain {k22_plain / ML_STEPS:.4f} ms a step, library "
-          f"{k22_lib:.4f} ms a step [{card}]", flush=True)
+    print(f"# logreg_train: {k22_ms:.4f} ms for {ML_STEPS} steps, "
+          f"{k22_ms / ML_STEPS:.5f} ms a step, one launch (bound "
+          f"{bms:.5f} ms a run by {bby}; {ML_STEPS * step_bytes:.4f} ms if "
+          f"every step read Xb again), plain {k22_plain:.3f} ms, library "
+          f"{k22_lib:.4f} ms a run [{card}]", flush=True)
     t1 = time.perf_counter()
     kb.reset_launches()
     svc.put_analytics("flights-delay-min", {

@@ -167,10 +167,10 @@ _SIGNATURES = {
     "knn_outlier": (
         "es_knn_outlier",
         [_P] + [_I] * 3 + [_P] * 3),
-    # Xb, y, n, F1, C, lr, W, partials, stream
+    # Xb, y, n, F1, C, lr, steps, W, workspace, stream
     "logreg_train": (
-        "es_logreg_step",
-        [_P] * 2 + [_I] * 3 + [_F] + [_P] * 3),
+        "es_logreg_train",
+        [_P] * 2 + [_I] * 3 + [_F, _I] + [_P] * 3),
 }
 
 #: other C functions of a library: name -> (argtypes, restype)
@@ -215,7 +215,8 @@ _QUERIES = {
         "es_segment_topk_workspace_bytes": ([_L, _I], ctypes.c_longlong),
     },
     "logreg_train": {
-        # (n, F1, C) -> bytes of the per-tile partial gradients
+        # (n, F1, C) -> bytes of the barrier's counter and two buffers of
+        # the per-tile partial gradients
         "es_logreg_workspace_bytes": ([_I] * 3, ctypes.c_longlong),
     },
     "bool_bm25_topk": {

@@ -765,9 +765,9 @@ def logreg_train(Xb, y, n_classes: int, steps: int = 500, lr: float = 0.5):
     gives a zero row). Xb f32[n, F1] holds the features and a column of
     ones. Returns W f32[F1, n_classes].
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K22 once a
-    step, which refuses sizes whose row tile does not fit a block's
-    shared memory.
+    A CPU tensor runs the plain version; a CUDA tensor launches K22 once
+    for all ``steps`` (none for ``steps = 0``), which refuses sizes whose
+    row tile does not fit a block's shared memory.
     """
     dev = _kb.wrapper_device("logreg_train", Xb)
     if dev.type == "cpu":
@@ -780,12 +780,13 @@ def logreg_train(Xb, y, n_classes: int, steps: int = 500, lr: float = 0.5):
     _kb.check(Xb, "Xb", torch.float32, (n, F1), dev)
     _kb.check(y, "y", torch.int32, (n,), dev)
     W = torch.zeros((F1, n_classes), dtype=torch.float32, device=dev)
+    if steps <= 0:
+        return W
     nbytes = _kb.query("logreg_train", "es_logreg_workspace_bytes", n, F1,
                        n_classes)
-    partials = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
-    for _ in range(steps):
-        _kb.launch("logreg_train", dev, Xb.data_ptr(), y.data_ptr(), n, F1,
-                   n_classes, float(lr), W.data_ptr(), partials.data_ptr())
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    _kb.launch("logreg_train", dev, Xb.data_ptr(), y.data_ptr(), n, F1,
+               n_classes, float(lr), int(steps), W.data_ptr(), ws.data_ptr())
     return W
 
 

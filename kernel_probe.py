@@ -2,12 +2,14 @@
 """Probe of K16 (``bm25_scatter``), K6 (``knn_scan``), K9
 (``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``),
 K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
-(``dense_stream_topk``) and K12 (``agg_masked_scan``) on one card, at the
+(``dense_stream_topk``), K12 (``agg_masked_scan``), K14
+(``agg_bucket_reduce``) and K22 (``logreg_train``) on one card, at the
 inputs ``chip_smoke.py`` gives them on its main paths, and of
 ``chip_smoke.py``'s aggregation phase (``aggs``).
 
     python3 kernel_probe.py [--tree DIR]
-                            [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,aggs]
+                            [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
+                                       k14,k22,aggs]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -95,6 +97,26 @@ JSON lines and writes them to ``--out`` as well.
   adds builds with no L2 cache hints, with c written by streaming stores,
   and with the bits' lines left in L2 (``K12_VARIANTS``), each timed in
   turn with the tree's build on each call.
+- K14's counts and sums over config #3's histogram cache (``k14_inputs``:
+  2^28 padded pairs, 165,346,692 real, 1,024 buckets, a fresh 25 %
+  mask): CUDA-event mean, host time, device time by kernel, the sums
+  pass's blocks, the bounds (each added value's 4 bytes, or the 32-byte
+  sectors they touch), a digest of the outputs and whether a second call
+  gives the same bits; a build with ``clock64()`` stamps of the one-wave
+  design (a step's loads, its conflict step, the steps that end early,
+  the rows flush). ``--variants`` adds builds with the conflict step
+  sorted in registers or left out, 2 vectors a lane (also with every
+  slot's values staged at once), 264 blocks
+  (``K14_VARIANTS``), each timed in turn with the tree's build.
+- K22 at classification (m)'s call (recorded from ``start_analytics``:
+  131,072 x 8 columns, 2 classes, 500 steps): the run's and a step's
+  CUDA-event mean, host time a step, device time by kernel, launches a
+  run, the grid and blocks an SM, the bound, a digest of W and, for the
+  persistent design, a build with ``clock64()`` stamps a phase (the
+  residuals, the partials, the grid barrier, the sum and update);
+  ``--variants`` adds builds with parts of the residuals changed or left
+  out, or 1,024 threads a block
+  (``K22_VARIANTS``), each timed in turn with the tree's build.
 - ``aggs``: ``chip_smoke.run_aggs`` against ``--tree``'s package: config
   #3's route (aggs/s, p50, p99, its stages, on stdout) and the K12–K15
   rows through the caches (about 3 minutes; not in the default list).
@@ -2029,6 +2051,16 @@ def run_k2(rows, reps, tree, variants):
     torch.cuda.empty_cache()
 
 
+def digest(ts):
+    """A sha1 of the tensors' bytes, equal between two trees that compute
+    the same bits."""
+    import hashlib
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def k12_route_inputs(dev):
     """Config #3's route, as ``chip_smoke.run_aggs`` builds it: 165,346,692
     pairs in (ordinal, value) order, n_pad 2^28, the first 25 % mask."""
@@ -2079,7 +2111,6 @@ def run_k12(rows, reps, tree, variants):
     again, in turn (tree, variant, tree, variant), and the variant's
     digest."""
     cs = smoke()
-    import hashlib
     import types
     import torch
     from elasticsearch_tpu_torch.ops import aggs
@@ -2087,12 +2118,6 @@ def run_k12(rows, reps, tree, variants):
     off_d, docs_d, vals_d, mask_d, off, docs_s, vals_s = \
         k12_route_inputs(dev)
     n = cs.AGG_DOCS
-
-    def digest(ts):
-        h = hashlib.sha1()
-        for t in ts:
-            h.update(t.contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()
 
     libs = {name: build_variant(tree, name, edits, scratch_dir(),
                                 source="agg_masked_scan")
@@ -2164,6 +2189,536 @@ def run_k12(rows, reps, tree, variants):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# K14's sums and counts over config #3's caches, K22 at (m)
+# ---------------------------------------------------------------------------
+
+def typed_variant(name, lib):
+    """A variant build's C functions typed as ``kernels.build`` types the
+    package's own library of kernel ``name``."""
+    from elasticsearch_tpu_torch.kernels import build as kb
+    sym, argtypes = kb._SIGNATURES[name]
+    funcs = {sym: (argtypes, ctypes.c_int),
+             "es_error_string": ([ctypes.c_int], ctypes.c_char_p),
+             **kb._QUERIES.get(name, {})}
+    for fname, (args, res) in funcs.items():
+        fn = getattr(lib, fname, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, res
+    return lib
+
+
+
+def k14_inputs(dev):
+    """Config #3's histogram cache at the caches' shape: 165,346,692 docs'
+    fares (lognormal(3, 1), ``default_rng(1234)``, the smoke's
+    distribution, not its draws) as ``aggs.histogram_bucket_ids`` packs
+    them at interval 10 (2^28 padded pairs, 573 buckets, 1,024 padded),
+    the pairs' values, and a fresh 25 % mask."""
+    cs = smoke()
+    import types
+    import torch
+    from elasticsearch_tpu_torch.ops import aggs
+    from elasticsearch_tpu_torch.utils.shapes import round_up_pow2
+    rng = np.random.default_rng(1234)
+    n = cs.AGG_DOCS
+    fares = rng.lognormal(3.0, 1.0, n).astype(np.float32)
+    n_pad = round_up_pow2(n)
+    seg = types.SimpleNamespace(
+        n_docs=n, n_pad=n_pad, keyword_fields={},
+        numeric_fields={"fare": types.SimpleNamespace(
+            docs_host=np.arange(n, dtype=np.int32),
+            vals_host=fares.astype(np.float64))})
+    ids, docs, n_buckets, _ = aggs.histogram_bucket_ids(
+        seg, "fare", cs.AGG_HIST_INTERVAL, 0.0, device=dev)
+    Mp = ids.shape[0]
+    vals = np.zeros(Mp, np.float32)
+    vals[:n] = fares
+    mask = np.zeros(n_pad, bool)
+    mask[:n] = rng.random(n, dtype=np.float32) < cs.AGG_DENSITY
+    return (ids, docs, torch.from_numpy(vals).to(dev),
+            torch.from_numpy(mask).to(dev), round_up_pow2(n_buckets))
+
+
+#: clock64() stamps of the one-wave sums kernel (lane 0 of each warp,
+#: summed over its steps, then over the block's warps): the loads of a
+#: step up to its values staged (ids, docs, the gathers, the values), the
+#: conflict step (the slots' matches and adds), steps that end early
+#: (padding, no id in range, no match), the steps taken, and the block's
+#: rows flush (thread 0)
+K14_PHASE_KEYS = ("warp_cycles", "loads", "conflict_step", "early_steps",
+                  "steps", "row_flush")
+K14_PHASES = [
+    ('#include "topk_common.cuh"\n',
+     '#include "topk_common.cuh"\n'
+     "__device__ unsigned long long k14_dbg[8 * 512];\n"
+     "extern \"C\" int es_probe_k14_phases(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k14_dbg, n * 64);\n}\n"
+     "extern \"C\" int es_probe_k14_reset() {\n"
+     "  static unsigned long long z[8 * 512];\n"
+     "  return (int)cudaMemcpyToSymbol(k14_dbg, z, sizeof(z));\n}\n"
+     "__device__ __forceinline__ long long k14_clk() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t)::\"memory\");\n"
+     "  return t;\n}\n"),
+    ("  double* mine = wh + (size_t)warp * nb;\n",
+     "  double* mine = wh + (size_t)warp * nb;\n"
+     "  long long dbg_t0 = k14_clk(), dbg_ld = 0, dbg_cf = 0, dbg_early = 0,"
+     "\n            dbg_steps = 0, dbg_s0 = 0;\n  int dbg_sink = 0;\n"),
+    ("    int key[K14_SLOTS], doc[K14_SLOTS];\n",
+     "    int key[K14_SLOTS], doc[K14_SLOTS];\n"
+     "    dbg_s0 = k14_clk();\n    ++dbg_steps;\n"),
+    ("    if (!__any_sync(0xffffffffu, any)) continue;   // padding, ids past "
+     "nb\n",
+     "    if (!__any_sync(0xffffffffu, any)) {\n"
+     "      dbg_early += k14_clk() - dbg_s0;\n      continue;\n    }\n"),
+    ("    if (!__any_sync(0xffffffffu, any)) continue;\n#pragma unroll\n"
+     "    for (int s = 0; s < K14_SLOTS; ++s) {\n",
+     "    if (!__any_sync(0xffffffffu, any)) {\n"
+     "      dbg_early += k14_clk() - dbg_s0;\n      continue;\n    }\n"
+     "#pragma unroll\n"
+     "    for (int s = 0; s < K14_SLOTS; ++s) dbg_sink ^= __float_as_int(v[s]);"
+     "\n    const long long dbg_s1 = k14_clk();\n    dbg_ld += dbg_s1 - dbg_s0;"
+     "\n#pragma unroll\n    for (int s = 0; s < K14_SLOTS; ++s) {\n"),
+    ("      __syncwarp();\n    }\n  }\n  __syncthreads();\n",
+     "      __syncwarp();\n    }\n    dbg_cf += k14_clk() - dbg_s1;\n  }\n"
+     "  const long long dbg_w = k14_clk() - dbg_t0;\n"
+     "  __syncthreads();\n  const long long dbg_f0 = k14_clk();\n"),
+    ("    row[b] = s;\n  }\n}\n",
+     "    row[b] = s;\n  }\n"
+     "  if (blockIdx.x < 512) {\n"
+     "    unsigned long long* o = k14_dbg + blockIdx.x * 8;\n"
+     "    if (lane == 0) {\n"
+     "      atomicAdd(o + 0, (unsigned long long)dbg_w);\n"
+     "      atomicAdd(o + 1, (unsigned long long)dbg_ld);\n"
+     "      atomicAdd(o + 2, (unsigned long long)dbg_cf);\n"
+     "      atomicAdd(o + 3, (unsigned long long)dbg_early);\n"
+     "      atomicAdd(o + 4, (unsigned long long)dbg_steps);\n"
+     "      atomicAdd(o + 6, (unsigned long long)(dbg_sink & 1));\n"
+     "    }\n"
+     "    if (threadIdx.x == 0)\n"
+     "      atomicAdd(o + 5, (unsigned long long)(k14_clk() - dbg_f0));\n"
+     "  }\n}\n"),
+]
+
+#: the conflict step as a warp's keys sorted in registers (a bitonic sort
+#: of (bucket, lane) across the lanes) and a segmented add in f64 (a scan
+#: of each bucket's run), the run's last lane adding it to the row
+K14_SORTED = """
+#pragma unroll
+    for (int s = 0; s < K14_SLOTS; ++s) {
+      unsigned kk = key[s] < 0 ? 0xffffffffu
+                               : ((unsigned)key[s] << 5) | (unsigned)lane;
+      float x = v[s];
+      for (int size = 2; size <= 32; size <<= 1)
+        for (int stride = size >> 1; stride > 0; stride >>= 1) {
+          const unsigned ok = __shfl_xor_sync(0xffffffffu, kk, stride);
+          const float ox = __shfl_xor_sync(0xffffffffu, x, stride);
+          const bool asc = (lane & size) == 0, low = (lane & stride) == 0;
+          if (low == asc ? ok < kk : ok > kk) {
+            kk = ok;
+            x = ox;
+          }
+        }
+      const int b = kk == 0xffffffffu ? -1 : (int)(kk >> 5);
+      double t = (double)x;
+      for (int d = 1; d < 32; d <<= 1) {
+        const double o = __shfl_up_sync(0xffffffffu, t, d);
+        const int ob = __shfl_up_sync(0xffffffffu, b, d);
+        if (lane >= d && ob == b) t = o + t;
+      }
+      const int nx = __shfl_down_sync(0xffffffffu, b, 1);
+      if (b >= 0 && (lane == 31 || nx != b)) mine[b] += t;
+      __syncwarp();
+    }
+"""
+K14_MATCH = """
+#pragma unroll
+    for (int s = 0; s < K14_SLOTS; ++s) {
+      stage[lane] = v[s];
+      __syncwarp();
+      const unsigned grp = __match_any_sync(0xffffffffu, key[s]);
+      if (key[s] >= 0 && lane == __ffs(grp) - 1) {
+        double acc = mine[key[s]];
+        for (unsigned g = grp; g != 0; g &= g - 1)
+          acc += (double)stage[__ffs(g) - 1];
+        mine[key[s]] = acc;
+      }
+      __syncwarp();
+    }
+"""
+#: the slots' values staged all at once (a warp's stage K14_SLOTS x 128
+#: bytes, one __syncwarp a step before the slots)
+K14_FULL_STAGE = """
+#pragma unroll
+    for (int s = 0; s < K14_SLOTS; ++s) stage[s * 32 + lane] = v[s];
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < K14_SLOTS; ++s) {
+      const unsigned grp = __match_any_sync(0xffffffffu, key[s]);
+      if (key[s] >= 0 && lane == __ffs(grp) - 1) {
+        double acc = mine[key[s]];
+        for (unsigned g = grp; g != 0; g &= g - 1)
+          acc += (double)stage[s * 32 + __ffs(g) - 1];
+        mine[key[s]] = acc;
+      }
+      __syncwarp();
+    }
+"""
+#: builds of csrc/agg_bucket_reduce.cu (the one-wave design) with the
+#: conflict step sorted or left out (a sink keeps the loads alive), with
+#: 2 vectors a lane (also with every slot staged at once), or 264 blocks;
+#: "as_is" is the source built the same way
+K14_VARIANTS = {
+    "as_is": [],
+    "sorted": [(K14_MATCH, K14_SORTED)],
+    "no_conflict_step": [(K14_MATCH, "\n    if (v[0] == -1.2345e-30f && "
+                          "key[0] >= 0) mine[key[0]] = v[1];\n")],
+    "vecs2": [("#define K14_VECS 4\n", "#define K14_VECS 2\n")],
+    "vecs2_full_stage": [
+        ("#define K14_VECS 4\n", "#define K14_VECS 2\n"),
+        ("+ warp * 32;", "+ warp * K14_SLOTS * 32;"),
+        ("sizeof(float) * (size_t)warps * 32;",
+         "sizeof(float) * (size_t)warps * K14_SLOTS * 32;"),
+        (K14_MATCH, K14_FULL_STAGE)],
+    "blocks_264": [("#define K14_SUM_BLOCKS 396\n",
+                    "#define K14_SUM_BLOCKS 264\n")],
+}
+
+
+def k14_phases(tree, call, reps):
+    """The phases build's stamps on a sums call (its mean a block and a
+    warp step) and its CUDA-event mean; "not measured" where the tree's
+    source is another design."""
+    cs = smoke()
+    import torch
+    lib = build_variant(tree, "phases", K14_PHASES, scratch_dir(),
+                        source="agg_bucket_reduce")
+    if lib is None:
+        return "not measured (edit target missing: another design)"
+    typed_variant("agg_bucket_reduce", lib)
+    with swapped_library("agg_bucket_reduce", lib):
+        ms = cs.timed(call, reps)
+        lib.es_probe_k14_reset()
+        call()
+        torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (8 * 512))()
+    if lib.es_probe_k14_phases(buf, 512):
+        return "not measured (copy failed)"
+    a = np.frombuffer(buf, dtype=np.int64).reshape(512, 8)
+    a = a[a[:, 0] > 0].astype(np.float64)
+    out = {k: float(v) for k, v in zip(K14_PHASE_KEYS, a.mean(0))}
+    steps = a[:, 4].sum()
+    out.update(ms=ms, blocks_read=int(a.shape[0]),
+               sm_clock_mhz=sm_clock_mhz(),
+               loads_a_step=float(a[:, 1].sum() / steps),
+               conflict_step_a_step=float(a[:, 2].sum() / steps),
+               warp_cycles_max_block=float(a[:, 0].max()))
+    return out
+
+
+def run_k14(rows, reps, tree, variants):
+    """K14's counts and sums at config #3's caches shape (2^28 padded
+    pairs, 165,346,692 real, nb = 1,024, a fresh 25 % mask): CUDA-event
+    mean, host time a call, device time by kernel, the sums pass's grid,
+    the bounds and a digest of the outputs; the phases build's stamps;
+    with ``variants`` each build of ``K14_VARIANTS`` timed in turn with
+    the tree's library (variant, tree, variant, tree) and its digest."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import aggs
+    dev = torch.device("cuda")
+    ids, docs, vals, mask, nb = k14_inputs(dev)
+    Mp, n = ids.shape[0], cs.AGG_DOCS
+    ok = (ids >= 0) & (ids < nb)
+    hit = aggs.gather_mask(mask, docs) & ok
+    n_in, n_hit = int(ok.sum()), int(hit.sum())
+    sectors = torch.zeros((Mp + 7) // 8, dtype=torch.bool, device=dev)
+    sectors[hit.nonzero().squeeze(1) // 8] = True
+    n_sect = int(sectors.sum())
+    del ok, hit, sectors
+    counts_bytes = Mp * 4 + n_in * 4 + n + nb * 4
+    calls = {
+        "counts": (lambda: aggs.masked_bucket_counts(
+            ids, docs, mask, n_buckets=nb), counts_bytes, counts_bytes),
+        "sums": (lambda: aggs.masked_bucket_sums(
+            ids, docs, vals, mask, n_buckets=nb), counts_bytes + 4 * n_hit,
+            counts_bytes + 32 * n_sect)}
+    ws = kb.query("agg_bucket_reduce", "es_agg_bucket_reduce_workspace_bytes",
+                  Mp, nb, 1)
+    libs = {}
+    if variants:
+        for name, edits in K14_VARIANTS.items():
+            lib = build_variant(tree, name, edits, scratch_dir(),
+                                source="agg_bucket_reduce")
+            libs[name] = typed_variant("agg_bucket_reduce", lib) \
+                if lib is not None else None
+    for mode, (call, nbytes, sector_bytes) in calls.items():
+        ms = cs.timed(call, reps)
+        by_name = cs.device_ms_by_name(call, max(reps // 2, 1))
+        out, again = call(), call()
+        row = dict(kernel="agg_bucket_reduce", what=f"caches: {mode}, {Mp} "
+                   f"padded pairs, {n} real, nb = {nb}", ms=ms,
+                   host_ms=host_ms(call, reps),
+                   device_ms=sum(by_name.values()), by_name=by_name,
+                   bound_ms=cs.bound(nbytes, 0)[0],
+                   bound_ms_sectors=cs.bound(sector_bytes, 0)[0],
+                   pairs_in_range=n_in, pairs_added=n_hit,
+                   digest=digest((out,)),
+                   same_bits_twice=bool(torch.equal(
+                       out.view(torch.int32), again.view(torch.int32))))
+        if mode == "sums":
+            row.update(sum_blocks=ws // (8 * nb),
+                       phases=k14_phases(tree, call, reps))
+            extra = {}
+            for name, lib in libs.items():
+                if lib is None:
+                    extra[name] = "not measured (edit target missing)"
+                    continue
+                times, vout = [], None
+                for _ in range(2):
+                    with swapped_library("agg_bucket_reduce", lib):
+                        times.append(cs.timed(call, reps))
+                        vout = call()
+                    times.append(cs.timed(call, reps))
+                extra[name] = dict(ms=times[0::2], tree_ms=times[1::2],
+                                   digest=digest((vout,)))
+            if extra:
+                row["variants"] = extra
+        emit(rows, **row)
+    del ids, docs, vals, mask
+    torch.cuda.empty_cache()
+
+
+def k22_input(dev):
+    """(Xb, y, C, steps, lr) of classification (m): the flights frame as
+    ``chip_smoke.py``'s ML phase hands it to K22 (recorded from
+    ``start_analytics``)."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.xpack import ml
+    rng = np.random.RandomState(1234)
+    frame = cs.flights_frame(rng, cs.ML_FRAME_DOCS)
+    svc = ml.MlService(cs.frame_search(frame), lambda index, lines: None,
+                       device=dev)
+    got = []
+    orig = ml.logreg_train
+
+    def rec(Xb, y, n_classes, steps=500, lr=0.5):
+        got.append((Xb, y, n_classes, steps, lr))
+        return orig(Xb, y, n_classes, steps, lr)
+    svc.put_analytics("probe-classes", {
+        "source": {"index": "kibana_sample_data_flights"},
+        "dest": {"index": "probe-classes"},
+        "analysis": {"classification": {"dependent_variable": "FlightDelay"}},
+        "analyzed_fields": {"excludes": ["FlightDelayMin"]}})
+    ml.logreg_train = rec
+    try:
+        svc.start_analytics("probe-classes")
+    finally:
+        ml.logreg_train = orig
+    (args,) = got
+    return args
+
+
+#: clock64() stamps of the persistent K22 (thread 0 of each block, summed
+#: over the steps): the residuals, the tiles' partials (FMA chains and
+#: stores), the grid barrier's wait, the partials' sum and the update, and
+#: the block's whole time; within them thread 0's own residual rows
+#: (before the block's barrier), the partials' staging (up to the barrier
+#: after it) and the add chain
+K22_PHASE_KEYS = ("block_cycles", "residuals", "partials", "barrier",
+                  "sum_and_update", "residuals_thread0", "staging",
+                  "add_chain")
+K22_PHASES = [
+    ('#include "topk_common.cuh"\n',
+     '#include "topk_common.cuh"\n'
+     "__device__ long long k22_dbg[8 * 256];\n"
+     "extern \"C\" int es_probe_k22_phases(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k22_dbg, n * 64);\n}\n"
+     "__device__ __forceinline__ long long k22_clk() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t)::\"memory\");\n"
+     "  return t;\n}\n"),
+    ("  if (resident) k22_load_rows(Xb, n, F1, 0, mine, X_s);\n"
+     "  __syncthreads();\n",
+     "  if (resident) k22_load_rows(Xb, n, F1, 0, mine, X_s);\n"
+     "  __syncthreads();\n"
+     "  long long dbg_t0 = k22_clk(), dbg_a = 0, dbg_b = 0, dbg_c = 0,\n"
+     "            dbg_d = 0, dbg_x = 0, dbg_a0 = 0, dbg_st = 0, dbg_ch = 0,"
+     "\n            dbg_y = 0;\n"),
+    ("      }\n      __syncthreads();\n      // (b) the tiles' partials",
+     "      }\n      dbg_a0 += k22_clk() - dbg_x;\n      __syncthreads();\n"
+     "      // (b) the tiles' partials"),
+    ("        __syncthreads();\n        if (tid < E) {\n",
+     "        __syncthreads();\n        dbg_st += k22_clk() - dbg_x;\n"
+     "        dbg_y = k22_clk();\n        if (tid < E) {\n"),
+    ("      if (tid < E) {\n        const float w = W_s[e0 + tid];\n",
+     "      dbg_ch += k22_clk() - dbg_y;\n"
+     "      if (tid < E) {\n        const float w = W_s[e0 + tid];\n"),
+    ("    float* P = partials + (size_t)(s & 1) * tiles * FC;\n",
+     "    float* P = partials + (size_t)(s & 1) * tiles * FC;\n"
+     "    dbg_x = k22_clk();\n"),
+    ("      __syncthreads();\n      // (b) the tiles' partials",
+     "      __syncthreads();\n      dbg_a += k22_clk() - dbg_x;\n"
+     "      dbg_x = k22_clk();\n      // (b) the tiles' partials"),
+    ("      __syncthreads();\n    }\n    // (c) every tile's partial",
+     "      __syncthreads();\n      dbg_b += k22_clk() - dbg_x;\n"
+     "      dbg_x = k22_clk();\n    }\n    // (c) every tile's partial"),
+    ("    k22_grid_sync(count, (unsigned long long)(s + 1) * G);\n",
+     "    k22_grid_sync(count, (unsigned long long)(s + 1) * G);\n"
+     "    dbg_c += k22_clk() - dbg_x;\n    dbg_x = k22_clk();\n"),
+    ("    __syncthreads();\n  }\n  if (blockIdx.x == 0)\n",
+     "    __syncthreads();\n    dbg_d += k22_clk() - dbg_x;\n  }\n"
+     "  if (tid == 0 && blockIdx.x < 256) {\n"
+     "    long long* o = k22_dbg + blockIdx.x * 8;\n"
+     "    o[0] = k22_clk() - dbg_t0;\n    o[1] = dbg_a;\n    o[2] = dbg_b;\n"
+     "    o[3] = dbg_c;\n    o[4] = dbg_d;\n    o[5] = dbg_a0;\n"
+     "    o[6] = dbg_st;\n    o[7] = dbg_ch;\n  }\n"
+     "  if (blockIdx.x == 0)\n"),
+]
+
+#: builds of the persistent csrc/logreg_train.cu, timed beside "as_is",
+#: the source built the same way: the residuals with the fast exp and
+#: division (other bits), with no label load, or left out; 1,024 threads
+#: a block (512 in the source)
+K22_VARIANTS = {
+    "as_is": [],
+    "fast_exp_div": [
+        ("    zr[c] = expf(__fsub_rn(zr[c], m));",
+         "    zr[c] = __expf(__fsub_rn(zr[c], m));"),
+        ("    z[c] = __fsub_rn(__fdiv_rn(zr[c], sum), label == c ? 1.0f : "
+         "0.0f);", "    z[c] = __fsub_rn(__fdividef(zr[c], sum), label == c ? "
+         "1.0f : 0.0f);")],
+    "no_label_load": [("        const int label = y[r0 + r];",
+                       "        const int label = r & 1;")],
+    "no_residuals": [("          k22_residual_regs(x, W_s, F1, C, label, z);",
+                      "          z[0] = x[0] + (float)label;")],
+    "threads_1024": [("#define K22_THREADS 512\n",
+                      "#define K22_THREADS 1024\n")],
+}
+
+#: appended to either design of csrc/logreg_train.cu: the blocks an SM of
+#: its (first) kernel at the shared memory its entry gives it for (n, F1,
+#: C)
+K22_OCCUPANCY = {
+    "persistent": """
+extern "C" int es_probe_k22_blocks_per_sm(int n, int F1, int C) {
+  int G, K, stage;
+  size_t smem;
+  if (k22_plan(n, F1, C, &G, &K, &stage, &smem) != 0 ||
+      es_set_shared(k22_train, smem) != 0)
+    return 0;
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k22_train, K22_THREADS,
+                                                smem);
+  return b;
+}
+""",
+    "steps": """
+extern "C" int es_probe_k22_blocks_per_sm(int n, int F1, int C) {
+  (void)n;
+  const size_t smem = k22_shared_bytes(F1, C);
+  if (es_set_shared(k22_partials, smem) != 0) return 0;
+  int b = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, k22_partials, K22_ROWS,
+                                                smem);
+  return b;
+}
+"""}
+
+
+def run_k22(rows, reps, tree, variants):
+    """K22 at (m)'s call (131,072 x 8 columns, 2 classes, 500 steps): the
+    run's and a step's CUDA-event mean, host time a step, device time by
+    kernel, the grid and blocks an SM, the bound, a digest of W and the
+    phases build's stamps (the persistent design); with ``variants`` each
+    build of ``K22_VARIANTS`` timed in turn with the tree's library and its
+    digest of W."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.xpack import ml
+    dev = torch.device("cuda")
+    Xb, y, C, steps, lr = k22_input(dev)
+    n, F1 = Xb.shape
+
+    def call():
+        return ml.logreg_train(Xb, y, C, steps, lr)
+    ms = cs.timed(call, reps)
+    by_name = cs.device_ms_by_name(call, 2)
+    n0 = kb.launches["logreg_train"]
+    W, again = call(), call()
+    launches = (kb.launches["logreg_train"] - n0) // 2
+    src = open(os.path.join(tree, "elasticsearch_tpu_torch", "csrc",
+                            "logreg_train.cu")).read()
+    design = "persistent" if "k22_train" in src else "steps"
+    occ = build_variant(tree, "occupancy", [("", K22_OCCUPANCY[design])],
+                        scratch_dir(), source="logreg_train")
+    per_sm = "not measured"
+    if occ is not None:
+        occ.es_probe_k22_blocks_per_sm.argtypes = [ctypes.c_int] * 3
+        occ.es_probe_k22_blocks_per_sm.restype = ctypes.c_int
+        per_sm = occ.es_probe_k22_blocks_per_sm(n, F1, C)
+    tiles = -(-n // 256)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = min(tiles, n_sm) if design == "persistent" else \
+        f"{tiles} tiles, then 1 block, a step"
+    phases = "not measured (another design)"
+    if design == "persistent":
+        lib = build_variant(tree, "phases", K22_PHASES, scratch_dir(),
+                            source="logreg_train")
+        if lib is None:
+            phases = "not measured (edit target missing)"
+        else:
+            typed_variant("logreg_train", lib)
+            with swapped_library("logreg_train", lib):
+                p_ms = cs.timed(call, max(reps // 2, 1))
+                call()
+                torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * (8 * 256))()
+            lib.es_probe_k22_phases(buf, 256)
+            a = np.frombuffer(buf, dtype=np.int64).reshape(256, 8)[:grid]
+            a = a.astype(np.float64)
+            phases = {k: float(v) for k, v in zip(K22_PHASE_KEYS, a.mean(0))}
+            phases.update(
+                ms=p_ms, sm_clock_mhz=sm_clock_mhz(),
+                block_cycles_max=float(a[:, 0].max()),
+                a_step={k: float(v) / steps for k, v in
+                        zip(K22_PHASE_KEYS, a.mean(0))})
+    extra = {}
+    if variants and design == "persistent":
+        for name, edits in K22_VARIANTS.items():
+            lib = build_variant(tree, name, edits, scratch_dir(),
+                                source="logreg_train")
+            if lib is None:
+                extra[name] = "not measured (edit target missing)"
+                continue
+            typed_variant("logreg_train", lib)
+            times, vout = [], None
+            for _ in range(2):
+                with swapped_library("logreg_train", lib):
+                    times.append(cs.timed(call, reps))
+                    vout = call()
+                times.append(cs.timed(call, reps))
+            extra[name] = dict(ms=times[0::2], tree_ms=times[1::2],
+                               digest=digest((vout,)))
+    emit(rows, kernel="logreg_train", what="(m) classification", n=n, F1=F1,
+         C=C, steps=steps, design=design, ms=ms, ms_step=ms / steps,
+         host_ms_step=host_ms(call, max(reps // 4, 1)) / steps,
+         device_ms=sum(by_name.values()), by_name=by_name,
+         launches_a_run=launches, grid=grid, blocks_per_sm=per_sm,
+         bound_ms=cs.bound(4 * n * F1 + 4 * n + 4 * F1 * C,
+                           steps * (4 * n * F1 * C + 6 * n * C))[0],
+         bound_ms_rereading=steps * cs.bound(
+             4 * n * F1 + 4 * n + 8 * F1 * C, 0)[0],
+         digest=digest((W,)), same_bits_twice=bool(torch.equal(
+             W.view(torch.int32), again.view(torch.int32))),
+         phases=phases, **({"variants": extra} if extra else {}))
+    del Xb, y
+    torch.cuda.empty_cache()
+
+
 def run_aggs_phase(rows):
     """Config #3's aggregation phase of ``chip_smoke.py`` (``run_aggs``)
     against ``--tree``'s package: the route's aggs/s, p50 and p99 (its
@@ -2177,10 +2732,11 @@ def run_aggs_phase(rows):
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
-    p.add_argument("--kernels", default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12",
+    p.add_argument("--kernels",
+                   default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21, k2, k12 to probe, and aggs (chip_smoke.py's "
-                   "aggregation phase)")
+                   "k3, k21, k2, k12, k14, k22 to probe, and aggs "
+                   "(chip_smoke.py's aggregation phase)")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -2220,6 +2776,10 @@ def main() -> int:
         run_k2(rows, opts.reps, tree, opts.variants)
     if "k12" in which:
         run_k12(rows, max(opts.reps // 2, 2), tree, opts.variants)
+    if "k14" in which:
+        run_k14(rows, max(opts.reps // 2, 2), tree, opts.variants)
+    if "k22" in which:
+        run_k22(rows, max(opts.reps // 4, 2), tree, opts.variants)
     if "aggs" in which:
         run_aggs_phase(rows)
     emit(rows, total_s=time.perf_counter() - t0)

@@ -1384,9 +1384,23 @@ def test_k13_matches_plain(cuda, case, B, R):
     _same_bits((got,), (aggs.register_max_plain(pre, t["off"], rh),))
 
 
-@pytest.mark.parametrize("case", AGG_CASES)
+#: K14 also at pair counts that are not multiples of a 16-byte vector or
+#: of a warp's step (no padding), below one step, with every pair masked
+#: out, with docs past n_pad (the "wild" draws), and with more steps than
+#: blocks, dealt unevenly, the last one ragged
+K14_CASES = AGG_CASES + [(5, 1001, 13, (1 << 12) + 5, 0.5, "wild", False),
+                         (6, 77, 3, 37, 1.0, "wild", False),
+                         (8, (1 << 18) + 3, 9, 1 << 16, 0.0, "wild", False),
+                         (9, 3 * 256 * 396 + 5, 40, 1 << 20, 0.25, "perm",
+                          False)]
+
+
+@pytest.mark.parametrize("case", K14_CASES)
 @pytest.mark.parametrize("n_buckets", [8, 1024, 4096])
 def test_k14_matches_plain(cuda, case, n_buckets):
+    """Counts bitwise and sums within the f32 rounding of their |v| mass,
+    both the same bits on a second call; a third of the pairs in one heavy
+    bucket (at nb = 4,096 too)."""
     c, t = _agg_inputs(cuda, case)
     rng = np.random.RandomState(n_buckets)
     ids = rng.randint(-1, n_buckets - 2, c["M"]).astype(np.int32)
@@ -1399,8 +1413,12 @@ def test_k14_matches_plain(cuda, case, n_buckets):
     assert kb.launches["agg_bucket_reduce"] == n0 + 1
     _same_bits((got,), (aggs.bucket_reduce_plain(
         ti, t["docs"], t["mask"], n_buckets=n_buckets),))
+    _same_bits((got,), (aggs.masked_bucket_counts(
+        ti, t["docs"], t["mask"], n_buckets=n_buckets),))
+    n0 = kb.launches["agg_bucket_reduce"]
     got = aggs.masked_bucket_sums(ti, t["docs"], t["vals"], t["mask"],
                                   n_buckets=n_buckets)
+    assert kb.launches["agg_bucket_reduce"] == n0 + 1
     again = aggs.masked_bucket_sums(ti, t["docs"], t["vals"], t["mask"],
                                     n_buckets=n_buckets)
     want = aggs.bucket_reduce_plain(ti, t["docs"], t["mask"], t["vals"],
@@ -1414,6 +1432,34 @@ def test_k14_matches_plain(cuda, case, n_buckets):
                  want.cpu().numpy())
     assert (err <= _sum_tol(mass)).all()
     _same_bits((got,), (again,))
+
+
+@pytest.mark.parametrize("n_buckets", [8, 1024, 4096])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_k14_sums_unaligned_columns_equal_aligned(cuda, n_buckets, offset):
+    """Columns that start off a 16-byte boundary take one load a pair; the
+    pairs a lane takes and the order of the sums stay the same, so the
+    sums equal the aligned copies' bit for bit. Six pairs of seven in one
+    bucket make most of a warp's slots one group."""
+    c, t = _agg_inputs(cuda, (11, (1 << 17) + 9, 16, 1 << 17, 0.5, "wild",
+                              False))
+    ids = np.full(c["M"], 5, np.int32)
+    ids[::7] = np.arange(0, c["M"], 7) % n_buckets
+    cols = [_t(np.concatenate([np.zeros(offset, a.dtype), a]), cuda)[offset:]
+            for a in (ids, c["docs"], c["vals"])]
+    assert all(x.data_ptr() % 16 for x in cols)
+    got = aggs.masked_bucket_sums(cols[0], cols[1], cols[2], t["mask"],
+                                  n_buckets=n_buckets)
+    want = aggs.masked_bucket_sums(_t(ids, cuda), t["docs"], t["vals"],
+                                   t["mask"], n_buckets=n_buckets)
+    _same_bits((got,), (want,))
+    plain = aggs.bucket_reduce_plain(_t(ids, cuda), t["docs"], t["mask"],
+                                     t["vals"], n_buckets=n_buckets)
+    m = aggs.gather_mask(t["mask"], t["docs"]).cpu().numpy()
+    mass = np.bincount(ids, weights=np.where(m, np.abs(c["vals"]), 0.0),
+                       minlength=n_buckets)
+    err = np.abs(got.cpu().numpy().astype(np.float64) - plain.cpu().numpy())
+    assert (err <= _sum_tol(mass)).all()
 
 
 @pytest.mark.parametrize("case", AGG_CASES)
@@ -1772,21 +1818,34 @@ def test_k21_tiles_equal_plain(cuda, n, f, kk, sq_big):
     _same_bits((got,), (want,))
 
 
-@pytest.mark.parametrize("n,f,C,bad", [
-    (1, 1, 1, False), (300, 4, 2, False), (1000, 8, 3, True),
-    (5000, 8, 2, False), (2000, 30, 12, False)])
-def test_k22_equals_plain(cuda, n, f, C, bad):
-    """K22's weights after 100 steps within 1e-5 (relative to the largest
-    weight, at least 1) of its plain version's (torch matrix products: the
-    sums run in another order), and the same argmax on every row whose
-    top-two logits differ by more than 1e-3."""
-    X, y = logreg_case(n + C, n, f, C, bad_labels=bad)
+@pytest.mark.parametrize("n,f,C,labels,steps", [
+    (1, 1, 1, "", 100), (300, 4, 2, "", 100), (1000, 8, 3, "bad", 100),
+    (5000, 8, 2, "", 100), (2000, 30, 12, "", 100),
+    # below, just below and just past a tile of 256 rows
+    (100, 3, 2, "", 100), (255, 3, 2, "", 100), (257, 5, 3, "bad", 100),
+    # blocks of several tiles kept in shared memory; blocks whose tiles
+    # pass it, read again each step a group at a time, with partials of
+    # more entries than a block has threads
+    (101381, 8, 2, "", 100), (140000, 30, 12, "bad", 20),
+    # no step, one step, a classification run's 500; a class with no rows
+    (700, 6, 3, "", 0), (700, 6, 3, "", 1), (16384, 8, 2, "", 500),
+    (900, 5, 4, "empty", 100)])
+def test_k22_equals_plain(cuda, n, f, C, labels, steps):
+    """K22's weights within 1e-5 (relative to the largest weight, at least
+    1) of its plain version's (torch matrix products: the sums run in
+    another order), the same bits on a second run, and the same argmax on
+    every row whose top-two logits differ by more than 1e-3. One launch a
+    run, none for no step."""
+    X, y = logreg_case(n + C, n, f, C, bad_labels=labels == "bad")
+    if labels == "empty":
+        y = y % (C - 1)
     Xb = torch.cat([_t(X, cuda), torch.ones(n, 1, device=cuda)], 1)
     yd = _t(y.astype(np.int32), cuda)
     n0 = kb.launches["logreg_train"]
-    got = tml.logreg_train(Xb, yd, C, steps=100)
-    assert kb.launches["logreg_train"] == n0 + 100
-    want = tml.logreg_train_plain(Xb, yd, C, steps=100)
+    got = tml.logreg_train(Xb, yd, C, steps=steps)
+    assert kb.launches["logreg_train"] == n0 + (1 if steps else 0)
+    _same_bits((got,), (tml.logreg_train(Xb, yd, C, steps=steps),))
+    want = tml.logreg_train_plain(Xb, yd, C, steps=steps)
     torch.cuda.synchronize()
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= 1e-5 * scale
@@ -1825,9 +1884,10 @@ def test_ml_kernels_refuse_what_they_cannot_launch(cuda):
     with pytest.raises(ValueError, match="n_classes >= 1; got n = 64, "
                        "F1 = 5, n_classes = 0"):
         tml.logreg_train(Xb, y, 0, steps=1)
-    with pytest.raises(RuntimeError, match="logreg_train: " + size_msg):
-        kb.launch("logreg_train", cuda, Xb.data_ptr(), y.data_ptr(), 64, 5,
-                  0, 0.5, ws.data_ptr(), ws.data_ptr())
+    for C, steps in ((0, 1), (2, -1)):
+        with pytest.raises(RuntimeError, match="logreg_train: " + size_msg):
+            kb.launch("logreg_train", cuda, Xb.data_ptr(), y.data_ptr(), 64,
+                      5, C, 0.5, steps, ws.data_ptr(), ws.data_ptr())
     feats = torch.zeros(2, 0, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="N >= 1 nodes and depth >= 0; "
                        "got F = 5, N = 0, depth = 3"):
