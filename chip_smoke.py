@@ -1063,10 +1063,10 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
 #: exact kNN at the GloVe shape (``bench.py:bench_knn``): 1.2M rows of
 #: d = 100, cosine, k = 100, batches of 16
 #: K3 calls a dispatch: exact kNN's chunk reduce (one call, whatever the
-#: row's length) and shard reduce; IVF's chunk reduce, window top-k and
-#: shard reduce; the hybrid's chunk reduce and its two sides' shard
-#: reduces
-KNN_K3_CALLS, IVF_K3_CALLS, HY_K3_CALLS = 2, 3, 3
+#: row's length) and shard reduce; IVF's window top-k and shard reduce
+#: (K7 forms the window itself); the hybrid's chunk reduce and its two
+#: sides' shard reduces
+KNN_K3_CALLS, IVF_K3_CALLS, HY_K3_CALLS = 2, 2, 3
 KNN_ROWS = 1_200_000
 KNN_DIM = 100
 KNN_K = 100
@@ -1082,6 +1082,9 @@ IVF_DIM = 64
 IVF_CENTERS = 2048
 IVF_NLIST = 1024
 IVF_K = 10
+#: a k whose window (rerank · k = 4,000) is past K7's one-call limit
+#: (1,024): K7's chunk lists, then K3 reduces them
+IVF_DEEP_K = 1000
 IVF_BATCHES = 24
 IVF_EVAL = 4
 #: rows of the card-vs-host cluster assignment comparison
@@ -1410,14 +1413,14 @@ def ivf_plane(dev):
     return corpus, plane, gen_s, pack_s, q_batch
 
 
-def ivf_step_inputs(plane, qb):
+def ivf_step_inputs(plane, qb, k=IVF_K):
     """One IVF dispatch's inputs at the tier's default nprobe and rerank:
     (the step's arguments, r_cand, the union width, the packed queries,
     their squared norms, K7's inputs and keywords)."""
     import torch
     from elasticsearch_tpu_torch.parallel.dist_search import (
         IVF_DEFAULT_RERANK, _packed_queries)
-    prep = plane.prepare_ivf(qb, IVF_K, nprobe=plane.ivf.default_nprobe,
+    prep = plane.prepare_ivf(qb, k, nprobe=plane.ivf.default_nprobe,
                              rerank=IVF_DEFAULT_RERANK)
     a = prep["args"]
     qq = _packed_queries(a["q"], "cosine")
@@ -1435,8 +1438,7 @@ def run_knn_ivf(card, *, reps=20):
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.knn import (
-        ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
-        ivf_scan_plain, window_rows)
+        ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, window_rows)
     from elasticsearch_tpu_torch.ops.topk import topk_merge
     from elasticsearch_tpu_torch.parallel.dist_search import (
         IVF_DEFAULT_RERANK, _assign_clusters, ivf_knn_step,
@@ -1475,14 +1477,27 @@ def run_knn_ivf(card, *, reps=20):
                      nlist=tier.nlist, r_cand=R)
     k3_err = check_recorded_k3(rec, "knn_ivf")
     k3_calls = [(a, kw) for _n, a, kw, _o in rec]
-    C = ivf_scan_partials(*scan_in, **scan_kw, nlist=tier.nlist,
-                          r_cand=R)[0].shape[2]
     wv, wp = ivf_scan(*scan_in, **scan_kw, nlist=tier.nlist, r_cand=R)
     pv, pp = ivf_scan_plain(*scan_in, **scan_kw, r_cand=R + 1)
     # the window's values: the dequantized dot differs from the plain
     # product by its summation order, within the parity bar
     k7_err = check_lists(wv[:, 0], wp[:, 0], pv[:, 0], pp[:, 0], tol,
                          "K7 ivf_scan (the window)")
+    # the window serve(k=IVF_DEEP_K) asks for, past K7's one-call limit:
+    # K7's chunk lists, then one K3 call reduces them
+    _a, R_deep, _p, _q, _n, deep_in, deep_kw = ivf_step_inputs(
+        plane, eval_b[0], k=IVF_DEEP_K)
+    n0 = dict(kb.launches)
+    dv, dp = ivf_scan(*deep_in, **deep_kw, nlist=tier.nlist, r_cand=R_deep)
+    torch.cuda.synchronize()
+    deep_launches = {k: kb.launches[k] - n0[k]
+                     for k in ("ivf_scan", "topk_merge")}
+    if deep_launches != {"ivf_scan": 1, "topk_merge": 1}:
+        fail(f"K7 chunk path at r_cand {R_deep}: launches {deep_launches}")
+    dpv, dpp = ivf_scan_plain(*deep_in, **deep_kw, r_cand=R_deep + 1)
+    k7_deep_err = check_lists(dv[:, 0], dp[:, 0], dpv[:, 0], dpp[:, 0], tol,
+                              f"K7 ivf_scan (chunk lists + K3, r_cand "
+                              f"{R_deep})")
     rr_in = (wv, wp, a["u_blocks"], a["rowid"], a["vecs"], a["vnorm2"], qq,
              qn)
     ex, rows = ivf_rerank(*rr_in, l2=False, n_pad=n_pad)
@@ -1505,7 +1520,9 @@ def run_knn_ivf(card, *, reps=20):
           f"err {k7_err:.3g}, tol {tol:.3g}), K8 ~= plain (rows equal, max "
           f"abs err {k8_err:.3g}), K3 == plain (its {len(k3_calls)} calls of "
           f"the step); {live} "
-          f"window rows re-ranked", flush=True)
+          f"window rows re-ranked; at k = {IVF_DEEP_K} (r_cand {R_deep}) "
+          f"K7's chunk lists + K3 ~= plain (max abs err {k7_deep_err:.3g})",
+          flush=True)
 
     # ---- recall against the exact route, kernel and plain ----------------
     exact = [plane.serve(qb, k=IVF_K, nprobe=0)[1] for qb in eval_b]
@@ -1551,8 +1568,17 @@ def run_knn_ivf(card, *, reps=20):
         fail("K6 launched on the IVF path")
 
     # ---- times ----------------------------------------------------------
-    k7_ms = timed(lambda: ivf_scan_partials(*scan_in, **scan_kw,
-                                            nlist=tier.nlist, r_cand=R), reps)
+    # the window (K7's one call on the path) and, beside it, the chunk
+    # path at the deep page's window (K7's lists, then K3)
+    k7_ms = timed(lambda: ivf_scan(*scan_in, **scan_kw, nlist=tier.nlist,
+                                   r_cand=R), reps)
+    k7_dev = device_ms_by_name(lambda: ivf_scan(
+        *scan_in, **scan_kw, nlist=tier.nlist, r_cand=R), reps)
+
+    def deep_window():
+        ivf_scan(*deep_in, **deep_kw, nlist=tier.nlist, r_cand=R_deep)
+    k7_chunk_ms = timed(deep_window, reps)
+    k7_chunk_dev = device_ms_by_name(deep_window, reps)
     k8_ms = timed(lambda: ivf_rerank(*rr_in, l2=False, n_pad=n_pad), reps)
     k7_plain = timed(lambda: ivf_scan_plain(*scan_in, **scan_kw, r_cand=R), 3)
     k8_plain = timed(lambda: ivf_rerank_plain(*rr_in, l2=False, n_pad=n_pad),
@@ -1587,10 +1613,13 @@ def run_knn_ivf(card, *, reps=20):
     k7_bms, k7_bby = bound(k7_bytes, pairs * (2 * IVF_DIM + 3))
     k8_bytes = live * (8 + 4 + 4 + IVF_DIM * 4 + 8) + B * IVF_DIM * 4
     k8_bms, k8_bby = bound(k8_bytes, live * 2 * IVF_DIM)
-    print(f"# ivf_scan: {k7_ms:.4f} ms (bound {k7_bms:.5f} ms by {k7_bby}: "
-          f"{n_real} real union blocks, {rows_read} probed rows read, "
-          f"{pairs} (row, query) pairs, "
-          f"{k7_bytes} bytes), plain {k7_plain:.3f} ms; ivf_rerank: "
+    print(f"# ivf_scan (the window): {k7_ms:.4f} ms, on the card "
+          f"{sum(k7_dev.values()):.5f} ms {k7_dev} (bound {k7_bms:.5f} ms "
+          f"by {k7_bby}: {n_real} real union blocks, {rows_read} probed "
+          f"rows read, {pairs} (row, query) pairs, {k7_bytes} bytes), "
+          f"at r_cand {R_deep} (chunk lists + K3) {k7_chunk_ms:.4f} ms, on "
+          f"the card {sum(k7_chunk_dev.values()):.5f} ms, plain "
+          f"{k7_plain:.3f} ms; ivf_rerank: "
           f"{k8_ms:.4f} ms (bound {k8_bms:.5f} ms by {k8_bby}), plain "
           f"{k8_plain:.3f} ms, library (gather + torch.bmm) {k8_lib:.4f} ms; "
           f"on the card (torch.profiler) K8 {k8_dev:.5f} ms, the library "
@@ -1603,7 +1632,12 @@ def run_knn_ivf(card, *, reps=20):
              max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain,
              bound_ms=k7_bms, bound_by=k7_bby, library_ms=None,
              library_none="no one PyTorch call scans a gathered union "
-                          "under per-query cluster masks into a window"),
+                          "under per-query cluster masks into a window",
+             device_ms=sum(k7_dev.values()), device_ms_by_kernel=k7_dev,
+             chunk_path=dict(k=IVF_DEEP_K, r_cand=R_deep,
+                             launches=deep_launches,
+                             max_abs_err=k7_deep_err, ms=k7_chunk_ms,
+                             device_ms=sum(k7_chunk_dev.values()))),
         dict(name="ivf_rerank", route="cuda",
              source="elasticsearch_tpu_torch/csrc/ivf_rerank.cu",
              replaces="elasticsearch_tpu/parallel/dist_search.py:894",
@@ -2840,6 +2874,7 @@ SEG_TAG_ZIPF = 1.1
 SEG_TIMED = 256              # timed requests a mix (one warm-up more)
 SEG_REF = 3                  # requests of a mix held against numpy
 SEG_PAGES = (990, 9990)      # deep pages of (e), size 10
+SEG_DEEP_K = 20_000          # a k past K19's one-launch limit (16,384)
 SEG_PLANE_RTOL = 1e-6        # (e) against the f32 plane: ties within this
 SEG_PROFILED = 64            # requests a mix under torch.profiler
 #: the kernels redesigned since their first port, with their CUDA-event
@@ -2866,7 +2901,11 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K12 agg_masked_scan, the caches' counts": 2.4039,
               "K12 agg_masked_scan, the caches' sums": 2.4962,
               "K22 logreg_train, (m)'s 500 steps": 10.156,
-              "K14 agg_bucket_reduce, the caches' sums": 3.8224}
+              "K14 agg_bucket_reduce, the caches' sums": 3.8224,
+              "K19 segment_topk at (e), k = 10": 0.2376,
+              "K19 segment_topk at (i), k = 1,000": 0.2503,
+              "K19 segment_topk at (i), k = 10,000": 0.4100,
+              "K7 ivf_scan, its chunk lists alone": 0.1012}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -2945,6 +2984,21 @@ def device_ms_by_name(call, n):
             by[name] = by.get(name, 0.0) + \
                 (e.time_range.end - e.time_range.start) / 1e3 / n
     return by
+
+
+def device_events_a_call(call, n):
+    """Device events (kernels, memsets, copies) ``torch.profiler`` records
+    a call of ``call``, over ``n`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / n
 
 
 def segment_plain(name, args, kw):
@@ -3357,12 +3411,44 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
         if name == "bm25_scatter":
             # the pre-pass's and the tile kernel's device time a call
             rows[-1]["ms_by_launch"] = device_ms_by_name(kern, reps)
+        if name == "segment_topk":
+            # device time and device events (launches) a call, by k
+            by_k = {f"k={a[2]}": kern, **modes}
+            rows[-1]["device_ms_by_k"] = {
+                key: sum(device_ms_by_name(f, reps).values())
+                for key, f in by_k.items()}
+            rows[-1]["device_events_a_call_by_k"] = {
+                key: device_events_a_call(f, reps)
+                for key, f in by_k.items()}
+            # the multi-launch path (k > 16,384) on (e)'s scores and mask
+            deep = (a[0], a[1], SEG_DEEP_K)
+            n0 = kb.launches["segment_topk"]
+            got = masked_topk(*deep)
+            torch.cuda.synchronize()
+            if kb.launches["segment_topk"] != n0 + 1:
+                fail("K19 at k > 16,384: not one launch a call")
+            deep_err = check_bitwise(got, masked_topk_plain(*deep),
+                                     f"K19 segment_topk at k={SEG_DEEP_K}")
+            rows[-1]["deep_k"] = dict(
+                k=SEG_DEEP_K, launches=1, max_abs_err=deep_err,
+                ms=timed(lambda: masked_topk(*deep), reps),
+                device_ms=sum(device_ms_by_name(
+                    lambda: masked_topk(*deep), reps).values()))
+            print(f"# segment_topk at k={SEG_DEEP_K} (the multi-launch "
+                  f"path): equal to its plain version bitwise, "
+                  f"{rows[-1]['deep_k']['ms']:.4f} ms, on the card "
+                  f"{rows[-1]['deep_k']['device_ms']:.4f} ms", flush=True)
         print(f"# {name}: {ms:.4f} ms (bound {bms:.5f} ms by {bby}, "
               f"{nbytes} bytes), plain {plain_ms:.3f} ms, library "
               f"({lib_name}) {lib_ms:.4f} ms"
               + "".join(f", {k} {v:.4f} ms" for k, v in by_mode.items())
               + "".join(f", {k} {v:.4f} ms" for k, v in
                         rows[-1].get("ms_by_launch", {}).items())
+              + "".join(f", on the card at {k} {v:.4f} ms" for k, v in
+                        rows[-1].get("device_ms_by_k", {}).items())
+              + "".join(f", device events a call at {k} {v:.2f}" for k, v in
+                        rows[-1].get("device_events_a_call_by_k",
+                                     {}).items())
               + f" [{card}]", flush=True)
     print(f"# K16 inputs: {V} valid postings over {D} docs; K17: {V17} "
           f"postings; K18: {M} pairs")

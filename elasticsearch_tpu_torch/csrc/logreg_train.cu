@@ -53,17 +53,6 @@
 #define K22_THREADS 512
 #define K22_REG_C 8
 
-// The SMs of the current card.
-static int k22_sm_count() {
-  static int n = -1;
-  if (n < 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 __device__ __forceinline__ unsigned long long k22_load_acquire(
     const unsigned long long* p) {
   unsigned long long v;
@@ -284,7 +273,7 @@ extern "C" long long es_logreg_workspace_bytes(int n, int F1, int C) {
 static int k22_plan(int n, int F1, int C, int* G, int* K, int* stage,
                     size_t* smem) {
   const int tiles = (int)k22_tiles(n);
-  *G = tiles < k22_sm_count() ? tiles : k22_sm_count();
+  *G = tiles < es_sm_count() ? tiles : es_sm_count();
   const long long mine = (tiles + *G - 1) / *G;
   const long long w = (F1 * C + 3) / 4 * 4;
   const long long room = es_max_shared_bytes() / (long long)sizeof(float) - w;

@@ -41,6 +41,17 @@ static int es_max_shared_bytes() {
   return bytes;
 }
 
+// The SMs of the current card.
+static int es_sm_count() {
+  static int n = -1;
+  if (n < 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 // Bytes of static shared memory a kernel declares.
 template <typename Kernel>
 static size_t es_static_shared_bytes(Kernel kernel) {

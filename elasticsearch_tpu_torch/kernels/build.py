@@ -103,6 +103,8 @@ _SIGNATURES = {
     # codes, is_bf16, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
     # u_blocks, B, S, NB1, BLK, D, n_pad, nlist, nprobe, P, k, l2, n_chunks,
     # part_vals, part_pos, workspace, stream
+    # (n_chunks = 0: the window, part_* [B, S, k], workspace
+    # es_ivf_window_workspace_bytes)
     "ivf_scan": (
         "es_ivf_scan",
         [_P, _I] + [_P] * 10 + [_I] * 12 + [_P] * 4),
@@ -192,6 +194,10 @@ _QUERIES = {
         # (B, S, n_chunks, k, nlist, D) -> workspace bytes, 0 when they
         # fit
         "es_ivf_scan_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
+        # (B, S, P, R) -> the window path's workspace bytes, and its scan
+        # blocks a (query, shard)
+        "es_ivf_window_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
+        "es_ivf_window_parts": ([_I] * 3, ctypes.c_int),
     },
     "fuse_rank": {
         # (n, B) -> workspace bytes, 0 when a row's sort fits

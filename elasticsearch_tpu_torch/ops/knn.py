@@ -233,15 +233,18 @@ def ivf_scan_plain(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
     return torch.stack(out_v, 1), torch.stack(out_p, 1).to(torch.int32)
 
 
-def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
-                      probed, u_blocks, *, l2: bool, n_pad: int, nlist: int,
-                      r_cand: int):
-    """Launch K7 on CUDA tensors: each (query, shard, chunk of the union)'s
-    ``r_cand`` best (quantized score, position). Returns (part_vals
-    f32[B, S, C, r_cand], part_pos i32[B, S, C, r_cand])."""
+#: the largest window K7 forms in one call (``K7_WINDOW_MAX`` in
+#: ``csrc/ivf_scan.cu``); a larger one goes through chunk lists and K3
+K7_WINDOW_MAX = 1024
+
+
+def _ivf_check(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
+               u_blocks, *, n_pad: int, name: str):
+    """Raise unless K7's inputs are CUDA tensors of the types and shapes
+    the kernel takes; returns (S, NB1, blk, D, B, nprobe, P)."""
     dev = codes.device
     if dev.type != "cuda":
-        raise ValueError(f"ivf_scan_partials: needs CUDA, got {dev}")
+        raise ValueError(f"{name}: needs CUDA, got {dev}")
     S, NB1, blk, D = codes.shape
     B, nprobe = probed.shape
     P = u_blocks.shape[1]
@@ -249,17 +252,31 @@ def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
         raise TypeError(f"codes: expected int8 or bfloat16, got "
                         f"{codes.dtype}")
     _kb.check(codes, "codes", codes.dtype, (S, NB1, blk, D), dev)
-    for name, t, dt in (("scale", scale, torch.float32),
-                        ("off", off, torch.float32),
-                        ("rowid", rowid, torch.int32),
-                        ("rcl", rcl, torch.int32)):
-        _kb.check(t, name, dt, (S, NB1, blk), dev)
+    for nm, t, dt in (("scale", scale, torch.float32),
+                      ("off", off, torch.float32),
+                      ("rowid", rowid, torch.int32),
+                      ("rcl", rcl, torch.int32)):
+        _kb.check(t, nm, dt, (S, NB1, blk), dev)
     _kb.check(vn, "vnorm2", torch.float32, (S, n_pad), dev)
     _kb.check(qq, "qq", torch.float32, (B, D), dev)
     _kb.check(qsum, "qsum", torch.float32, (B,), dev)
     _kb.check(qn, "qn", torch.float32, (B,), dev)
     _kb.check(probed, "probed", torch.int32, (B, nprobe), dev)
     _kb.check(u_blocks, "u_blocks", torch.int32, (S, P), dev)
+    return S, NB1, blk, D, B, nprobe, P
+
+
+def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
+                      probed, u_blocks, *, l2: bool, n_pad: int, nlist: int,
+                      r_cand: int):
+    """Launch K7's chunk path on CUDA tensors: each (query, shard, chunk of
+    the union)'s ``r_cand`` best (quantized score, position). Returns
+    (part_vals f32[B, S, C, r_cand], part_pos i32[B, S, C, r_cand]).
+    :func:`ivf_scan` takes it for windows past ``K7_WINDOW_MAX``."""
+    S, NB1, blk, D, B, nprobe, P = _ivf_check(
+        codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks,
+        n_pad=n_pad, name="ivf_scan_partials")
+    dev = codes.device
     n_sm, shared = card_limits(dev.index)
     C = scan_chunks(P * blk, r_cand, S, B, n_sm, shared=shared)
     part_v = torch.empty((B, S, C, r_cand), dtype=torch.float32, device=dev)
@@ -281,10 +298,46 @@ def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
     return part_v, part_p
 
 
+@functools.lru_cache(maxsize=256)
+def _k7_window_workspace_bytes(B: int, S: int, P: int, R: int) -> int:
+    """Bytes of K7's window-path workspace for one shape."""
+    return _kb.query("ivf_scan", "es_ivf_window_workspace_bytes", B, S, P, R)
+
+
+def ivf_window(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
+               u_blocks, *, l2: bool, n_pad: int, nlist: int, r_cand: int):
+    """Launch K7's window path on CUDA tensors (r_cand <=
+    ``K7_WINDOW_MAX``): the window of :func:`ivf_scan` in one C call (the
+    query masks of the gathered blocks, then the scan by probed (query,
+    block) pairs, whose last part a (query, shard) merges the parts'
+    lists). Returns (vals f32[B, S, r_cand], pos i32[B, S, r_cand])."""
+    S, NB1, blk, D, B, nprobe, P = _ivf_check(
+        codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks,
+        n_pad=n_pad, name="ivf_window")
+    if not 1 <= r_cand <= K7_WINDOW_MAX:
+        raise ValueError(f"ivf_window: r_cand={r_cand} outside "
+                         f"[1, {K7_WINDOW_MAX}]")
+    dev = codes.device
+    win_v = torch.empty((B, S, r_cand), dtype=torch.float32, device=dev)
+    win_p = torch.empty((B, S, r_cand), dtype=torch.int32, device=dev)
+    if B * S == 0:
+        return win_v, win_p
+    ws = torch.empty(_k7_window_workspace_bytes(B, S, P, r_cand),
+                     dtype=torch.uint8, device=dev)
+    _kb.launch("ivf_scan", dev, codes.data_ptr(),
+               int(codes.dtype == torch.bfloat16), scale.data_ptr(),
+               off.data_ptr(), rowid.data_ptr(), rcl.data_ptr(),
+               vn.data_ptr(), qq.data_ptr(), qsum.data_ptr(), qn.data_ptr(),
+               probed.data_ptr(), u_blocks.data_ptr(), B, S, NB1, blk, D,
+               n_pad, nlist, nprobe, P, r_cand, int(l2), 0,
+               win_v.data_ptr(), win_p.data_ptr(), ws.data_ptr())
+    return win_v, win_p
+
+
 def ivf_scan(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
              u_blocks, *, l2: bool, n_pad: int, nlist: int, r_cand: int):
     """The re-rank window of every (query, shard) over the probed union
-    (K7 + K3).
+    (K7).
 
     codes int8 or bf16 [S, NB+1, blk, D] (block NB is all padding), scale/
     off f32, rowid i32 (original local row, ``n_pad`` = padding), rcl i32
@@ -299,13 +352,16 @@ def ivf_scan(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
     over positions ``p · blk + i`` ordered (value desc, position asc),
     empty slots (−inf, P · blk).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K7 (per
-    chunk of the union) and K3 to reduce the chunks (:func:`reduce_chunks`).
+    A CPU tensor runs the plain version; a CUDA tensor launches K7: the
+    window in one call (:func:`ivf_window`) up to ``K7_WINDOW_MAX``, else
+    its chunk lists and K3 to reduce them (:func:`reduce_chunks`).
     """
     kw = dict(l2=l2, n_pad=n_pad, r_cand=r_cand)
     args = (codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks)
     if codes.device.type == "cpu":
         return ivf_scan_plain(*args, **kw)
+    if r_cand <= K7_WINDOW_MAX:
+        return ivf_window(*args, **kw, nlist=nlist)
     part_v, part_p = ivf_scan_partials(*args, **kw, nlist=nlist)
     B, S, C, _ = part_v.shape
     v, p = reduce_chunks(part_v.view(B * S, C, r_cand),

@@ -298,13 +298,25 @@ def masked_topk_plain(scores, mask, k: int):
     return masked[order], order.to(torch.int32)
 
 
+#: the largest k K19 serves in one launch (``K19_FAST_K`` in
+#: ``csrc/segment_topk.cu``); deeper pages take its multi-launch path
+K19_FAST_K = 16384
+
+
+@functools.lru_cache(maxsize=1024)
+def _k19_workspace_bytes(n: int, k: int) -> int:
+    """Bytes of K19's per-call workspace."""
+    return _kb.query("segment_topk", "es_segment_topk_workspace_bytes", n, k)
+
+
 def masked_topk(scores, mask, k: int):
     """``where(mask, scores, -inf)``, then its k largest values (k <= n) in
     the reference's order: values by their bits' total order, descending,
     equal values (the masked slots' -inf among them) in ascending index
     order. Returns (f32[k] values, i32[k] indices).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K19.
+    A CPU tensor runs the plain version; a CUDA tensor launches K19: one
+    cooperative launch for k <= ``K19_FAST_K``, separate launches above.
     """
     dev = _kb.wrapper_device("masked_topk", scores)
     n = scores.shape[0]
@@ -318,9 +330,8 @@ def masked_topk(scores, mask, k: int):
     idx = torch.empty(k, dtype=torch.int32, device=dev)
     if k == 0:
         return vals, idx
-    ws = torch.empty(_kb.query("segment_topk",
-                               "es_segment_topk_workspace_bytes", n, k),
-                     dtype=torch.uint8, device=dev)
+    ws = torch.empty(_k19_workspace_bytes(n, k), dtype=torch.uint8,
+                     device=dev)
     _kb.launch("segment_topk", dev, scores.data_ptr(), mask.data_ptr(), n, k,
                vals.data_ptr(), idx.data_ptr(), ws.data_ptr())
     return vals, idx

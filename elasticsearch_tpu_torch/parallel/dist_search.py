@@ -1417,9 +1417,10 @@ def ivf_knn_step(codes, scale, off, rowid, rcl, vecs, vnorm2, q, probed,
                  u_blocks, *, n_pad: int, k: int, similarity: str,
                  nlist: int, r_cand: int):
     """Body of the reference's ``build_ivf_knn_step`` over S shards: the
-    quantized scan of the probed union into a top-``r_cand`` window (K7 +
-    K3), the exact re-score of the window's rows (K8), the top-kk by
-    (score desc, row asc) (K3), and the cross-shard reduce (K3)."""
+    quantized scan of the probed union into a top-``r_cand`` window (K7;
+    past ``K7_WINDOW_MAX`` also K3), the exact re-score of the window's
+    rows (K8), the top-kk by (score desc, row asc) (K3), and the
+    cross-shard reduce (K3)."""
     S = vecs.shape[0]
     kk = min(k, n_pad)
     l2 = similarity == "l2_norm"

@@ -3,13 +3,14 @@
 (``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``),
 K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
 (``dense_stream_topk``), K12 (``agg_masked_scan``), K14
-(``agg_bucket_reduce``) and K22 (``logreg_train``) on one card, at the
-inputs ``chip_smoke.py`` gives them on its main paths, and of
-``chip_smoke.py``'s aggregation phase (``aggs``).
+(``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``)
+and K7 (``ivf_scan``) on one card, at the inputs ``chip_smoke.py`` gives
+them on its main paths, and of ``chip_smoke.py``'s aggregation,
+per-segment and IVF phases (``aggs``, ``segment``, ``ivf``).
 
     python3 kernel_probe.py [--tree DIR]
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
-                                       k14,k22,aggs]
+                                       k14,k22,k19,k7,aggs,segment,ivf]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -117,9 +118,28 @@ JSON lines and writes them to ``--out`` as well.
   ``--variants`` adds builds with parts of the residuals changed or left
   out, or 1,024 threads a block
   (``K22_VARIANTS``), each timed in turn with the tree's build.
+- K19 at the per-segment path's calls on the 2^23-doc segment (mix (e)'s
+  first request at k = 10, (i)'s from 990 and 9,990 at k = 1,000 and
+  10,000, and (e)'s scores with five docs matched): CUDA-event mean, host
+  time a call, device time by kernel and device events a call
+  (``torch.profiler``), the bound, a digest of (values, indices) and
+  whether they are the plain version's bits; ``--variants`` adds the
+  one-launch design's ``%globaltimer`` stamps (``K19_STAMPS``) and the
+  builds of ``K19_VARIANTS``, each timed in turn with the tree's build.
+- K7 at the IVF shape (``ivf_plane``, the first batch): the window
+  through ``ivf_scan`` and the chunk lists alone (``ivf_scan_partials``):
+  CUDA-event mean, host time, device time by kernel, launches a call,
+  the grid and a digest of the window; ``--variants`` adds the window
+  design's scan-block stamps (``K7_STAMPS``).
 - ``aggs``: ``chip_smoke.run_aggs`` against ``--tree``'s package: config
   #3's route (aggs/s, p50, p99, its stages, on stdout) and the K12–K15
   rows through the caches (about 3 minutes; not in the default list).
+- ``segment``, ``ivf``: ``chip_smoke.run_segment`` (mixes (e)–(i) on the
+  2^23-doc segment: q/s, p50, p99 on stdout, and the K16–K19 rows; about
+  1.5 minutes) and ``chip_smoke.run_knn_ivf`` (the IVF route: q/s, p50,
+  ``dispatch_ms``, recall on stdout, and the K7 and K8 rows; about 15 s)
+  against ``--tree``'s package, so two commits' end-to-end figures come
+  from one call (not in the default list).
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -2719,6 +2739,329 @@ def run_k22(rows, reps, tree, variants):
     torch.cuda.empty_cache()
 
 
+def k19_inputs(dev):
+    """masked_topk's calls on the per-segment path at 2^23 docs, recorded
+    as the smoke records them: mix (e)'s first request (k = 10) and (i)'s
+    first pair, the same match from 990 and from 9,990 (k = 1,000 and
+    10,000); and (e)'s scores with all but five docs masked out at k = 10
+    (fewer docs matched than k: the k-th key is the masked -inf).
+    Returns ([(label, args)], the segment)."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import topk as topk_mod
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    tag, price = cs.segment_columns(cs.N_DOCS)
+    seg, mapper = cs.segment_index(corpus, tag, price, dev)
+    searcher = ShardSearcher([seg], mapper)
+    rng = np.random.RandomState(4321)
+    bags = [[f"w{t[1:]}" for t in q] for q in
+            cs.sample_queries(rng, corpus, 1, batch=cs.SEG_TIMED + 1)[0]]
+    match = {"match": {"body": " ".join(bags[0])}}
+    rec = []
+    with cs.recording(rec, ("masked_topk",), (topk_mod,)):
+        searcher.search({"query": match, "size": 10})
+        for start in cs.SEG_PAGES:
+            searcher.search({"query": match, "from": start, "size": 10})
+    cases = [(f"{'(e)' if a[2] == 10 else '(i)'} k={a[2]}", a)
+             for _n, a, _kw, _o in rec]
+    scores, mask, _k = cases[0][1]
+    few = torch.zeros_like(mask)
+    few[torch.nonzero(mask)[:5, 0]] = True
+    cases.append(("(e) scores, 5 docs matched, k=10", (scores, few, 10)))
+    return cases, seg
+
+
+#: a build of csrc/segment_topk.cu (the one-launch design) whose block 0
+#: stamps %globaltimer at its phases' ends: start, each level's pass, its
+#: barrier and its bucket, the collect, its barrier, the sort, the merge's
+#: barrier, the end
+K19_STAMPS = [
+    ('#include "sort_common.cuh"\n',
+     '#include "sort_common.cuh"\n'
+     "__device__ long long k19_dbg[24];\n"
+     "__device__ int k19_dbg_n;\n"
+     "extern \"C\" int es_probe_k19_stamps(long long* out) {\n"
+     "  int n = 0;\n"
+     "  cudaMemcpyFromSymbol(&n, k19_dbg_n, sizeof(int));\n"
+     "  cudaMemcpyFromSymbol(out, k19_dbg, 24 * sizeof(long long));\n"
+     "  return n;\n}\n"
+     "__device__ __forceinline__ long long k19_now() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)::\"memory\");"
+     "\n  return t;\n}\n"
+     "#define K19_STAMP() if (blockIdx.x == 0 && threadIdx.x == 0 && "
+     "dbg_n < 24) k19_dbg[dbg_n++] = k19_now()\n"),
+    ("  unsigned key[K19_VEC];\n\n  // ---- levels",
+     "  unsigned key[K19_VEC];\n  int dbg_n = 0;\n  K19_STAMP();\n\n"
+     "  // ---- levels"),
+    ("    k19_grid_sync(ctl);\n\n    // every block",
+     "    K19_STAMP();\n    k19_grid_sync(ctl);\n    K19_STAMP();\n\n"
+     "    // every block"),
+    ("    cur = sel_s;\n", "    cur = sel_s;\n    K19_STAMP();\n"),
+    ("  k19_grid_sync(ctl);\n\n  // ---- sort the M survivors",
+     "  K19_STAMP();\n  k19_grid_sync(ctl);\n  K19_STAMP();\n\n"
+     "  // ---- sort the M survivors"),
+    ("  if (C > 1) {\n    k19_grid_sync(ctl);\n",
+     "  K19_STAMP();\n  if (C > 1) {\n    k19_grid_sync(ctl);\n"
+     "    K19_STAMP();\n"),
+    ("  }\n}\n\n// -------------------------------------------------------------"
+     "--------------\n// Entries",
+     "  }\n  K19_STAMP();\n  if (blockIdx.x == 0 && threadIdx.x == 0) "
+     "k19_dbg_n = dbg_n;\n}\n\n// ---------------------------------------------"
+     "------------------------------\n// Entries")]
+
+
+def k19_phases(tree, call, levels_hint=None):
+    """The stamps build's phase times (µs) of one call, by name."""
+    lib = build_variant(tree, "stamps", K19_STAMPS, scratch_dir(),
+                        source="segment_topk")
+    if lib is None:
+        return "not measured (another design)"
+    import torch
+    typed_variant("segment_topk", lib)
+    lib.es_probe_k19_stamps.argtypes = [ctypes.c_void_p]
+    lib.es_probe_k19_stamps.restype = ctypes.c_int
+    with swapped_library("segment_topk", lib):
+        call()
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * 24)()
+    n = lib.es_probe_k19_stamps(ctypes.addressof(buf))
+    t = np.frombuffer(buf, dtype=np.int64)[:n].astype(np.float64)
+    # start, then (pass, barrier, bucket) a level, then collect, barrier,
+    # sort, [merge barrier], end
+    names = []
+    levels = (n - 5 - (1 if n % 3 == 0 else 0)) // 3
+    for lv in range(levels):
+        names += [f"level{lv}_pass", f"level{lv}_barrier",
+                  f"level{lv}_bucket"]
+    names += ["collect", "collect_barrier", "sort"]
+    if len(names) + 2 < n:
+        names.append("merge_barrier")
+    names.append("merge_or_end")
+    d = np.diff(t) / 1e3
+    return dict(zip(names, [float(x) for x in d]), total_us=float(
+        (t[-1] - t[0]) / 1e3), stamps=int(n))
+
+
+#: builds of csrc/segment_topk.cu (the one-launch design): "match", the
+#: histograms' equal digits grouped by __match_any_sync before one shared
+#: atomic (the tree adds a key an atomic); "ft512", blocks of 512 threads
+#: (128 registers a thread)
+K19_VARIANTS = {
+    "match": [("        if (dig >= 0) atomicAdd(&sh[dig], 1u);",
+               "        if (__any_sync(0xffffffffu, dig >= 0)) {\n"
+               "          const unsigned grp = __match_any_sync(0xffffffffu,"
+               " dig);\n"
+               "          if (dig >= 0 && lane == __ffs(grp) - 1)\n"
+               "            atomicAdd(&sh[dig], (unsigned)__popc(grp));\n"
+               "        }")],
+    "ft512": [("#define K19_FT 1024 ", "#define K19_FT 512 ")]}
+
+
+def k19_variants(tree, calls, reps):
+    """Each build of ``K19_VARIANTS`` timed in turn with the tree's library
+    on each call (variant, tree, variant, tree), with its digest."""
+    import torch
+    out = {}
+    for name, edits in K19_VARIANTS.items():
+        lib = build_variant(tree, name, edits, scratch_dir(),
+                            source="segment_topk")
+        if lib is None:
+            out[name] = "not measured (edit target missing)"
+            continue
+        typed_variant("segment_topk", lib)
+        got = {}
+        for label, call in calls.items():
+            times, vout = [], None
+            for _ in range(2):
+                with swapped_library("segment_topk", lib):
+                    times.append(cs_timed(call, reps))
+                    vout = call()
+                    torch.cuda.synchronize()
+                times.append(cs_timed(call, reps))
+            got[label] = dict(ms=times[0::2], tree_ms=times[1::2],
+                              digest=digest(vout))
+        out[name] = got
+    return out
+
+
+def cs_timed(call, reps):
+    return smoke().timed(call, reps)
+
+
+def run_k19(rows, reps, tree, variants):
+    """K19 at the per-segment path's calls (``k19_inputs``): CUDA-event
+    mean, host ms a call, device ms by kernel and device events a call
+    (``torch.profiler``), the bound, a digest of (values, indices) and
+    whether they equal the plain version's bits; the one-launch design's
+    phase stamps."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops.topk import (masked_topk,
+                                                  masked_topk_plain)
+    dev = torch.device("cuda")
+    cases, seg = k19_inputs(dev)
+    for label, args in cases:
+        scores, mask, k = args
+        n = scores.shape[0]
+
+        def call(a=args):
+            return masked_topk(*a)
+        out = call()
+        want = masked_topk_plain(*args)
+        same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(out, want))
+        ms = cs.timed(call, reps)
+        by_name = cs.device_ms_by_name(call, reps)
+        events = cs.device_events_a_call(call, reps) \
+            if hasattr(cs, "device_events_a_call") else "not measured"
+        row = dict(kernel="segment_topk", what=label, n=n, k=k,
+                   matched=int(mask.sum()), ms=ms,
+                   host_ms=host_ms(call, reps),
+                   device_ms=sum(by_name.values()), by_name=by_name,
+                   device_events_a_call=events,
+                   bound_ms=cs.bound(5 * n + 8 * k, n)[0],
+                   digest=digest(out), equals_plain=bool(same))
+        if variants:
+            row["phases_us"] = k19_phases(tree, call)
+        emit(rows, **row)
+    if variants:
+        picked = {label: (lambda a=args: masked_topk(*a))
+                  for label, args in cases if args[2] in (10, 10000)}
+        emit(rows, kernel="segment_topk", what="variants",
+             variants=k19_variants(tree, picked, reps))
+    del seg, cases
+    torch.cuda.empty_cache()
+
+
+#: a build of csrc/ivf_scan.cu (the window design) whose scan blocks'
+#: thread 0 adds %globaltimer intervals to six slots a block: the query
+#: and bitmap, the mask words, the rows (with mid-scan selections), the
+#: part's last selection, the list's write and arrival, the merge (last
+#: part)
+K7_STAMPS = [
+    ('#include "knn_common.cuh"\n',
+     '#include "knn_common.cuh"\n'
+     "__device__ long long k7_dbg[4096 * 8];\n"
+     "extern \"C\" int es_probe_k7_stamps(long long* out, int n) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, k7_dbg, n * 64);\n}\n"
+     "__device__ __forceinline__ long long k7_now() {\n"
+     "  long long t;\n"
+     "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)::"
+     "\"memory\");\n  return t;\n}\n"
+     "#define K7_STAMP(slot) if (threadIdx.x == 0) { const long long nw_ = "
+     "k7_now(); dbg[slot] += nw_ - dbg_last; dbg_last = nw_; }\n"),
+    ("  const float qs_q = qsum[q], qn_q = l2 ? qn[q] : 0.0f;\n",
+     "  long long* dbg = k7_dbg + 8 * (((size_t)blockIdx.z * gridDim.y + "
+     "blockIdx.y) * gridDim.x + blockIdx.x);\n"
+     "  long long dbg_last = 0;\n"
+     "  if (threadIdx.x == 0) { for (int i = 0; i < 8; ++i) dbg[i] = 0; "
+     "dbg_last = k7_now(); }\n"
+     "  const float qs_q = qsum[q], qn_q = l2 ? qn[q] : 0.0f;\n"),
+    ("    const int rows = n_mine * BLK;\n",
+     "    K7_STAMP(1);\n    const int rows = n_mine * BLK;\n"),
+    ("  __syncthreads();\n  if (nc_s) k7_compact(A, R, scratch, hist_s, &sel_s, "
+     "&nl_s, &nc_s, &thr_s);\n",
+     "  __syncthreads();\n  K7_STAMP(2);\n"
+     "  if (nc_s) k7_compact(A, R, scratch, hist_s, &sel_s, &nl_s, &nc_s, "
+     "&thr_s);\n  K7_STAMP(3);\n"),
+    ("  if (!last_s) return;\n",
+     "  K7_STAMP(4);\n  if (!last_s) return;\n"),
+    ("    out_pos[qs_at * R + t] = pos;\n  }\n}\n",
+     "    out_pos[qs_at * R + t] = pos;\n  }\n  __syncthreads();\n"
+     "  K7_STAMP(5);\n}\n")]
+K7_STAMP_KEYS = ("init", "mask_words", "rows", "last_select", "list_write",
+                 "merge")
+
+
+def k7_phases(tree, call, blocks):
+    """The stamps build's µs a scan block spends in each phase: the mean
+    over blocks and the slowest block's (the merge: over the last parts)."""
+    lib = build_variant(tree, "stamps", K7_STAMPS, scratch_dir(),
+                        source="ivf_scan")
+    if lib is None:
+        return "not measured (another design)"
+    import torch
+    typed_variant("ivf_scan", lib)
+    with swapped_library("ivf_scan", lib):
+        call()
+        torch.cuda.synchronize()
+        call()
+        torch.cuda.synchronize()
+    buf = (ctypes.c_longlong * (8 * blocks))()
+    lib.es_probe_k7_stamps(buf, blocks)
+    a = np.frombuffer(buf, dtype=np.int64).reshape(blocks, 8)[:, :6] / 1e3
+    last = a[:, 5] > 0
+    out = {f"{k}_mean": float(a[:, i].mean())
+           for i, k in enumerate(K7_STAMP_KEYS[:5])}
+    out.update({f"{k}_max": float(a[:, i].max())
+                for i, k in enumerate(K7_STAMP_KEYS[:5])})
+    out["merge_mean"] = float(a[last, 5].mean()) if last.any() else 0.0
+    out["block_us_max"] = float(a.sum(1).max())
+    return out
+
+
+def run_k7(rows, reps, tree=HERE, variants=False):
+    """K7 at the IVF shape (``ivf_plane``, the first query batch): the
+    window through ``ivf_scan`` (the tree's one call, or the parent's K7
+    and K3 reduce) and K7's chunk lists alone (``ivf_scan_partials``):
+    CUDA-event mean, host ms a call, device ms by kernel, the grid, a
+    digest of the window."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import knn as knn_mod
+    dev = torch.device("cuda")
+    _corpus, plane, _g, _p, q_batch = cs.ivf_plane(dev)
+    a, R, Pw, qq, qn, scan_in, scan_kw = cs.ivf_step_inputs(plane,
+                                                            q_batch())
+    nlist = plane.ivf.nlist
+    B, S = qq.shape[0], a["u_blocks"].shape[0]
+    calls = {
+        "window (ivf_scan)": lambda: knn_mod.ivf_scan(
+            *scan_in, **scan_kw, nlist=nlist, r_cand=R),
+        "chunk lists (ivf_scan_partials)": lambda: knn_mod.ivf_scan_partials(
+            *scan_in, **scan_kw, nlist=nlist, r_cand=R)}
+    wv, wp = calls["window (ivf_scan)"]()
+    pv, pp = knn_mod.ivf_scan_plain(*scan_in, **scan_kw, r_cand=R)
+    C = calls["chunk lists (ivf_scan_partials)"]()[0].shape[2]
+    if hasattr(knn_mod, "ivf_window"):
+        G = kb.query("ivf_scan", "es_ivf_window_parts", B, S, R)
+        grid = dict(mask=[Pw, S, -(-B // 32)], scan=[G, S, B])
+    else:
+        grid = dict(scan=[C, S, -(-B // 16)], reduce="K3")
+    phases = None
+    if variants and "mask" in grid:
+        phases = k7_phases(tree, calls["window (ivf_scan)"],
+                           grid["scan"][0] * S * B)
+    for name, fn in calls.items():
+        n0 = dict(kb.launches)
+        fn()
+        torch.cuda.synchronize()
+        launched = {k: v - n0[k] for k, v in kb.launches.items()
+                    if v != n0[k]}
+        by_name = cs.device_ms_by_name(fn, reps)
+        emit(rows, kernel="ivf_scan", what=name, B=B, S=S, Pw=Pw, R=R,
+             ms=cs.timed(fn, 5 * reps), host_ms=host_ms(fn, 5 * reps),
+             device_ms=sum(by_name.values()), by_name=by_name,
+             launches_a_call=launched, grid=grid,
+             **({"digest": digest((wv, wp)),
+                 "max_abs_err_vs_plain": float(
+                     (wv - pv[:, :, :R]).abs()[torch.isfinite(wv)].max()
+                     .item() if bool(torch.isfinite(wv).any()) else 0.0),
+                 "pos_equal_plain": bool(torch.equal(wp, pp)),
+                 **({"phases_us": phases} if phases else {})}
+                if name.startswith("window") else {"chunks": C}))
+    del plane
+    torch.cuda.empty_cache()
+
+
 def run_aggs_phase(rows):
     """Config #3's aggregation phase of ``chip_smoke.py`` (``run_aggs``)
     against ``--tree``'s package: the route's aggs/s, p50 and p99 (its
@@ -2729,14 +3072,49 @@ def run_aggs_phase(rows):
     emit(rows, kernel="aggs_phase", kernel_rows=agg_rows, launches=counts)
 
 
+def run_segment_phase(rows):
+    """The per-segment phase of ``chip_smoke.py`` (``run_segment``: mixes
+    (e)–(i) through ``ShardSearcher.search`` on the 2^23-doc segment)
+    against ``--tree``'s package: each mix's q/s, p50 and p99 (its printed
+    lines) and the K16–K19 rows."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.device import card_info
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
+    seg_rows, counts = cs.run_segment(card_info(), corpus)
+    emit(rows, kernel="segment_phase", kernel_rows=seg_rows,
+         launches=counts)
+
+
+def run_ivf_phase(rows):
+    """The IVF phase of ``chip_smoke.py`` (``run_knn_ivf``: the route
+    through ``serve`` at the IVF shape) against ``--tree``'s package: its
+    q/s, p50, ``dispatch_ms`` and recall (its printed lines) and the K7
+    and K8 rows. A package whose K7 has no one-call window reduces its
+    chunk lists with a third K3 call a step."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.device import card_info
+    from elasticsearch_tpu_torch.ops import knn as knn_mod
+    if not hasattr(knn_mod, "K7_WINDOW_MAX"):
+        cs.IVF_K3_CALLS = 3
+    ivf_rows, counts, k3_err = cs.run_knn_ivf(card_info())
+    emit(rows, kernel="ivf_phase", kernel_rows=ivf_rows, launches=counts,
+         k3_max_abs_err=k3_err)
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--tree", default=HERE)
     p.add_argument("--kernels",
-                   default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22",
+                   default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22,k19,"
+                   "k7",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21, k2, k12, k14, k22 to probe, and aggs "
-                   "(chip_smoke.py's aggregation phase)")
+                   "k3, k21, k2, k12, k14, k22, k19, k7 to probe, and aggs, "
+                   "segment and ivf (chip_smoke.py's aggregation, "
+                   "per-segment and IVF phases)")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
@@ -2780,8 +3158,16 @@ def main() -> int:
         run_k14(rows, max(opts.reps // 2, 2), tree, opts.variants)
     if "k22" in which:
         run_k22(rows, max(opts.reps // 4, 2), tree, opts.variants)
+    if "k19" in which:
+        run_k19(rows, opts.reps, tree, opts.variants)
+    if "k7" in which:
+        run_k7(rows, opts.reps, tree, opts.variants)
     if "aggs" in which:
         run_aggs_phase(rows)
+    if "segment" in which:
+        run_segment_phase(rows)
+    if "ivf" in which:
+        run_ivf_phase(rows)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

@@ -22,8 +22,8 @@ from elasticsearch_tpu_torch.ops.fused_query import (
     bool_bm25_topk_plan, fuse_rank, fuse_rank_plain, rescore_reorder,
     rescore_reorder_body)
 from elasticsearch_tpu_torch.ops.knn import (
-    ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_plain, knn_shard_scan,
-    knn_shard_scan_plain)
+    K7_WINDOW_MAX, ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
+    ivf_scan_plain, knn_shard_scan, knn_shard_scan_plain, reduce_chunks)
 from elasticsearch_tpu_torch.ops.sorted_merge import (
     SPARSE_TILE_SHIFT, TILE_SHIFT, sparse_candidates_topk,
     sparse_candidates_topk_plain, sparse_candidates_topk_plan)
@@ -662,33 +662,48 @@ def test_k6_matches_plain(cuda, similarity, D, B, k, n, every_third):
         assert (np.diff(row[dup]) > 0).all()
 
 
-def _ivf_planes(cuda, similarity, quant, n=1 << 14, D=32, seed=3):
-    """A clustered corpus packed on the host, and the same packed state
-    on the card (one tier, whichever device assigned its clusters)."""
+def _ivf_planes(cuda, similarity, quant, n=1 << 14, D=32, seed=3, B=16,
+                S=2):
+    """A clustered corpus packed on the host in S shards, and the same
+    packed state on the card (one tier, whichever device assigned its
+    clusters); B queries."""
     rng = np.random.RandomState(seed)
     centers = rng.randn(64, D).astype(np.float32)
     vecs = centers[rng.randint(0, 64, n)] + \
         0.35 * rng.randn(n, D).astype(np.float32)
     vecs[100:110] = vecs[7]
-    cpu = DistributedKnnPlane([dict(vectors=vecs[: n // 2]),
-                               dict(vectors=vecs[n // 2:])],
+    cut = np.linspace(0, n, S + 1).astype(int)
+    cpu = DistributedKnnPlane([dict(vectors=vecs[lo:hi])
+                               for lo, hi in zip(cut[:-1], cut[1:])],
                               similarity=similarity,
                               ivf=dict(nlist=64, quant=quant, seed=1),
                               device="cpu")
     gpu = DistributedKnnPlane.from_packed(cpu.export_packed(), device=cuda)
-    qs = vecs[rng.randint(0, n, 16)] + \
-        0.15 * rng.randn(16, D).astype(np.float32)
+    qs = vecs[rng.randint(0, n, B)] + \
+        0.15 * rng.randn(B, D).astype(np.float32)
     qs[0] = vecs[7]
     return cpu, gpu, qs.astype(np.float32), knn_tol(qs, vecs, similarity)
 
 
-@pytest.mark.parametrize("similarity,quant,nprobe,rerank", [
-    ("dot_product", "int8", 8, 4), ("cosine", "int8", 8, 4),
-    ("l2_norm", "int8", 8, 4), ("cosine", "bf16", 8, 4),
-    # every cluster, a window past shared memory
-    ("l2_norm", "int8", 64, 400)])
-def test_k7_k8_match_plain(cuda, similarity, quant, nprobe, rerank):
-    cpu, gpu, qs, tol = _ivf_planes(cuda, similarity, quant)
+@pytest.mark.parametrize("similarity,quant,nprobe,rerank,B,S,D", [
+    ("dot_product", "int8", 8, 4, 16, 2, 32),
+    ("cosine", "int8", 8, 4, 16, 2, 32),
+    ("l2_norm", "int8", 8, 4, 16, 2, 32),
+    ("cosine", "bf16", 8, 4, 16, 2, 32),
+    # every cluster, a window past K7's one-call limit (chunk lists + K3)
+    ("l2_norm", "int8", 64, 400, 16, 2, 32),
+    # fewer queries than a query tile; three shards; every cluster probed
+    # into a small window; a window of 1,000 (a part's list past a few
+    # hundred); d not a multiple of a 16-byte load
+    ("dot_product", "int8", 8, 4, 5, 2, 32),
+    ("l2_norm", "bf16", 8, 4, 16, 3, 32),
+    ("cosine", "int8", 64, 4, 16, 2, 32),
+    ("dot_product", "int8", 16, 100, 16, 2, 32),
+    ("l2_norm", "int8", 8, 4, 16, 2, 36),
+    ("cosine", "bf16", 8, 4, 40, 1, 20)])
+def test_k7_k8_match_plain(cuda, similarity, quant, nprobe, rerank, B, S,
+                           D):
+    cpu, gpu, qs, tol = _ivf_planes(cuda, similarity, quant, B=B, S=S, D=D)
     prep = gpu.prepare_ivf(qs, 10, nprobe=nprobe, rerank=rerank)
     a, R = prep["args"], prep["r_cand"]
     q = a["q"]
@@ -716,11 +731,52 @@ def test_k7_k8_match_plain(cuda, similarity, quant, nprobe, rerank):
     torch.cuda.synchronize()
     assert kb.launches["ivf_scan"] == n0["ivf_scan"] + 1
     assert kb.launches["ivf_rerank"] == n0["ivf_rerank"] + 1
+    # the window in one call up to K7_WINDOW_MAX (no K3), bitwise the
+    # window of K7's chunk lists reduced by K3
+    one_call = R <= K7_WINDOW_MAX
+    assert kb.launches["topk_merge"] == n0["topk_merge"] + (not one_call)
+    if one_call:
+        cv, cp = ivf_scan_partials(*ins, **kw, nlist=gpu.ivf.nlist,
+                                   r_cand=R)
+        Bq, Sq, C, _ = cv.shape
+        rv, rp = reduce_chunks(cv.view(Bq * Sq, C, R),
+                               cp.view(Bq * Sq, C, R), k=R,
+                               fill=a["u_blocks"].shape[1] *
+                               a["rowid"].shape[-1])
+        _same_bits((wv, wp), (rv.view(Bq, Sq, R), rp.view(Bq, Sq, R)))
     assert torch.equal(rows, rows_p)
     e, ep = ex.cpu().numpy(), ex_p.cpu().numpy()
     assert np.array_equal(np.isfinite(e), np.isfinite(ep))
     f = np.isfinite(e)
     np.testing.assert_allclose(e[f], ep[f], rtol=0.0, atol=tol)
+
+
+@pytest.mark.parametrize("B", [32, 40])
+def test_k7_window_serves_nlist_2_16(cuda, B):
+    """At nlist 2^16 a tile of 32 queries' probe bitmaps would pass the
+    shared memory a block may have; the window path builds them 16 queries
+    at a time, so it serves the shape, bitwise the window of nlist 64 (the
+    probed ids are below 64) and within the bar of the plain version."""
+    cpu, gpu, qs, tol = _ivf_planes(cuda, "dot_product", "int8", B=B)
+    prep = gpu.prepare_ivf(qs, 10, nprobe=8, rerank=4)
+    a, R = prep["args"], prep["r_cand"]
+    q = a["q"]
+    ins = [a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], q, q.sum(1), (q * q).sum(1), a["probed"],
+           a["u_blocks"]]
+    kw = dict(l2=False, n_pad=gpu.n_pad, r_cand=R)
+    n0 = dict(kb.launches)
+    got = ivf_scan(*ins, **kw, nlist=1 << 16)
+    torch.cuda.synchronize()
+    assert kb.launches["ivf_scan"] == n0["ivf_scan"] + 1
+    assert kb.launches["topk_merge"] == n0["topk_merge"]
+    _same_bits(got, ivf_scan(*ins, **kw, nlist=gpu.ivf.nlist))
+    pv, pp = ivf_scan_plain(*ins, l2=False, n_pad=gpu.n_pad, r_cand=R + 1)
+    wv, wp = (t.cpu().numpy() for t in got)
+    pv, pp = pv.cpu().numpy(), pp.cpu().numpy()
+    for s in range(wv.shape[1]):
+        assert_topk_close(wv[:, s], wp[:, s], pv[:, s, :R], pp[:, s, :R],
+                          rtol=0.0, atol=tol, v_next=pv[:, s, R])
 
 
 def test_knn_kernels_refuse_what_they_cannot_launch(cuda):
@@ -1694,17 +1750,37 @@ def test_k18_equals_plain(cuda, seed, n_pad, M, M_pad, f32):
 @pytest.mark.parametrize("n,k", [
     (64, 1), (64, 64), (3000, 10), (3000, 3000), (1 << 17, 16384),
     (1 << 17, 16385), (1 << 17, 1 << 17), (1 << 20, 10), (1 << 20, 10000),
-    (1 << 20, 1 << 20)])
-@pytest.mark.parametrize("kind", ["ties", "nan", "masked", "distinct"])
+    (1 << 20, 1 << 20),
+    # the per-segment path's n at (e)'s and (i)'s k; n not a multiple of
+    # 16 or of a block's step; n below one block's step
+    (1 << 23, 10), (1 << 23, 1000), (1 << 23, 10000), (100_003, 10),
+    (100_003, 2000), (5_000, 700)])
+@pytest.mark.parametrize("kind", ["ties", "nan", "masked", "few",
+                                  "distinct"])
 def test_k19_bitwise_equals_plain(cuda, n, k, kind):
-    """Values bitwise and indices exact, in one block's shared memory
-    (k <= 16,384) and in device memory (k > 16,384)."""
+    """Values bitwise and indices exact, by the one-launch path (k <=
+    16,384) and the multi-launch one (k > 16,384), twice in a row (a call
+    leaves nothing the next one reads), one launch a call."""
     s, mask = topk_scores(n + k, n, kind)
     sc, m = _t(s, cuda), _t(mask, cuda)
-    n0 = kb.launches["segment_topk"]
-    got = masked_topk(sc, m, k)
-    assert kb.launches["segment_topk"] == n0 + 1
     want = masked_topk_plain(sc, m, k)
+    for _ in range(2):
+        n0 = kb.launches["segment_topk"]
+        got = masked_topk(sc, m, k)
+        assert kb.launches["segment_topk"] == n0 + 1
+        torch.cuda.synchronize()
+        _same_bits(got, want)
+
+
+@pytest.mark.parametrize("k", [10, 3000])
+def test_k19_unaligned_columns_equal_plain(cuda, k):
+    """Scores and mask 4 and 1 bytes past a 16-byte boundary take the
+    one-doc loads; the result is the plain version's, bitwise."""
+    s, mask = topk_scores(7, 200_001, "nan")
+    sc, m = _t(s, cuda)[1:], _t(mask, cuda)[1:]
+    assert sc.data_ptr() % 16 and m.data_ptr() % 16
+    want = masked_topk_plain(sc, m, k)
+    got = masked_topk(sc, m, k)
     torch.cuda.synchronize()
     _same_bits(got, want)
 

@@ -472,7 +472,8 @@ def pairs_case(seed, n_pad, M, M_pad):
 def topk_scores(seed, n, kind):
     """Scores from a few values (ties) and a 60 % mask; ``nan`` adds NaNs
     of both signs and a payload, signed zeros and infinities, ``masked``
-    masks everything, ``distinct`` draws distinct values."""
+    masks everything, ``few`` keeps five docs (fewer than most k),
+    ``distinct`` draws distinct values."""
     rng = np.random.RandomState(seed)
     s = rng.choice(np.array([0.5, 1.0, 1.25, 2.0, 3.5], np.float32), n)
     mask = rng.rand(n) < 0.6
@@ -487,6 +488,9 @@ def topk_scores(seed, n, kind):
         s[rng.rand(n) < 0.02] = payload
     elif kind == "masked":
         mask[:] = False
+    elif kind == "few":
+        mask[:] = False
+        mask[rng.choice(n, min(5, n), replace=False)] = True
     elif kind == "distinct":
         s = rng.permutation(n).astype(np.float32) / 7
     return s, mask
