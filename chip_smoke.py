@@ -1082,9 +1082,14 @@ IVF_DIM = 64
 IVF_CENTERS = 2048
 IVF_NLIST = 1024
 IVF_K = 10
-#: a k whose window (rerank · k = 4,000) is past K7's one-call limit
-#: (1,024): K7's chunk lists, then K3 reduces them
+#: ks whose windows (rerank · k = 4,000; serve(k = 10,000)'s min(40,000,
+#: the union's rows)) are past K7's window path (1,024): its deep path
 IVF_DEEP_K = 1000
+IVF_DEEPEST_K = 10000
+#: K3 calls K7 makes at such a window (none: the deep path forms it)
+IVF_DEEP_WINDOW_K3 = 0
+#: timed serve(k = IVF_DEEP_K) batches
+IVF_DEEP_BATCHES = 8
 IVF_BATCHES = 24
 IVF_EVAL = 4
 #: rows of the card-vs-host cluster assignment comparison
@@ -1483,21 +1488,35 @@ def run_knn_ivf(card, *, reps=20):
     # product by its summation order, within the parity bar
     k7_err = check_lists(wv[:, 0], wp[:, 0], pv[:, 0], pp[:, 0], tol,
                          "K7 ivf_scan (the window)")
-    # the window serve(k=IVF_DEEP_K) asks for, past K7's one-call limit:
-    # K7's chunk lists, then one K3 call reduces them
-    _a, R_deep, _p, _q, _n, deep_in, deep_kw = ivf_step_inputs(
-        plane, eval_b[0], k=IVF_DEEP_K)
-    n0 = dict(kb.launches)
-    dv, dp = ivf_scan(*deep_in, **deep_kw, nlist=tier.nlist, r_cand=R_deep)
-    torch.cuda.synchronize()
-    deep_launches = {k: kb.launches[k] - n0[k]
-                     for k in ("ivf_scan", "topk_merge")}
-    if deep_launches != {"ivf_scan": 1, "topk_merge": 1}:
-        fail(f"K7 chunk path at r_cand {R_deep}: launches {deep_launches}")
-    dpv, dpp = ivf_scan_plain(*deep_in, **deep_kw, r_cand=R_deep + 1)
-    k7_deep_err = check_lists(dv[:, 0], dp[:, 0], dpv[:, 0], dpp[:, 0], tol,
-                              f"K7 ivf_scan (chunk lists + K3, r_cand "
-                              f"{R_deep})")
+    # the windows serve(k=IVF_DEEP_K) and serve(k=IVF_DEEPEST_K) ask for,
+    # past K7's window path: its deep path, one call, no K3
+    deep = {}
+    for kd in (IVF_DEEP_K, IVF_DEEPEST_K):
+        _a, R_d, _p, _q, _n, d_in, d_kw = ivf_step_inputs(plane, eval_b[0],
+                                                          k=kd)
+        n0 = dict(kb.launches)
+        dv, dp = ivf_scan(*d_in, **d_kw, nlist=tier.nlist, r_cand=R_d)
+        torch.cuda.synchronize()
+        launched = {key: kb.launches[key] - n0[key]
+                    for key in ("ivf_scan", "topk_merge")}
+        if launched != {"ivf_scan": 1, "topk_merge": IVF_DEEP_WINDOW_K3}:
+            fail(f"K7 deep path at r_cand {R_d}: launches {launched}")
+        dpv, dpp = ivf_scan_plain(*d_in, **d_kw, r_cand=R_d + 1)
+        err = check_lists(dv[:, 0], dp[:, 0], dpv[:, 0], dpp[:, 0], tol,
+                          f"K7 ivf_scan (deep path, r_cand {R_d})")
+        # the whole IVF step at this k: K3's calls (the window needs none)
+        n0 = kb.launches["topk_merge"]
+        ivf_knn_step(**_a, n_pad=n_pad, k=kd, similarity="cosine",
+                     nlist=tier.nlist, r_cand=R_d)
+        torch.cuda.synchronize()
+        k3_step = kb.launches["topk_merge"] - n0
+        if k3_step != IVF_K3_CALLS + IVF_DEEP_WINDOW_K3:
+            fail(f"IVF step at k = {kd}: {k3_step} K3 calls, not "
+                 f"{IVF_K3_CALLS + IVF_DEEP_WINDOW_K3}")
+        deep[kd] = dict(k=kd, r_cand=R_d, launches=launched,
+                        k3_calls_a_step=k3_step, max_abs_err=err,
+                        inputs=(d_in, d_kw),
+                        live=int(torch.isfinite(dv).sum()))
     rr_in = (wv, wp, a["u_blocks"], a["rowid"], a["vecs"], a["vnorm2"], qq,
              qn)
     ex, rows = ivf_rerank(*rr_in, l2=False, n_pad=n_pad)
@@ -1520,8 +1539,11 @@ def run_knn_ivf(card, *, reps=20):
           f"err {k7_err:.3g}, tol {tol:.3g}), K8 ~= plain (rows equal, max "
           f"abs err {k8_err:.3g}), K3 == plain (its {len(k3_calls)} calls of "
           f"the step); {live} "
-          f"window rows re-ranked; at k = {IVF_DEEP_K} (r_cand {R_deep}) "
-          f"K7's chunk lists + K3 ~= plain (max abs err {k7_deep_err:.3g})",
+          f"window rows re-ranked" + "".join(
+              f"; at k = {d['k']} (r_cand {d['r_cand']}, {d['live']} live "
+              f"entries) K7's deep path ~= plain (max abs err "
+              f"{d['max_abs_err']:.3g}), the step's K3 calls "
+              f"{d['k3_calls_a_step']}" for d in deep.values()),
           flush=True)
 
     # ---- recall against the exact route, kernel and plain ----------------
@@ -1566,19 +1588,41 @@ def run_knn_ivf(card, *, reps=20):
         fail(f"IVF recall {r_kernel} below the plain route's {r_plain}")
     if counts["knn_scan"]:
         fail("K6 launched on the IVF path")
+    # deep pages through serve: k = IVF_DEEP_K, its window past K7's window
+    # path, counted alone
+    lat_d, _st, counts_d, n_disp_d, _ = drive(
+        plane, batches[:IVF_DEEP_BATCHES + 1],
+        lambda qs, stg: plane.serve(qs, k=IVF_DEEP_K, stages=stg), kb,
+        required=("ivf_scan", "ivf_rerank", "topk_merge"))
+    if counts_d["topk_merge"] != \
+            (IVF_K3_CALLS + IVF_DEEP_WINDOW_K3) * n_disp_d:
+        fail(f"knn_ivf at k = {IVF_DEEP_K}: launches {counts_d} over "
+             f"{n_disp_d} dispatches")
+    deep_serve = dict(k=IVF_DEEP_K, batches=len(lat_d),
+                      qps=len(lat_d) * KNN_BATCH / lat_d.sum(),
+                      p50_ms=float(np.percentile(lat_d, 50) * 1e3),
+                      launches=counts_d, dispatches=n_disp_d)
+    print(f"# knn_ivf at k = {IVF_DEEP_K}: {deep_serve['qps']:.1f} q/s, p50 "
+          f"{deep_serve['p50_ms']:.3f} ms per {KNN_BATCH}-query batch over "
+          f"{len(lat_d)} batches; launches {counts_d} over {n_disp_d} "
+          f"dispatches [{card}]", flush=True)
 
     # ---- times ----------------------------------------------------------
-    # the window (K7's one call on the path) and, beside it, the chunk
-    # path at the deep page's window (K7's lists, then K3)
+    # the window (K7's one call on the path) and, beside it, the deep
+    # path's windows
     k7_ms = timed(lambda: ivf_scan(*scan_in, **scan_kw, nlist=tier.nlist,
                                    r_cand=R), reps)
     k7_dev = device_ms_by_name(lambda: ivf_scan(
         *scan_in, **scan_kw, nlist=tier.nlist, r_cand=R), reps)
+    for d in deep.values():
+        d_in, d_kw = d.pop("inputs")
 
-    def deep_window():
-        ivf_scan(*deep_in, **deep_kw, nlist=tier.nlist, r_cand=R_deep)
-    k7_chunk_ms = timed(deep_window, reps)
-    k7_chunk_dev = device_ms_by_name(deep_window, reps)
+        def deep_window(d_in=d_in, d_kw=d_kw, R_d=d["r_cand"]):
+            ivf_scan(*d_in, **d_kw, nlist=tier.nlist, r_cand=R_d)
+        d["ms"] = timed(deep_window, reps)
+        d["device_ms"] = sum(device_ms_by_name(deep_window, reps).values())
+        d["plain_ms"] = timed(lambda d_in=d_in, d_kw=d_kw, R_d=d["r_cand"]:
+                              ivf_scan_plain(*d_in, **d_kw, r_cand=R_d), 3)
     k8_ms = timed(lambda: ivf_rerank(*rr_in, l2=False, n_pad=n_pad), reps)
     k7_plain = timed(lambda: ivf_scan_plain(*scan_in, **scan_kw, r_cand=R), 3)
     k8_plain = timed(lambda: ivf_rerank_plain(*rr_in, l2=False, n_pad=n_pad),
@@ -1611,15 +1655,22 @@ def run_knn_ivf(card, *, reps=20):
         + a["probed"].numel() * 4 + a["u_blocks"].numel() * 4 + B * 8 \
         + B * S * R * 8
     k7_bms, k7_bby = bound(k7_bytes, pairs * (2 * IVF_DIM + 3))
+    # a deep window reads the same union and writes its own width
+    for d in deep.values():
+        d["bound_ms"], d["bound_by"] = bound(
+            k7_bytes + B * S * (d["r_cand"] - R) * 8,
+            pairs * (2 * IVF_DIM + 3))
     k8_bytes = live * (8 + 4 + 4 + IVF_DIM * 4 + 8) + B * IVF_DIM * 4
     k8_bms, k8_bby = bound(k8_bytes, live * 2 * IVF_DIM)
     print(f"# ivf_scan (the window): {k7_ms:.4f} ms, on the card "
           f"{sum(k7_dev.values()):.5f} ms {k7_dev} (bound {k7_bms:.5f} ms "
           f"by {k7_bby}: {n_real} real union blocks, {rows_read} probed "
           f"rows read, {pairs} (row, query) pairs, {k7_bytes} bytes), "
-          f"at r_cand {R_deep} (chunk lists + K3) {k7_chunk_ms:.4f} ms, on "
-          f"the card {sum(k7_chunk_dev.values()):.5f} ms, plain "
-          f"{k7_plain:.3f} ms; ivf_rerank: "
+          + "".join(f"at r_cand {d['r_cand']} (deep path) {d['ms']:.4f} "
+                    f"ms, on the card {d['device_ms']:.5f} ms (bound "
+                    f"{d['bound_ms']:.5f} ms by {d['bound_by']}), plain "
+                    f"{d['plain_ms']:.3f} ms, " for d in deep.values())
+          + f"plain {k7_plain:.3f} ms; ivf_rerank: "
           f"{k8_ms:.4f} ms (bound {k8_bms:.5f} ms by {k8_bby}), plain "
           f"{k8_plain:.3f} ms, library (gather + torch.bmm) {k8_lib:.4f} ms; "
           f"on the card (torch.profiler) K8 {k8_dev:.5f} ms, the library "
@@ -1634,10 +1685,7 @@ def run_knn_ivf(card, *, reps=20):
              library_none="no one PyTorch call scans a gathered union "
                           "under per-query cluster masks into a window",
              device_ms=sum(k7_dev.values()), device_ms_by_kernel=k7_dev,
-             chunk_path=dict(k=IVF_DEEP_K, r_cand=R_deep,
-                             launches=deep_launches,
-                             max_abs_err=k7_deep_err, ms=k7_chunk_ms,
-                             device_ms=sum(k7_chunk_dev.values()))),
+             deep_path=list(deep.values()), deep_serve=deep_serve),
         dict(name="ivf_rerank", route="cuda",
              source="elasticsearch_tpu_torch/csrc/ivf_rerank.cu",
              replaces="elasticsearch_tpu/parallel/dist_search.py:894",
@@ -3355,12 +3403,21 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
     V17 = int(lens.sum())
     flat17 = torch.cat([a[0][int(s):int(s) + int(n)]
                         for s, n in zip(np.asarray(a[1]), lens)]).long()
+    # one prefix run: the postings from the first of (g)'s runs to the end
+    # of its last, as a prefix query passes them
+    st17 = np.asarray(a[1], np.int64)
+    span = int((st17 + lens).max() - st17.min())
+    prefix_run = (a[0], np.asarray([st17.min()], np.int32),
+                  np.asarray([span], np.int32))
+    prefix_kw = dict(segment_pad=n_pad, L=1 << max(span - 1, 0).bit_length())
     specs.append(("postings_match", "csrc/postings_match.cu",
                   "elasticsearch_tpu/ops/masks.py:16",
                   lambda a=a, kw=kw: postings_match(*a, **kw),
                   lambda a=a, kw=kw: postings_match_plain(*a, **kw),
                   lambda: torch.bincount(flat17, minlength=n_pad),
-                  "torch.bincount", 4 * V17 + 4 * n_pad, V17, {}))
+                  "torch.bincount", 4 * V17 + 4 * n_pad, V17,
+                  {f"one prefix run of {span}": lambda: postings_match(
+                      *prefix_run, **prefix_kw)}))
     # K18: (g)'s price range (i32 ranks); (h)'s tag range (f32 ordinals)
     kw, a, out = first("g", "range_mask")
     kwh, ah, _ = first("h", "range_mask",
@@ -3411,6 +3468,12 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
         if name == "bm25_scatter":
             # the pre-pass's and the tile kernel's device time a call
             rows[-1]["ms_by_launch"] = device_ms_by_name(kern, reps)
+        if name == "postings_match":
+            # one cooperative launch a call: its device time and events
+            rows[-1]["device_ms"] = sum(device_ms_by_name(kern,
+                                                          reps).values())
+            rows[-1]["device_events_a_call"] = device_events_a_call(kern,
+                                                                    reps)
         if name == "segment_topk":
             # device time and device events (launches) a call, by k
             by_k = {f"k={a[2]}": kern, **modes}
@@ -3446,6 +3509,9 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
                         rows[-1].get("ms_by_launch", {}).items())
               + "".join(f", on the card at {k} {v:.4f} ms" for k, v in
                         rows[-1].get("device_ms_by_k", {}).items())
+              + (f", on the card {rows[-1]['device_ms']:.4f} ms, device "
+                 f"events a call {rows[-1]['device_events_a_call']:.2f}"
+                 if name == "postings_match" else "")
               + "".join(f", device events a call at {k} {v:.2f}" for k, v in
                         rows[-1].get("device_events_a_call_by_k",
                                      {}).items())

@@ -1,16 +1,4 @@
-// Shared pieces of the kNN scans K6 (knn_scan.cu) and K7 (ivf_scan.cu):
-// the per-query running top-k lists of one block (both), and K7's row tile
-// and f32 dot products of a tile against a batch of queries (K6 streams its
-// rows through a ring of its own).
-//
-// A K7 block scores tiles of KS_ROWS rows against up to KS_BT queries. The
-// tile's rows pass through shared memory dc values of d at a time: the row
-// rounded up to 4 values, at most KS_DC_MAX, so a row of up to 128 values
-// is one load phase (one trip to device memory) a tile. Rows sit rs floats
-// apart, an odd number of float4s, so the 16-byte reads of eight
-// consecutive rows hit distinct banks. Each thread holds 2 rows x 4 queries
-// of dot products and adds one FMA per d in ascending d. A row's score thus
-// never depends on where the row lies, and a duplicate row ties bitwise.
+// The per-query running top-k lists of one block of K6 (knn_scan.cu).
 //
 // Each query keeps a list of its k best (score, id) keys, sorted best first
 // under (score desc, id asc), and the list's k-th key as a threshold once
@@ -31,24 +19,7 @@
 
 #define KS_THREADS 256
 #define KS_ROWS 128
-#define KS_DC_MAX 128
 #define KS_BT 16
-
-// d values a tile holds at a time, and the row stride in floats.
-static int ks_dc(int D) {
-  const int dc = (D + 3) / 4 * 4;
-  return dc < KS_DC_MAX ? dc : KS_DC_MAX;
-}
-static int ks_rs(int dc) { return (dc / 4) % 2 ? dc : dc + 4; }
-
-// Dynamic shared memory of a block without its lists: the row tile, the
-// query chunk (KS_BT rows, zero past the batch and past D) and the
-// candidate buffers.
-static size_t ks_base_bytes(int bt, int D) {
-  const int dc = ks_dc(D);
-  return (size_t)KS_ROWS * ks_rs(dc) * 4 + (size_t)KS_BT * dc * 4 +
-         (size_t)bt * KS_ROWS * 8;
-}
 
 // The lists and their merge buffers.
 static size_t ks_list_bytes(int bt, int k) { return (size_t)4 * bt * k * 4; }
@@ -196,39 +167,4 @@ __device__ __forceinline__ QueryLists ks_lists(
   L.k = k;
   L.bt = bt;
   return L;
-}
-
-// acc[i][j] += row (rr + 64 i) . query (4 qg + j) over one chunk of d.
-__device__ __forceinline__ void ks_tile_dot(const float* rows_s,
-                                            const float* q_s, int rr, int qg,
-                                            int dc, int rs, float acc[2][4]) {
-#pragma unroll 4
-  for (int c = 0; c < dc; c += 4) {
-    const float4 r0 = *reinterpret_cast<const float4*>(rows_s + rr * rs + c);
-    const float4 r1 =
-        *reinterpret_cast<const float4*>(rows_s + (rr + 64) * rs + c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(q_s + (qg * 4 + j) * dc + c);
-      acc[0][j] = fmaf(r0.x, qv.x, acc[0][j]);
-      acc[0][j] = fmaf(r0.y, qv.y, acc[0][j]);
-      acc[0][j] = fmaf(r0.z, qv.z, acc[0][j]);
-      acc[0][j] = fmaf(r0.w, qv.w, acc[0][j]);
-      acc[1][j] = fmaf(r1.x, qv.x, acc[1][j]);
-      acc[1][j] = fmaf(r1.y, qv.y, acc[1][j]);
-      acc[1][j] = fmaf(r1.z, qv.z, acc[1][j]);
-      acc[1][j] = fmaf(r1.w, qv.w, acc[1][j]);
-    }
-  }
-}
-
-// The query chunk [KS_BT][dc] at d0: zero past the batch and past D.
-__device__ __forceinline__ void ks_load_queries(float* q_s, const float* qq,
-                                                int b0, int nb, int D, int d0,
-                                                int dc) {
-  for (int e = threadIdx.x; e < KS_BT * dc; e += blockDim.x) {
-    const int q = e / dc, d = d0 + e % dc;
-    q_s[e] = (q < nb && d < D) ? qq[(size_t)(b0 + q) * D + d] : 0.0f;
-  }
 }

@@ -49,7 +49,7 @@
 //   exists flags (and |v|^2) are loaded when its first stage is issued and
 //   kept in a ring of their own until its epilogue.
 //
-// The lists are knn_common.cuh's QueryLists, shared with K7. The host
+// The lists are knn_common.cuh's QueryLists. The host
 // sizes the grid from es_knn_scan_blocks_per_sm (ops/knn.py:scan_chunks).
 
 #include <stdint.h>

@@ -6,7 +6,7 @@
 // shard-major lists, ids globalised as s * n_pad + local) and the final
 // stage of ops/topk.py:batched_blockwise_topk / the running top-k of
 // ops/tiered_bm25.py:dense_stream_topk (here: the reduce of K2's per-tile
-// partial lists, and of K6's and K7's per-chunk lists).
+// partial lists, and of K6's per-chunk lists).
 //
 // A row is the concatenation [a | b] of two lists (b may be empty).
 // Column c's id is id + (c / seg_len) * seg_stride (the shard

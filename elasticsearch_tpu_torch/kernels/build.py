@@ -101,13 +101,11 @@ _SIGNATURES = {
         "es_knn_scan",
         [_P] * 5 + [_I] * 7 + [_P] * 4),
     # codes, is_bf16, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
-    # u_blocks, B, S, NB1, BLK, D, n_pad, nlist, nprobe, P, k, l2, n_chunks,
-    # part_vals, part_pos, workspace, stream
-    # (n_chunks = 0: the window, part_* [B, S, k], workspace
-    # es_ivf_window_workspace_bytes)
+    # u_blocks, B, S, NB1, BLK, D, n_pad, nlist, nprobe, P, R, l2,
+    # out_vals, out_pos, workspace, stream
     "ivf_scan": (
         "es_ivf_scan",
-        [_P, _I] + [_P] * 10 + [_I] * 12 + [_P] * 4),
+        [_P, _I] + [_P] * 10 + [_I] * 11 + [_P] * 4),
     # win_vals, win_pos, u_blocks, rowid, vecs, vn, qq, qn, B, S, R, P, NB1,
     # BLK, n_pad, D, l2, out_score, out_rows, stream
     "ivf_rerank": (
@@ -148,10 +146,10 @@ _SIGNATURES = {
         "es_bm25_scatter",
         [_P, _P, _L, _P, _I, _P, _P] + [_I] * 3 + [_F] * 3 + [_I] * 3
         + [_P] * 4),
-    # docs, P, starts, lengths, Q, L, seg_pad, out_matched, stream
+    # docs, P, host_runs, dev_runs, Q, seg_pad, out_matched, stream
     "postings_match": (
         "es_postings_match",
-        [_P, _L, _P, _P] + [_I] * 3 + [_P] * 2),
+        [_P, _L, _P, _P] + [_I] * 2 + [_P] * 2),
     # vals, is_f32, lo_i, hi_i, lo_f, hi_f, docs, M, seg_pad, out_mask,
     # stream
     "range_mask": (
@@ -191,13 +189,16 @@ _QUERIES = {
         "es_knn_scan_ring": ([_I] * 3, ctypes.c_int),
     },
     "ivf_scan": {
-        # (B, S, n_chunks, k, nlist, D) -> workspace bytes, 0 when they
-        # fit
-        "es_ivf_scan_workspace_bytes": ([_I] * 6, ctypes.c_longlong),
-        # (B, S, P, R) -> the window path's workspace bytes, and its scan
-        # blocks a (query, shard)
-        "es_ivf_window_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
-        "es_ivf_window_parts": ([_I] * 3, ctypes.c_int),
+        # (B, S, P, R) -> a call's workspace bytes
+        "es_ivf_scan_workspace_bytes": ([_I] * 4, ctypes.c_longlong),
+        # (B, S, R, D, nlist) -> scan blocks a (query, shard)
+        "es_ivf_scan_parts": ([_I] * 5, ctypes.c_int),
+        # (D, nlist) -> blocks of the deep path's cooperative launch
+        "es_ivf_deep_grid": ([_I] * 2, ctypes.c_int),
+    },
+    "postings_match": {
+        # () -> runs whose inputs ride in the launch's parameters
+        "es_postings_match_param_runs": ([], ctypes.c_int),
     },
     "fuse_rank": {
         # (n, B) -> workspace bytes, 0 when a row's sort fits

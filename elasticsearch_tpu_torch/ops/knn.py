@@ -29,9 +29,9 @@ from ..kernels import build as _kb
 from .topk import (H100_SHARED_OPTIN, NEG_INF, card_limits, topk_merge,
                    topk_merge_row_max, topk_stable)
 
-#: rows per tile of K6/K7 (``KS_ROWS`` in ``csrc/knn_common.cuh``)
+#: rows per tile of K6 (``KS_ROWS`` in ``csrc/knn_common.cuh``)
 TILE_ROWS = 128
-#: queries per block of K6/K7 (``KS_BT``)
+#: queries per block of K6 (``KS_BT``)
 QUERY_TILE = 16
 #: tiles a K6 block tracks in its live-tile bitmap (``K6_BM_WORDS`` · 32
 #: in ``csrc/knn_scan.cu``); past them it reads every tile
@@ -41,7 +41,7 @@ K6_BITMAP_TILES = 4096
 def scan_chunks(rows: int, k: int, S: int, B: int, n_sm: int,
                 per_sm: int = 4, max_tiles: Optional[int] = None,
                 shared: int = H100_SHARED_OPTIN) -> int:
-    """Blocks along the row axis of K6/K7 for ``rows`` rows a shard:
+    """Blocks along the row axis of K6 for ``rows`` rows a shard:
     ``per_sm`` blocks on each of ``n_sm`` SMs over the (shard, query tile)
     grid, at least enough that a block takes at most ``max_tiles`` tiles,
     a multiple of the SM count past one wave, and few enough that K3's
@@ -233,105 +233,18 @@ def ivf_scan_plain(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
     return torch.stack(out_v, 1), torch.stack(out_p, 1).to(torch.int32)
 
 
-#: the largest window K7 forms in one call (``K7_WINDOW_MAX`` in
-#: ``csrc/ivf_scan.cu``); a larger one goes through chunk lists and K3
+#: the largest window of K7's window path (``K7_WINDOW_MAX`` in
+#: ``csrc/ivf_scan.cu``); larger windows take its deep path
 K7_WINDOW_MAX = 1024
-
-
-def _ivf_check(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
-               u_blocks, *, n_pad: int, name: str):
-    """Raise unless K7's inputs are CUDA tensors of the types and shapes
-    the kernel takes; returns (S, NB1, blk, D, B, nprobe, P)."""
-    dev = codes.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: needs CUDA, got {dev}")
-    S, NB1, blk, D = codes.shape
-    B, nprobe = probed.shape
-    P = u_blocks.shape[1]
-    if codes.dtype not in (torch.int8, torch.bfloat16):
-        raise TypeError(f"codes: expected int8 or bfloat16, got "
-                        f"{codes.dtype}")
-    _kb.check(codes, "codes", codes.dtype, (S, NB1, blk, D), dev)
-    for nm, t, dt in (("scale", scale, torch.float32),
-                      ("off", off, torch.float32),
-                      ("rowid", rowid, torch.int32),
-                      ("rcl", rcl, torch.int32)):
-        _kb.check(t, nm, dt, (S, NB1, blk), dev)
-    _kb.check(vn, "vnorm2", torch.float32, (S, n_pad), dev)
-    _kb.check(qq, "qq", torch.float32, (B, D), dev)
-    _kb.check(qsum, "qsum", torch.float32, (B,), dev)
-    _kb.check(qn, "qn", torch.float32, (B,), dev)
-    _kb.check(probed, "probed", torch.int32, (B, nprobe), dev)
-    _kb.check(u_blocks, "u_blocks", torch.int32, (S, P), dev)
-    return S, NB1, blk, D, B, nprobe, P
-
-
-def ivf_scan_partials(codes, scale, off, rowid, rcl, vn, qq, qsum, qn,
-                      probed, u_blocks, *, l2: bool, n_pad: int, nlist: int,
-                      r_cand: int):
-    """Launch K7's chunk path on CUDA tensors: each (query, shard, chunk of
-    the union)'s ``r_cand`` best (quantized score, position). Returns
-    (part_vals f32[B, S, C, r_cand], part_pos i32[B, S, C, r_cand]).
-    :func:`ivf_scan` takes it for windows past ``K7_WINDOW_MAX``."""
-    S, NB1, blk, D, B, nprobe, P = _ivf_check(
-        codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks,
-        n_pad=n_pad, name="ivf_scan_partials")
-    dev = codes.device
-    n_sm, shared = card_limits(dev.index)
-    C = scan_chunks(P * blk, r_cand, S, B, n_sm, shared=shared)
-    part_v = torch.empty((B, S, C, r_cand), dtype=torch.float32, device=dev)
-    part_p = torch.empty((B, S, C, r_cand), dtype=torch.int32, device=dev)
-    if B * S == 0:
-        return part_v, part_p
-    ws_bytes = _kb.query("ivf_scan", "es_ivf_scan_workspace_bytes",
-                         B, S, C, r_cand, nlist, D)
-    ws = torch.empty(ws_bytes // 4, dtype=torch.float32,
-                     device=dev) if ws_bytes else None
-    _kb.launch("ivf_scan", dev, codes.data_ptr(),
-               int(codes.dtype == torch.bfloat16), scale.data_ptr(),
-               off.data_ptr(), rowid.data_ptr(), rcl.data_ptr(),
-               vn.data_ptr(), qq.data_ptr(), qsum.data_ptr(), qn.data_ptr(),
-               probed.data_ptr(), u_blocks.data_ptr(), B, S, NB1, blk, D,
-               n_pad, nlist, nprobe, P, r_cand, int(l2), C,
-               part_v.data_ptr(), part_p.data_ptr(),
-               None if ws is None else ws.data_ptr())
-    return part_v, part_p
+#: the largest window K7 forms (``K7_DEEP_MAX``: its deep path keeps up to
+#: 2 r_cand survivors a (query, shard))
+K7_DEEP_MAX = 1 << 29
 
 
 @functools.lru_cache(maxsize=256)
-def _k7_window_workspace_bytes(B: int, S: int, P: int, R: int) -> int:
-    """Bytes of K7's window-path workspace for one shape."""
-    return _kb.query("ivf_scan", "es_ivf_window_workspace_bytes", B, S, P, R)
-
-
-def ivf_window(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
-               u_blocks, *, l2: bool, n_pad: int, nlist: int, r_cand: int):
-    """Launch K7's window path on CUDA tensors (r_cand <=
-    ``K7_WINDOW_MAX``): the window of :func:`ivf_scan` in one C call (the
-    query masks of the gathered blocks, then the scan by probed (query,
-    block) pairs, whose last part a (query, shard) merges the parts'
-    lists). Returns (vals f32[B, S, r_cand], pos i32[B, S, r_cand])."""
-    S, NB1, blk, D, B, nprobe, P = _ivf_check(
-        codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks,
-        n_pad=n_pad, name="ivf_window")
-    if not 1 <= r_cand <= K7_WINDOW_MAX:
-        raise ValueError(f"ivf_window: r_cand={r_cand} outside "
-                         f"[1, {K7_WINDOW_MAX}]")
-    dev = codes.device
-    win_v = torch.empty((B, S, r_cand), dtype=torch.float32, device=dev)
-    win_p = torch.empty((B, S, r_cand), dtype=torch.int32, device=dev)
-    if B * S == 0:
-        return win_v, win_p
-    ws = torch.empty(_k7_window_workspace_bytes(B, S, P, r_cand),
-                     dtype=torch.uint8, device=dev)
-    _kb.launch("ivf_scan", dev, codes.data_ptr(),
-               int(codes.dtype == torch.bfloat16), scale.data_ptr(),
-               off.data_ptr(), rowid.data_ptr(), rcl.data_ptr(),
-               vn.data_ptr(), qq.data_ptr(), qsum.data_ptr(), qn.data_ptr(),
-               probed.data_ptr(), u_blocks.data_ptr(), B, S, NB1, blk, D,
-               n_pad, nlist, nprobe, P, r_cand, int(l2), 0,
-               win_v.data_ptr(), win_p.data_ptr(), ws.data_ptr())
-    return win_v, win_p
+def _k7_workspace_bytes(B: int, S: int, P: int, R: int) -> int:
+    """Bytes of K7's workspace for one shape."""
+    return _kb.query("ivf_scan", "es_ivf_scan_workspace_bytes", B, S, P, R)
 
 
 def ivf_scan(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
@@ -352,22 +265,55 @@ def ivf_scan(codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed,
     over positions ``p · blk + i`` ordered (value desc, position asc),
     empty slots (−inf, P · blk).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K7: the
-    window in one call (:func:`ivf_window`) up to ``K7_WINDOW_MAX``, else
-    its chunk lists and K3 to reduce them (:func:`reduce_chunks`).
+    A CPU tensor runs the plain version; a CUDA tensor launches K7, one C
+    call for any window up to ``K7_DEEP_MAX``: the query masks of the
+    gathered blocks, then the scan by probed (query, block) pairs, whose
+    parts merge their lists (r_cand <= ``K7_WINDOW_MAX``) or select the
+    window by histograms of the keys (the deep path, one cooperative
+    launch).
     """
     kw = dict(l2=l2, n_pad=n_pad, r_cand=r_cand)
     args = (codes, scale, off, rowid, rcl, vn, qq, qsum, qn, probed, u_blocks)
-    if codes.device.type == "cpu":
+    dev = codes.device
+    if dev.type == "cpu":
         return ivf_scan_plain(*args, **kw)
-    if r_cand <= K7_WINDOW_MAX:
-        return ivf_window(*args, **kw, nlist=nlist)
-    part_v, part_p = ivf_scan_partials(*args, **kw, nlist=nlist)
-    B, S, C, _ = part_v.shape
-    v, p = reduce_chunks(part_v.view(B * S, C, r_cand),
-                         part_p.view(B * S, C, r_cand), k=r_cand,
-                         fill=u_blocks.shape[1] * rowid.shape[-1])
-    return v.view(B, S, r_cand), p.view(B, S, r_cand)
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_scan: unsupported device {dev}")
+    S, NB1, blk, D = codes.shape
+    B, nprobe = probed.shape
+    P = u_blocks.shape[1]
+    if codes.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"codes: expected int8 or bfloat16, got "
+                        f"{codes.dtype}")
+    _kb.check(codes, "codes", codes.dtype, (S, NB1, blk, D), dev)
+    for nm, t, dt in (("scale", scale, torch.float32),
+                      ("off", off, torch.float32),
+                      ("rowid", rowid, torch.int32),
+                      ("rcl", rcl, torch.int32)):
+        _kb.check(t, nm, dt, (S, NB1, blk), dev)
+    _kb.check(vn, "vnorm2", torch.float32, (S, n_pad), dev)
+    _kb.check(qq, "qq", torch.float32, (B, D), dev)
+    _kb.check(qsum, "qsum", torch.float32, (B,), dev)
+    _kb.check(qn, "qn", torch.float32, (B,), dev)
+    _kb.check(probed, "probed", torch.int32, (B, nprobe), dev)
+    _kb.check(u_blocks, "u_blocks", torch.int32, (S, P), dev)
+    if not 1 <= r_cand <= K7_DEEP_MAX:
+        raise ValueError(f"ivf_scan: r_cand={r_cand} outside "
+                         f"[1, K7_DEEP_MAX = {K7_DEEP_MAX}]")
+    win_v = torch.empty((B, S, r_cand), dtype=torch.float32, device=dev)
+    win_p = torch.empty((B, S, r_cand), dtype=torch.int32, device=dev)
+    if B * S == 0:
+        return win_v, win_p
+    ws = torch.empty(_k7_workspace_bytes(B, S, P, r_cand),
+                     dtype=torch.uint8, device=dev)
+    _kb.launch("ivf_scan", dev, codes.data_ptr(),
+               int(codes.dtype == torch.bfloat16), scale.data_ptr(),
+               off.data_ptr(), rowid.data_ptr(), rcl.data_ptr(),
+               vn.data_ptr(), qq.data_ptr(), qsum.data_ptr(), qn.data_ptr(),
+               probed.data_ptr(), u_blocks.data_ptr(), B, S, NB1, blk, D,
+               n_pad, nlist, nprobe, P, r_cand, int(l2), win_v.data_ptr(),
+               win_p.data_ptr(), ws.data_ptr())
+    return win_v, win_p
 
 
 # ---------------------------------------------------------------------------

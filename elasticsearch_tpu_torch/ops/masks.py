@@ -5,7 +5,7 @@ Used by filter-context queries (term/terms/prefix/range as filters) where
 no BM25 score is needed, only set membership:
 
 - :func:`postings_match` is kernel K17 (``csrc/postings_match.cu``): per
-  doc, how many of the Q postings runs hold it (i32);
+  doc, how many of the Q postings runs hold it (i32), in one launch;
 - :func:`range_mask` is kernel K18 (``csrc/range_mask.cu``): per doc,
   whether any of its pairs' values lies in [lo, hi] (bool), over i32 ranks
   or f32 values.
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..kernels import build as _kb
-from .bm25 import scatter_index, small, take_fill
+from .bm25 import _host, scatter_index, small, take_fill
 
 
 def postings_match_plain(postings_docs, starts, lengths, *, segment_pad: int,
@@ -41,6 +41,24 @@ def postings_match_plain(postings_docs, starts, lengths, *, segment_pad: int,
                                                          dtype=torch.int32))
 
 
+def postings_runs(starts, lengths, *, L: int) -> np.ndarray:
+    """K17's runs as 2 Q + 1 int64 words: each run's start, then the
+    prefix of their valid lengths (each cut to [0, L]) from 0, so the
+    kernel numbers all valid postings as one sequence."""
+    st = _host(starts, np.int64)
+    ln = np.clip(_host(lengths, np.int64), 0, max(L, 0))
+    if ln.shape != st.shape:
+        raise ValueError(f"postings_match: lengths must have shape "
+                         f"{st.shape}")
+    return np.concatenate([st, np.zeros(1, np.int64), np.cumsum(ln)])
+
+
+@functools.lru_cache(maxsize=1)
+def _k17_param_runs() -> int:
+    """Runs a K17 launch takes in its parameters (``K17_QMAX``)."""
+    return _kb.query("postings_match", "es_postings_match_param_runs")
+
+
 def postings_match(postings_docs, starts, lengths, *, segment_pad: int,
                    L: int):
     """Count, per doc, how many of the Q postings runs (``starts``,
@@ -49,7 +67,10 @@ def postings_match(postings_docs, starts, lengths, *, segment_pad: int,
     several terms); each occurrence counts. Index rules as
     :func:`~.bm25.bm25_score`.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K17.
+    A CPU tensor runs the plain version; a CUDA tensor launches K17 (one
+    cooperative launch: the zeroing, then the postings dealt evenly over
+    the card). The runs ride in the launch's parameters up to
+    ``es_postings_match_param_runs`` of them, else they take one upload.
     """
     dev = _kb.wrapper_device("postings_match", postings_docs)
     if dev.type == "cpu":
@@ -57,14 +78,15 @@ def postings_match(postings_docs, starts, lengths, *, segment_pad: int,
                                     segment_pad=segment_pad, L=L)
     P = postings_docs.shape[0]
     _kb.check(postings_docs, "postings_docs", torch.int32, (P,), dev)
-    starts, lengths = (small(x, torch.int32, dev) for x in (starts, lengths))
-    Q = starts.shape[0]
-    if tuple(lengths.shape) != (Q,):
-        raise ValueError(f"postings_match: lengths must have shape ({Q},)")
+    runs = postings_runs(starts, lengths, L=L)
+    Q = (runs.shape[0] - 1) // 2
+    dev_runs = torch.as_tensor(runs, device=dev) \
+        if Q > _k17_param_runs() else None
     matched = torch.empty(segment_pad, dtype=torch.int32, device=dev)
     _kb.launch("postings_match", dev, postings_docs.data_ptr(), P,
-               starts.data_ptr(), lengths.data_ptr(), Q, L, segment_pad,
-               matched.data_ptr())
+               runs.ctypes.data,
+               None if dev_runs is None else dev_runs.data_ptr(), Q,
+               segment_pad, matched.data_ptr())
     return matched
 
 

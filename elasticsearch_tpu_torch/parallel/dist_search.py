@@ -20,8 +20,8 @@ eager step re-serving any query the scan cannot certify.
 
 The kNN plane packs vectors with their invariants on the host and serves
 the exact scan (K6, then K3 over its chunks and shards) or, with an IVF
-tier, the quantized scan of the probed clusters' blocks into a window (K7
-+ K3), the window's exact re-rank (K8) and K3's top-k; the probe and the
+tier, the quantized scan of the probed clusters' blocks into a window
+(K7), the window's exact re-rank (K8) and K3's top-k; the probe and the
 union of probed blocks are host numpy, as in the reference.
 
 The text plane also serves lowered bool trees (K9, the clause-bit
@@ -1417,8 +1417,8 @@ def ivf_knn_step(codes, scale, off, rowid, rcl, vecs, vnorm2, q, probed,
                  u_blocks, *, n_pad: int, k: int, similarity: str,
                  nlist: int, r_cand: int):
     """Body of the reference's ``build_ivf_knn_step`` over S shards: the
-    quantized scan of the probed union into a top-``r_cand`` window (K7;
-    past ``K7_WINDOW_MAX`` also K3), the exact re-score of the window's
+    quantized scan of the probed union into a top-``r_cand`` window (K7,
+    one C call at any window), the exact re-score of the window's
     rows (K8), the top-kk by (score desc, row asc) (K3), and the
     cross-shard reduce (K3)."""
     S = vecs.shape[0]

@@ -3,14 +3,16 @@
 (``bool_bm25_topk``), K8 (``ivf_rerank``), K1 (``sparse_candidates_topk``),
 K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
 (``dense_stream_topk``), K12 (``agg_masked_scan``), K14
-(``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``)
-and K7 (``ivf_scan``) on one card, at the inputs ``chip_smoke.py`` gives
+(``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``),
+K7 (``ivf_scan``) and K17 (``postings_match``) on one card, at the inputs
+``chip_smoke.py`` gives
 them on its main paths, and of ``chip_smoke.py``'s aggregation,
 per-segment and IVF phases (``aggs``, ``segment``, ``ivf``).
 
     python3 kernel_probe.py [--tree DIR]
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
-                                       k14,k22,k19,k7,aggs,segment,ivf]
+                                       k14,k22,k19,k7,k17,aggs,segment,
+                                       ivf]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -126,11 +128,16 @@ JSON lines and writes them to ``--out`` as well.
   whether they are the plain version's bits; ``--variants`` adds the
   one-launch design's ``%globaltimer`` stamps (``K19_STAMPS``) and the
   builds of ``K19_VARIANTS``, each timed in turn with the tree's build.
-- K7 at the IVF shape (``ivf_plane``, the first batch): the window
-  through ``ivf_scan`` and the chunk lists alone (``ivf_scan_partials``):
-  CUDA-event mean, host time, device time by kernel, launches a call,
-  the grid and a digest of the window; ``--variants`` adds the window
-  design's scan-block stamps (``K7_STAMPS``).
+- K7 at the IVF shape (``ivf_plane``, the first batch) at the windows of
+  k = 10, serve(k = 1,000) and serve(k = 10,000): CUDA-event mean, host
+  time, device time by kernel, launches a call, the grid, the plain
+  version's mean and a digest of the window; a parent's chunk lists
+  alone where it has them; ``--variants`` adds the deep path's block
+  stamps (``K7_STAMPS``).
+- K17 at mix (g)'s terms filter and a prefix query's one run on the
+  2^23-doc segment: CUDA-event mean, host time, device time by kernel,
+  device events a call, the bound and whether the counts are the plain
+  version's.
 - ``aggs``: ``chip_smoke.run_aggs`` against ``--tree``'s package: config
   #3's route (aggs/s, p50, p99, its stages, on stdout) and the K12–K15
   rows through the caches (about 3 minutes; not in the default list).
@@ -2940,14 +2947,13 @@ def run_k19(rows, reps, tree, variants):
     torch.cuda.empty_cache()
 
 
-#: a build of csrc/ivf_scan.cu (the window design) whose scan blocks'
-#: thread 0 adds %globaltimer intervals to six slots a block: the query
-#: and bitmap, the mask words, the rows (with mid-scan selections), the
-#: part's last selection, the list's write and arrival, the merge (last
-#: part)
+#: a build of csrc/ivf_scan.cu (the deep path's design) whose blocks'
+#: thread 0 adds %globaltimer intervals to five slots a block: the levels'
+#: scoring passes, their barriers and decisions, the collect (and its
+#: barrier), the chunks' sort (and its barrier), the placement
 K7_STAMPS = [
-    ('#include "knn_common.cuh"\n',
-     '#include "knn_common.cuh"\n'
+    ('#include "sort_common.cuh"\n',
+     '#include "sort_common.cuh"\n'
      "__device__ long long k7_dbg[4096 * 8];\n"
      "extern \"C\" int es_probe_k7_stamps(long long* out, int n) {\n"
      "  return (int)cudaMemcpyFromSymbol(out, k7_dbg, n * 64);\n}\n"
@@ -2957,32 +2963,36 @@ K7_STAMPS = [
      "\"memory\");\n  return t;\n}\n"
      "#define K7_STAMP(slot) if (threadIdx.x == 0) { const long long nw_ = "
      "k7_now(); dbg[slot] += nw_ - dbg_last; dbg_last = nw_; }\n"),
-    ("  const float qs_q = qsum[q], qn_q = l2 ? qn[q] : 0.0f;\n",
-     "  long long* dbg = k7_dbg + 8 * (((size_t)blockIdx.z * gridDim.y + "
-     "blockIdx.y) * gridDim.x + blockIdx.x);\n"
+    ("  cg::grid_group grid = cg::this_grid();\n",
+     "  cg::grid_group grid = cg::this_grid();\n"
+     "  long long* dbg = k7_dbg + 8 * blockIdx.x;\n"
      "  long long dbg_last = 0;\n"
      "  if (threadIdx.x == 0) { for (int i = 0; i < 8; ++i) dbg[i] = 0; "
-     "dbg_last = k7_now(); }\n"
-     "  const float qs_q = qsum[q], qn_q = l2 ? qn[q] : 0.0f;\n"),
-    ("    const int rows = n_mine * BLK;\n",
-     "    K7_STAMP(1);\n    const int rows = n_mine * BLK;\n"),
-    ("  __syncthreads();\n  if (nc_s) k7_compact(A, R, scratch, hist_s, &sel_s, "
-     "&nl_s, &nc_s, &thr_s);\n",
-     "  __syncthreads();\n  K7_STAMP(2);\n"
-     "  if (nc_s) k7_compact(A, R, scratch, hist_s, &sel_s, &nl_s, &nc_s, "
-     "&thr_s);\n  K7_STAMP(3);\n"),
-    ("  if (!last_s) return;\n",
-     "  K7_STAMP(4);\n  if (!last_s) return;\n"),
-    ("    out_pos[qs_at * R + t] = pos;\n  }\n}\n",
-     "    out_pos[qs_at * R + t] = pos;\n  }\n  __syncthreads();\n"
-     "  K7_STAMP(5);\n}\n")]
-K7_STAMP_KEYS = ("init", "mask_words", "rows", "last_select", "list_write",
-                 "merge")
+     "dbg_last = k7_now(); }\n"),
+    ("    grid.sync();\n    for (int u = blockIdx.x; u < n_units; "
+     "u += gridDim.x) {\n      const int qs = u / G;\n",
+     "    K7_STAMP(0);\n    grid.sync();\n    for (int u = blockIdx.x; "
+     "u < n_units; u += gridDim.x) {\n      const int qs = u / G;\n"),
+    ("    if (L == K7_LEVELS - 1 || *(volatile unsigned*)(ctl + L) == 0u) "
+     "break;\n",
+     "    K7_STAMP(1);\n    if (L == K7_LEVELS - 1 || *(volatile "
+     "unsigned*)(ctl + L) == 0u) break;\n"),
+    ("  // 3. sort each chunk of survivors: a block merge sort, two keys a\n",
+     "  K7_STAMP(2);\n  // 3. sort each chunk of survivors: a block merge "
+     "sort, two keys a\n"),
+    ("  // 4. place each chunk's keys by their ranks among all survivors\n",
+     "  K7_STAMP(3);\n  // 4. place each chunk's keys by their ranks among "
+     "all survivors\n"),
+    ("        op[rank[i]] = pos;\n      }\n    }\n  }\n}\n",
+     "        op[rank[i]] = pos;\n      }\n    }\n  }\n"
+     "  __syncthreads();\n  K7_STAMP(4);\n}\n")]
+K7_STAMP_KEYS = ("score_passes", "level_barriers", "collect", "sort",
+                 "place")
 
 
 def k7_phases(tree, call, blocks):
-    """The stamps build's µs a scan block spends in each phase: the mean
-    over blocks and the slowest block's (the merge: over the last parts)."""
+    """The stamps build's µs a deep-path block spends in each phase: the
+    mean over blocks and the slowest block's."""
     lib = build_variant(tree, "stamps", K7_STAMPS, scratch_dir(),
                         source="ivf_scan")
     if lib is None:
@@ -2996,69 +3006,168 @@ def k7_phases(tree, call, blocks):
         torch.cuda.synchronize()
     buf = (ctypes.c_longlong * (8 * blocks))()
     lib.es_probe_k7_stamps(buf, blocks)
-    a = np.frombuffer(buf, dtype=np.int64).reshape(blocks, 8)[:, :6] / 1e3
-    last = a[:, 5] > 0
+    a = np.frombuffer(buf, dtype=np.int64).reshape(blocks, 8)[:, :5] / 1e3
     out = {f"{k}_mean": float(a[:, i].mean())
-           for i, k in enumerate(K7_STAMP_KEYS[:5])}
+           for i, k in enumerate(K7_STAMP_KEYS)}
     out.update({f"{k}_max": float(a[:, i].max())
-                for i, k in enumerate(K7_STAMP_KEYS[:5])})
-    out["merge_mean"] = float(a[last, 5].mean()) if last.any() else 0.0
+                for i, k in enumerate(K7_STAMP_KEYS)})
     out["block_us_max"] = float(a.sum(1).max())
     return out
 
 
-def run_k7(rows, reps, tree=HERE, variants=False):
-    """K7 at the IVF shape (``ivf_plane``, the first query batch): the
-    window through ``ivf_scan`` (the tree's one call, or the parent's K7
-    and K3 reduce) and K7's chunk lists alone (``ivf_scan_partials``):
-    CUDA-event mean, host ms a call, device ms by kernel, the grid, a
-    digest of the window."""
+def k7_grid(kb, knn_mod, B, S, Pw, R, D, nlist, n_rows):
+    """K7's launch shape at one window: the tree's (the mask grid, then
+    the window path's scan grid or the deep path's cooperative grid and
+    parts), or a parent's chunk path (chunks, the lists' workspace bytes,
+    row tiles a block: each tile's merge reads and writes the block's
+    lists)."""
+    mask = [Pw, S, -(-B // 32)]
+    if not hasattr(knn_mod, "ivf_scan_partials"):
+        G = kb.query("ivf_scan", "es_ivf_scan_parts", B, S, R, D, nlist)
+        if R <= knn_mod.K7_WINDOW_MAX:
+            return dict(mask=mask, scan=[G, S, B])
+        return dict(mask=mask, deep_blocks=kb.query(
+            "ivf_scan", "es_ivf_deep_grid", D, nlist), parts=G)
+    if R <= getattr(knn_mod, "K7_WINDOW_MAX", 0):
+        return dict(mask=mask, scan=[kb.query(
+            "ivf_scan", "es_ivf_window_parts", B, S, R), S, B])
+    return None
+
+
+def run_k7(rows, reps, tree=HERE, variants=False, ks=None):
+    """K7 at the IVF shape (``ivf_plane``, the first query batch) at three
+    windows: the IVF step's (k = 10), serve(k = 1,000)'s and serve(k =
+    10,000)'s (``ks``, by default all three). For each: CUDA-event mean, host ms a call, device ms by
+    kernel, launches a call, the grid, the plain version's mean, a digest
+    of the window and its error against the plain version. A parent whose
+    deep windows go through chunk lists and K3 also gets its chunk lists
+    alone (``ivf_scan_partials``): their time, grid and workspace.
+    ``--variants`` adds the deep path's block stamps (``K7_STAMPS``)."""
     cs = smoke()
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops import knn as knn_mod
     dev = torch.device("cuda")
     _corpus, plane, _g, _p, q_batch = cs.ivf_plane(dev)
-    a, R, Pw, qq, qn, scan_in, scan_kw = cs.ivf_step_inputs(plane,
-                                                            q_batch())
-    nlist = plane.ivf.nlist
-    B, S = qq.shape[0], a["u_blocks"].shape[0]
-    calls = {
-        "window (ivf_scan)": lambda: knn_mod.ivf_scan(
-            *scan_in, **scan_kw, nlist=nlist, r_cand=R),
-        "chunk lists (ivf_scan_partials)": lambda: knn_mod.ivf_scan_partials(
-            *scan_in, **scan_kw, nlist=nlist, r_cand=R)}
-    wv, wp = calls["window (ivf_scan)"]()
-    pv, pp = knn_mod.ivf_scan_plain(*scan_in, **scan_kw, r_cand=R)
-    C = calls["chunk lists (ivf_scan_partials)"]()[0].shape[2]
-    if hasattr(knn_mod, "ivf_window"):
-        G = kb.query("ivf_scan", "es_ivf_window_parts", B, S, R)
-        grid = dict(mask=[Pw, S, -(-B // 32)], scan=[G, S, B])
-    else:
-        grid = dict(scan=[C, S, -(-B // 16)], reduce="K3")
-    phases = None
-    if variants and "mask" in grid:
-        phases = k7_phases(tree, calls["window (ivf_scan)"],
-                           grid["scan"][0] * S * B)
-    for name, fn in calls.items():
+    qb = q_batch()
+    nlist, blk = plane.ivf.nlist, plane.ivf.block
+    for k in ks or (cs.IVF_K, cs.IVF_DEEP_K, cs.IVF_DEEPEST_K):
+        a, R, Pw, qq, qn, scan_in, scan_kw = cs.ivf_step_inputs(plane, qb,
+                                                                k=k)
+        B, S, D = qq.shape[0], a["u_blocks"].shape[0], qq.shape[1]
+
+        def call(scan_in=scan_in, scan_kw=scan_kw, R=R):
+            return knn_mod.ivf_scan(*scan_in, **scan_kw, nlist=nlist,
+                                    r_cand=R)
+        wv, wp = call()
+        pv, pp = knn_mod.ivf_scan_plain(*scan_in, **scan_kw, r_cand=R)
         n0 = dict(kb.launches)
-        fn()
+        call()
         torch.cuda.synchronize()
-        launched = {k: v - n0[k] for k, v in kb.launches.items()
-                    if v != n0[k]}
-        by_name = cs.device_ms_by_name(fn, reps)
-        emit(rows, kernel="ivf_scan", what=name, B=B, S=S, Pw=Pw, R=R,
-             ms=cs.timed(fn, 5 * reps), host_ms=host_ms(fn, 5 * reps),
-             device_ms=sum(by_name.values()), by_name=by_name,
-             launches_a_call=launched, grid=grid,
-             **({"digest": digest((wv, wp)),
-                 "max_abs_err_vs_plain": float(
-                     (wv - pv[:, :, :R]).abs()[torch.isfinite(wv)].max()
-                     .item() if bool(torch.isfinite(wv).any()) else 0.0),
-                 "pos_equal_plain": bool(torch.equal(wp, pp)),
-                 **({"phases_us": phases} if phases else {})}
-                if name.startswith("window") else {"chunks": C}))
+        launched = {n: v - n0[n] for n, v in kb.launches.items()
+                    if v != n0[n]}
+        grid = k7_grid(kb, knn_mod, B, S, Pw, R, D, nlist, Pw * blk)
+        fin = torch.isfinite(wv)
+        row = dict(kernel="ivf_scan", what=f"window k={k}", B=B, S=S, Pw=Pw,
+                   R=R, live=int(fin.sum()), ms=cs.timed(call, 5 * reps),
+                   host_ms=host_ms(call, 5 * reps),
+                   plain_ms=cs.timed(lambda: knn_mod.ivf_scan_plain(
+                       *scan_in, **scan_kw, r_cand=R), 3),
+                   launches_a_call=launched, grid=grid,
+                   digest=digest((wv, wp)),
+                   max_abs_err_vs_plain=float(
+                       (wv - pv).abs()[fin].max().item())
+                   if bool(fin.any()) else 0.0,
+                   pos_equal_plain=bool(torch.equal(wp, pp)))
+        by_name = cs.device_ms_by_name(call, reps)
+        row.update(device_ms=sum(by_name.values()), by_name=by_name)
+        if variants and grid and "deep_blocks" in grid:
+            row["phases_us"] = k7_phases(tree, call, grid["deep_blocks"])
+        emit(rows, **row)
+        if hasattr(knn_mod, "ivf_scan_partials") and \
+                R > getattr(knn_mod, "K7_WINDOW_MAX", 0):
+            def lists(scan_in=scan_in, scan_kw=scan_kw, R=R):
+                return knn_mod.ivf_scan_partials(*scan_in, **scan_kw,
+                                                 nlist=nlist, r_cand=R)
+            C = lists()[0].shape[2]
+            ws = kb.query("ivf_scan", "es_ivf_scan_workspace_bytes", B, S,
+                          C, R, nlist, D)
+            tiles = -(-Pw * blk // knn_mod.TILE_ROWS)
+            by_lists = cs.device_ms_by_name(lists, reps)
+            emit(rows, kernel="ivf_scan", what=f"chunk lists k={k}", R=R,
+                 ms=cs.timed(lists, 5 * reps),
+                 device_ms=sum(by_lists.values()), by_name=by_lists,
+                 grid=[C, S, -(-B // knn_mod.QUERY_TILE)],
+                 workspace_bytes=ws, tiles_a_block=-(-tiles // C),
+                 list_bytes_a_block=min(B, knn_mod.QUERY_TILE) * R * 8)
     del plane
+    torch.cuda.empty_cache()
+
+
+def k17_inputs(dev):
+    """postings_match's calls on the per-segment path at 2^23 docs,
+    recorded as the smoke's calls are: mix (g)'s terms filter (its first
+    request's three tags) and a prefix query's one run (``tag0``: the
+    postings of 100 tags). Returns ([(label, args, kwargs)], the
+    segment)."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops import masks as masks_mod
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    tag, price = cs.segment_columns(cs.N_DOCS)
+    seg, mapper = cs.segment_index(corpus, tag, price, dev)
+    searcher = ShardSearcher([seg], mapper)
+    top_tags = np.argsort(-np.bincount(tag, minlength=cs.SEG_TAGS))[:32]
+    three = [int(x) for x in np.random.RandomState(100).choice(
+        top_tags, 3, replace=False)]
+    rec = []
+    with cs.recording(rec, ("postings_match",), (masks_mod,)):
+        searcher.search({"query": {"bool": {"filter": [{"terms": {"tag": [
+            f"tag{o:03d}" for o in three]}}]}}, "size": 10})
+        searcher.search({"query": {"bool": {"filter": [{"prefix": {
+            "tag": "tag0"}}]}}, "size": 10})
+    (_n, a_g, kw_g, _o), (_n, a_p, kw_p, _o) = rec[0], rec[-1]
+    return [("(g) terms filter, three tags", a_g, kw_g),
+            ("prefix tag0, one run", a_p, kw_p)], seg
+
+
+def run_k17(rows, reps):
+    """K17 at (g)'s terms filter and at one prefix run on the 2^23-doc
+    segment: CUDA-event mean, host ms a call, device ms by kernel (or
+    memset) and device events a call, the valid postings and the bound,
+    a digest, and whether the counts are the plain version's."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import masks as masks_mod
+    dev = torch.device("cuda")
+    cases, seg = k17_inputs(dev)
+    for label, a, kw in cases:
+        def call(a=a, kw=kw):
+            return masks_mod.postings_match(*a, **kw)
+        got = call()
+        want = masks_mod.postings_match_plain(*a, **kw)
+        lens = np.clip(np.asarray(a[2], np.int64), 0, kw["L"])
+        V = int(lens.sum())
+        n_pad = kw["segment_pad"]
+        # a grid of min(ceil(L / 256), 1,024) blocks of 256 threads a run,
+        # whatever its length (the one-kernel-a-run design before the
+        # cooperative one): the blocks with no posting
+        bx = max(1, min(-(-kw["L"] // 256), 1024))
+        idle = int(np.maximum(bx - -(-lens // 256), 0).sum())
+        by_name = cs.device_ms_by_name(call, reps)
+        emit(rows, kernel="postings_match", what=label, Q=len(lens),
+             L=kw["L"], lengths=lens.tolist(), valid_postings=V,
+             n_pad=n_pad, run_grid_blocks=bx * len(lens),
+             run_grid_idle_blocks=idle,
+             ms=cs.timed(call, 5 * reps), host_ms=host_ms(call, 5 * reps),
+             device_ms=sum(by_name.values()), by_name=by_name,
+             device_events_a_call=cs.device_events_a_call(call, reps),
+             bound_ms=cs.bound(4 * V + 4 * n_pad, V)[0],
+             digest=digest((got,)), equal_plain=bool(torch.equal(got, want)))
+    del seg
     torch.cuda.empty_cache()
 
 
@@ -3100,6 +3209,8 @@ def run_ivf_phase(rows):
     from elasticsearch_tpu_torch.ops import knn as knn_mod
     if not hasattr(knn_mod, "K7_WINDOW_MAX"):
         cs.IVF_K3_CALLS = 3
+    if hasattr(knn_mod, "ivf_scan_partials"):
+        cs.IVF_DEEP_WINDOW_K3 = 1    # chunk lists past the window path
     ivf_rows, counts, k3_err = cs.run_knn_ivf(card_info())
     emit(rows, kernel="ivf_phase", kernel_rows=ivf_rows, launches=counts,
          k3_max_abs_err=k3_err)
@@ -3110,12 +3221,16 @@ def main() -> int:
     p.add_argument("--tree", default=HERE)
     p.add_argument("--kernels",
                    default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22,k19,"
-                   "k7",
+                   "k7,k17",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21, k2, k12, k14, k22, k19, k7 to probe, and aggs, "
+                   "k3, k21, k2, k12, k14, k22, k19, k7, k17 to probe, and "
+                   "aggs, "
                    "segment and ivf (chip_smoke.py's aggregation, "
                    "per-segment and IVF phases)")
     p.add_argument("--variants", action="store_true")
+    p.add_argument("--k7-ks", default=None,
+                   help="comma-separated ks whose IVF windows k7 times "
+                   "(default: 10, 1000, 10000)")
     p.add_argument("--out", default=None)
     p.add_argument("--reps", type=int, default=20)
     opts = p.parse_args()
@@ -3161,7 +3276,10 @@ def main() -> int:
     if "k19" in which:
         run_k19(rows, opts.reps, tree, opts.variants)
     if "k7" in which:
-        run_k7(rows, opts.reps, tree, opts.variants)
+        run_k7(rows, opts.reps, tree, opts.variants,
+               opts.k7_ks and [int(k) for k in opts.k7_ks.split(",")])
+    if "k17" in which:
+        run_k17(rows, opts.reps)
     if "aggs" in which:
         run_aggs_phase(rows)
     if "segment" in which:

@@ -22,8 +22,8 @@ from elasticsearch_tpu_torch.ops.fused_query import (
     bool_bm25_topk_plan, fuse_rank, fuse_rank_plain, rescore_reorder,
     rescore_reorder_body)
 from elasticsearch_tpu_torch.ops.knn import (
-    K7_WINDOW_MAX, ivf_rerank, ivf_rerank_plain, ivf_scan, ivf_scan_partials,
-    ivf_scan_plain, knn_shard_scan, knn_shard_scan_plain, reduce_chunks)
+    K7_DEEP_MAX, K7_WINDOW_MAX, ivf_rerank, ivf_rerank_plain, ivf_scan,
+    ivf_scan_plain, knn_shard_scan, knn_shard_scan_plain)
 from elasticsearch_tpu_torch.ops.sorted_merge import (
     SPARSE_TILE_SHIFT, TILE_SHIFT, sparse_candidates_topk,
     sparse_candidates_topk_plain, sparse_candidates_topk_plan)
@@ -663,15 +663,17 @@ def test_k6_matches_plain(cuda, similarity, D, B, k, n, every_third):
 
 
 def _ivf_planes(cuda, similarity, quant, n=1 << 14, D=32, seed=3, B=16,
-                S=2):
+                S=2, ties=10):
     """A clustered corpus packed on the host in S shards, and the same
     packed state on the card (one tier, whichever device assigned its
-    clusters); B queries."""
+    clusters); B queries, the first on row 7, which rows 100 .. 100 + ties
+    duplicate (past 10 ties, three times row 7: the first query's best
+    rows)."""
     rng = np.random.RandomState(seed)
     centers = rng.randn(64, D).astype(np.float32)
     vecs = centers[rng.randint(0, 64, n)] + \
         0.35 * rng.randn(n, D).astype(np.float32)
-    vecs[100:110] = vecs[7]
+    vecs[100:100 + ties] = vecs[7] * np.float32(1.0 if ties <= 10 else 3.0)
     cut = np.linspace(0, n, S + 1).astype(int)
     cpu = DistributedKnnPlane([dict(vectors=vecs[lo:hi])
                                for lo, hi in zip(cut[:-1], cut[1:])],
@@ -690,8 +692,11 @@ def _ivf_planes(cuda, similarity, quant, n=1 << 14, D=32, seed=3, B=16,
     ("cosine", "int8", 8, 4, 16, 2, 32),
     ("l2_norm", "int8", 8, 4, 16, 2, 32),
     ("cosine", "bf16", 8, 4, 16, 2, 32),
-    # every cluster, a window past K7's one-call limit (chunk lists + K3)
+    # every cluster, a window past K7's window path (the deep path, 4,000)
     ("l2_norm", "int8", 64, 400, 16, 2, 32),
+    ("cosine", "bf16", 32, 400, 16, 1, 32),
+    # past 16,384 (every row of the shard: the window holds the union)
+    ("dot_product", "int8", 64, 1700, 16, 1, 32),
     # fewer queries than a query tile; three shards; every cluster probed
     # into a small window; a window of 1,000 (a part's list past a few
     # hundred); d not a multiple of a 16-byte load
@@ -731,24 +736,91 @@ def test_k7_k8_match_plain(cuda, similarity, quant, nprobe, rerank, B, S,
     torch.cuda.synchronize()
     assert kb.launches["ivf_scan"] == n0["ivf_scan"] + 1
     assert kb.launches["ivf_rerank"] == n0["ivf_rerank"] + 1
-    # the window in one call up to K7_WINDOW_MAX (no K3), bitwise the
-    # window of K7's chunk lists reduced by K3
-    one_call = R <= K7_WINDOW_MAX
-    assert kb.launches["topk_merge"] == n0["topk_merge"] + (not one_call)
-    if one_call:
-        cv, cp = ivf_scan_partials(*ins, **kw, nlist=gpu.ivf.nlist,
-                                   r_cand=R)
-        Bq, Sq, C, _ = cv.shape
-        rv, rp = reduce_chunks(cv.view(Bq * Sq, C, R),
-                               cp.view(Bq * Sq, C, R), k=R,
-                               fill=a["u_blocks"].shape[1] *
-                               a["rowid"].shape[-1])
-        _same_bits((wv, wp), (rv.view(Bq, Sq, R), rp.view(Bq, Sq, R)))
+    # one call at any window (no K3); a window of either path is bitwise
+    # the head of a deeper one (both are exact)
+    assert kb.launches["topk_merge"] == n0["topk_merge"]
+    R2 = max(2 * R, K7_WINDOW_MAX + 1)
+    dv, dp = ivf_scan(*ins, **kw, nlist=gpu.ivf.nlist, r_cand=R2)
+    _same_bits((wv, wp), (dv[:, :, :R].contiguous(),
+                          dp[:, :, :R].contiguous()))
     assert torch.equal(rows, rows_p)
     e, ep = ex.cpu().numpy(), ex_p.cpu().numpy()
     assert np.array_equal(np.isfinite(e), np.isfinite(ep))
     f = np.isfinite(e)
     np.testing.assert_allclose(e[f], ep[f], rtol=0.0, atol=tol)
+
+
+@pytest.mark.parametrize("similarity,nprobe,k,rerank,B", [
+    ("dot_product", 32, 10, 400, 16),  # 4,000 of about 32k probed rows
+    ("l2_norm", 32, 10, 2000, 16),     # 20,000: past 16,384, rows dropped
+    ("cosine", 64, 1000, 40, 16),      # serve(k = 10,000)'s shape, 40,000
+    ("dot_product", 8, 100, 11, 16),   # 1,100 of about 8k
+    # more queries than the grid's blocks: one part a query, several
+    # units a block
+    ("dot_product", 16, 10, 300, 150)])
+def test_k7_deep_path_matches_plain(cuda, similarity, nprobe, k, rerank, B):
+    """The deep path on 2^16 rows in one shard: within the bar of the plain
+    version, equal scores in ascending position order, one launch and no
+    K3, and bitwise the head of a deeper window."""
+    cpu, gpu, qs, tol = _ivf_planes(cuda, similarity, "int8", n=1 << 16,
+                                    S=1, B=B)
+    prep = gpu.prepare_ivf(qs, k, nprobe=nprobe, rerank=rerank)
+    a, R = prep["args"], prep["r_cand"]
+    assert R > K7_WINDOW_MAX
+    q = a["q"]
+    qq = q / q.norm(dim=1, keepdim=True) if similarity == "cosine" else q
+    ins = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], qq, qq.sum(1), (q * q).sum(1), a["probed"],
+           a["u_blocks"])
+    kw = dict(l2=similarity == "l2_norm", n_pad=gpu.n_pad,
+              nlist=gpu.ivf.nlist)
+    n0 = dict(kb.launches)
+    wv, wp = ivf_scan(*ins, **kw, r_cand=R)
+    torch.cuda.synchronize()
+    assert kb.launches["ivf_scan"] == n0["ivf_scan"] + 1
+    assert kb.launches["topk_merge"] == n0["topk_merge"]
+    pv, pp = ivf_scan_plain(*ins, l2=kw["l2"], n_pad=gpu.n_pad,
+                            r_cand=R + 1)
+    g = [x.cpu().numpy() for x in (wv, wp, pv, pp)]
+    assert_topk_close(g[0][:, 0], g[1][:, 0], g[2][:, 0, :R],
+                      g[3][:, 0, :R], rtol=0.0, atol=tol,
+                      v_next=g[2][:, 0, R])
+    _topk_ties_ascend(g[0], g[1])
+    fill = a["u_blocks"].shape[1] * a["rowid"].shape[-1]
+    assert (g[1][~np.isfinite(g[0])] == fill).all()
+    dv, dp = ivf_scan(*ins, **kw, r_cand=R + 777)
+    _same_bits((wv, wp), (dv[:, :, :R].contiguous(),
+                          dp[:, :, :R].contiguous()))
+
+
+def test_k7_deep_path_refines_crowded_buckets(cuda):
+    """6,000 equal rows, three times the first query: its best 6,000 keys
+    share their score bits, so the window of 2,000 passes the survivor buffer at
+    every score digit and is settled on the positions' digits (the deep
+    path's later levels); ties in ascending position, bitwise the head of
+    a window whose survivors fit at once."""
+    cpu, gpu, qs, tol = _ivf_planes(cuda, "dot_product", "int8",
+                                    n=1 << 15, S=1, ties=6000)
+    prep = gpu.prepare_ivf(qs, 10, nprobe=16, rerank=200)
+    a, R = prep["args"], prep["r_cand"]
+    assert R == 2000
+    q = a["q"]
+    ins = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], q, q.sum(1), (q * q).sum(1), a["probed"],
+           a["u_blocks"])
+    kw = dict(l2=False, n_pad=gpu.n_pad, nlist=gpu.ivf.nlist)
+    wv, wp = ivf_scan(*ins, **kw, r_cand=R)
+    pv, pp = ivf_scan_plain(*ins, l2=False, n_pad=gpu.n_pad, r_cand=R + 1)
+    torch.cuda.synchronize()
+    g = [x.cpu().numpy() for x in (wv, wp, pv, pp)]
+    assert (g[0][0, 0] == g[0][0, 0, 0]).all()     # all ties
+    assert (np.diff(g[1][0, 0]) > 0).all()
+    assert_topk_close(g[0][:, 0], g[1][:, 0], g[2][:, 0, :R],
+                      g[3][:, 0, :R], rtol=0.0, atol=tol,
+                      v_next=g[2][:, 0, R])
+    dv, dp = ivf_scan(*ins, **kw, r_cand=4 * R)
+    _same_bits((wv, wp), (dv[:, :, :R].contiguous(),
+                          dp[:, :, :R].contiguous()))
 
 
 @pytest.mark.parametrize("B", [32, 40])
@@ -781,7 +853,8 @@ def test_k7_window_serves_nlist_2_16(cuda, B):
 
 def test_knn_kernels_refuse_what_they_cannot_launch(cuda):
     """Probe bitmaps too large for shared memory are refused with the
-    library's message; wrong types raise before a launch."""
+    library's message; a window past K7_DEEP_MAX is refused by name;
+    wrong types raise before a launch."""
     cpu, gpu, qs, _ = _ivf_planes(cuda, "dot_product", "int8")
     prep = gpu.prepare_ivf(qs, 10, nprobe=8, rerank=4)
     a = prep["args"]
@@ -791,6 +864,9 @@ def test_knn_kernels_refuse_what_they_cannot_launch(cuda):
            a["u_blocks"]]
     with pytest.raises(RuntimeError, match="shared memory"):
         ivf_scan(*ins, l2=False, n_pad=gpu.n_pad, nlist=1 << 17, r_cand=40)
+    with pytest.raises(ValueError, match="K7_DEEP_MAX"):
+        ivf_scan(*ins, l2=False, n_pad=gpu.n_pad, nlist=64,
+                 r_cand=K7_DEEP_MAX + 1)
     bad = list(ins)
     bad[0] = bad[0].to(torch.int32)
     with pytest.raises(TypeError):
@@ -1701,10 +1777,16 @@ def test_k16_keyword_one_doc_length_equals_a_length_a_doc(cuda, wild):
 @pytest.mark.parametrize("seed,n_pad,Q,L,wild,prefix", [
     (11, 64, 3, 16, False, False), (12, 4096, 7, 1024, True, False),
     (13, 1 << 20, 6, 1 << 16, True, True), (14, 1 << 12, 70000, 8, False,
-                                            False)])
+                                            False),
+    # the by-value limit (64 runs in the launch's parameters) and one past
+    # it (one upload); a prefix run over 40 runs of a small segment, where
+    # every doc repeats; a segment not a multiple of 4 docs
+    (15, 1 << 16, 64, 512, True, False), (16, 1 << 16, 65, 512, True,
+                                          False),
+    (17, 256, 40, 64, False, True), (18, 4093, 9, 300, True, False)])
 def test_k17_equals_plain(cuda, seed, n_pad, Q, L, wild, prefix):
-    """Exact counts; ``prefix`` passes one run over several runs (docs
-    repeat in it); 70,000 slots take two launches' worth of grid rows."""
+    """Exact counts in one launch; ``prefix`` passes one run over several
+    runs (docs repeat in it); 70,000 runs come from one upload."""
     docs, _, _, starts, lengths, _, _ = csr_case(
         seed, n_pad=n_pad, Q=Q, L=L, P_pad=_pow2(2 * L * Q), wild=wild)
     if prefix:

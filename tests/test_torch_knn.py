@@ -456,6 +456,57 @@ def test_ivf_step_pieces_match_the_plain_reference_window():
                                want[live[:, 0]], rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("similarity,k,rerank", [
+    ("dot_product", 10, 200), ("l2_norm", 300, 4), ("cosine", 10, 1000)])
+def test_deep_window_matches_reference(similarity, k, rerank,
+                                       host_serve_off):
+    """Windows past K7's window path (r_cand > ``K7_WINDOW_MAX``: its deep
+    path on the card; the last one the whole probed union): the plain
+    window is the exact top-r_cand over positions of the masked
+    dequantized scores, and ``search_ivf`` matches the reference's IVF
+    route."""
+    rng = np.random.RandomState(71)
+    n = 4096
+    centers = rng.randn(16, DIM).astype(np.float32)
+    vecs = (centers[rng.randint(0, 16, n)]
+            + 0.3 * rng.randn(n, DIM)).astype(np.float32)
+    vecs[100:110] = vecs[7]
+    exists = rng.rand(n) > 0.05
+    exists[7] = exists[100:110] = True
+    shards = [dict(vectors=vecs, exists=exists)]
+    qs = np.concatenate([vecs[7:8], vecs[rng.randint(0, n, 5)]
+                         + 0.2 * rng.randn(5, DIM)]).astype(np.float32)
+    ivf = dict(nlist=16, seed=1)
+    tp = port.DistributedKnnPlane(shards, similarity=similarity, ivf=ivf,
+                                  device="cpu")
+    jp = _ref_plane(shards, similarity, ivf=ivf)
+    prep = tp.prepare_ivf(qs, k, nprobe=8, rerank=rerank)
+    a, R = prep["args"], prep["r_cand"]
+    assert R > tk.K7_WINDOW_MAX
+    l2 = similarity == "l2_norm"
+    qq = a["q"] / a["q"].norm(dim=1, keepdim=True) \
+        if similarity == "cosine" else a["q"]
+    qsum, qn = qq.sum(-1), (a["q"] * a["q"]).sum(-1)
+    ins = (a["codes"], a["scale"], a["off"], a["rowid"], a["rcl"],
+           a["vnorm2"], qq, qsum, qn, a["probed"], a["u_blocks"])
+    wv, wp = tk.ivf_scan_plain(*ins, l2=l2, n_pad=tp.n_pad, r_cand=R)
+    sc = tk.ivf_scores_plain(*(x[0] for x in ins[:6]), qq, qsum, qn,
+                             a["probed"], a["u_blocks"][0], l2=l2,
+                             n_pad=tp.n_pad).numpy()
+    fill = prep["Pw"] * tp.ivf.block
+    for b in range(qs.shape[0]):
+        fin = np.flatnonzero(np.isfinite(sc[b]))
+        order = fin[np.lexsort((fin, -sc[b, fin]))][:R]
+        m = order.size
+        assert np.array_equal(wp[b, 0, :m].numpy(), order)
+        assert np.array_equal(wv[b, 0, :m].numpy(), sc[b, order])
+        assert (wp[b, 0, m:] == fill).all()
+    tol = knn_tol(qs, vecs, similarity)
+    got = tp.search_ivf(qs, k=k, nprobe=8, rerank=rerank)
+    want = jp.search_ivf(qs, k=k + 1, nprobe=8, rerank=rerank)
+    _same_topk(got, want, tp.n_pad, tol)
+
+
 @pytest.mark.parametrize("C,k", [(264, 100), (33, 100), (528, 40), (4, 5)])
 def test_chunk_reduce_equals_one_pass(C, k):
     """The K3 reduce of the scans' chunk lists (one call over the [R, C·k]
@@ -485,7 +536,7 @@ def test_chunk_reduce_equals_one_pass(C, k):
     # one and two blocks an SM on 132 SMs
     (1 << 22, 100, 1, 16, 132, 1, tk.K6_BITMAP_TILES, 132),
     (1 << 21, 100, 1, 16, 132, 2, tk.K6_BITMAP_TILES, 264),
-    # K7's four an SM, over two query tiles
+    # four an SM, over two query tiles
     (1 << 20, 40, 1, 32, 132, 4, None, 264),
     # the bitmap floor: 2^25 rows are 262,144 tiles, 64 blocks at least
     (1 << 25, 10, 1, 16, 8, 1, tk.K6_BITMAP_TILES, 64),
@@ -495,7 +546,7 @@ def test_chunk_reduce_equals_one_pass(C, k):
     (300, 10, 2, 3, 132, 2, tk.K6_BITMAP_TILES, 3)])
 def test_scan_chunks_sizes_the_grid(rows, k, S, B, n_sm, per_sm, max_tiles,
                                     want):
-    """K6/K7's blocks along the row axis: ``per_sm`` an SM over the
+    """K6's blocks along the row axis: ``per_sm`` an SM over the
     (shard, query tile) grid, enough that a K6 block's tiles fit its
     live-tile bitmap, a multiple of the SM count past one wave, and at
     most K3's row cap over k (``topk_merge_row_max``: 2^15 entries where
