@@ -59,7 +59,9 @@ times its size). Phases, each fatal on failure:
    queries come from K4's survivors through K5 and K3); three queries of
    each mix against the exact reference; K1 against its plain version at
    the eager fallback's shape, its time beside its bound and plain
-   version; K4's and K5's times;
+   version; K4's and K5's times, and K5's yardstick (``k5_yardstick``:
+   ``torch.searchsorted`` over a shard's (run start, doc) keys, the
+   gather, the products and the ordered sum; bitwise the plain version);
 7. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
    pruned phase's plane, batches of 16 at k = 10 in two mixes: (c) one
    8-term should clause (``bench_bool_disjunction``'s draws), (d) must /
@@ -97,8 +99,8 @@ times its size). Phases, each fatal on failure:
    randn vector; RRF, rank constant 60, windows 100, k = 10) through
    ``fused_search_device``: K9, K10 and every K3 call bitwise and K6
    within the parity bar against their plain versions; sum fusion and
-   the five rescore modes with K10, K5 and K11 bitwise; a dense-tier term
-   refused; four queries against numpy (exact BM25 top-100, matmul +
+   the five rescore modes with K10 (its rescore payload too), K5 (one
+   launch for both lists) and K11 bitwise; a dense-tier term refused; four queries against numpy (exact BM25 top-100, matmul +
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
    launches counted alone; each kernel's time, K9's launch and its device
    time a dispatch over the timed batches;
@@ -813,6 +815,54 @@ def k5_work(plane, a, ck):
     return nbytes, 2 * found, found, bisect_reads
 
 
+def k5_keys(plane):
+    """K5's yardstick's sorted keys, i64[S, P]: a posting's run start
+    · 2^32 + its doc (past a shard's runs P · 2^32, after every key),
+    built once outside the timed call."""
+    import torch
+    S, P = plane.docs_dev.shape
+    keys = np.full((S, P), P << 32, np.int64)
+    for s, sh in enumerate(plane.shards):
+        off = np.asarray(sh["sparse_offsets"], np.int64)
+        n = int(off[-1])
+        start = np.repeat(off[:-1], np.diff(off))
+        keys[s, :n] = (start << 32) + \
+            plane.docs_dev[s, :n].cpu().numpy().astype(np.int64)
+    return torch.from_numpy(keys).to(plane.docs_dev.device)
+
+
+def k5_yardstick(keys, postings_impact, starts, lengths, idfw, cand_docs,
+                 *, n_pad):
+    """K5's function in PyTorch calls: one ``torch.searchsorted`` a shard
+    row over ``k5_keys`` for every (candidate, slot) key, then the
+    gathers, the products and the sum from the highest slot down (the
+    plain version's order, so the same bits where every slot's run is a
+    whole term run or empty, as the plane's lookups give them)."""
+    import torch
+    B, S, R = cand_docs.shape
+    Q = starts.shape[2]
+    P = keys.shape[1]
+    st = starts.long()[:, :, None, :]
+    q = ((st << 32) + cand_docs.long()[..., None]).permute(1, 0, 2, 3)
+    end = (st + lengths.long()[:, :, None, :]).permute(1, 0, 2, 3)
+    q = q.reshape(S, -1)
+    p = torch.searchsorted(keys, q).clamp(max=P - 1)
+    # a key found inside the slot's run (an empty slot's start is another
+    # term's)
+    found = ((torch.gather(keys, 1, p) == q).reshape(S, B, R, Q)
+             & (p.reshape(S, B, R, Q) < end))
+    imp = torch.gather(postings_impact, 1, p).reshape(S, B, R, Q)
+    found, imp = found.permute(1, 0, 2, 3), imp.permute(1, 0, 2, 3)
+    c = torch.where(found, idfw[:, None, None, :] * imp,
+                    torch.zeros((), device=imp.device))
+    score = c[..., Q - 1]
+    for qs in range(Q - 2, -1, -1):
+        score = score + c[..., qs]
+    live = cand_docs < n_pad
+    return (torch.where(live, score, torch.zeros_like(score)),
+            found.any(-1) & live)
+
+
 def prune_plane(dev, n_docs=PRUNE_DOCS):
     """The prune configuration's corpus (seed 1234) and its plane on
     ``dev`` (no dense tier, a block-max tier): (the generator, positioned
@@ -1001,6 +1051,8 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
 
     # ---- K4 and K5 times, each mix's checked batch -------------------------
     rows = {"blockmax_scan": {}, "bisect_exact_scores": {}}
+    keys = k5_keys(plane)
+    k5_lib = {}
     for m, ck in chk.items():
         prep, B = ck["prep"], ck["prep"]["B"]
         S, R, Q = plane.n_shards, ck["prep"]["R"], ck["prep"]["Q"]
@@ -1015,6 +1067,16 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
                                                   n_pad=plane.n_pad), reps)
         k5_plain = timed(lambda: bisect_exact_scores_plain(
             *ck["k5_in"], n_pad=plane.n_pad), 3)
+        ys_in = (keys, *ck["k5_in"][1:])
+        same = all(same_bits(x, y) for x, y in zip(
+            k5_yardstick(*ys_in, n_pad=plane.n_pad),
+            bisect_exact_scores_plain(*ck["k5_in"], n_pad=plane.n_pad)))
+        k5_lib[m] = dict(ms=timed(lambda: k5_yardstick(
+            *ys_in, n_pad=plane.n_pad), reps), same_bits=same)
+        print(f"# K5's yardstick mix ({m}) (torch.searchsorted over the "
+              f"(run start, doc) keys, gathers, products, ordered sum): "
+              f"{k5_lib[m]['ms']:.4f} ms, {'==' if same else '!='} plain "
+              f"(bitwise) [{card}]", flush=True)
         k3_ms = timed(lambda: [topk_merge(*x.values(), **kw)
                                for x, kw in ck["k3_calls"]], reps)
         for name, ms, plain, nb, nf in (
@@ -1046,9 +1108,19 @@ def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
              "elasticsearch_tpu_torch/csrc/bisect_exact_scores.cu",
              "elasticsearch_tpu/ops/fused_query.py:93")):
         err = max(ck[err_key] for ck in chk.values())
+        lib = dict(library_ms=None,
+                   library_none="no thresholded block scan in PyTorch")
+        if name == "bisect_exact_scores":
+            # the yardstick computes the same function where it gives the
+            # plain version's bits
+            lib = dict(library_ms=k5_lib["a"]["ms"]) \
+                if k5_lib["a"]["same_bits"] else \
+                dict(library_ms=None, library_none="the yardstick differs "
+                     "from the plain version on these inputs")
+            lib["library_ms_by_mix"] = {m: v["ms"]
+                                        for m, v in k5_lib.items()}
         out.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                        max_abs_err=err, **rows[name]["a"],
-                        library_ms=None,
+                        max_abs_err=err, **rows[name]["a"], **lib,
                         ms_by_mix={m: r["ms"] for m, r in rows[name].items()},
                         plain_ms_by_mix={m: r["plain_ms"]
                                          for m, r in rows[name].items()},
@@ -1108,7 +1180,8 @@ def knn_tol(q, vecs_max_norm, similarity):
 
 
 def check_bitwise(got, want, what):
-    if not all(same_bits(x, y) for x, y in zip(got, want)):
+    if len(got) != len(want) or \
+            not all(same_bits(x, y) for x, y in zip(got, want)):
         fail(f"{what} differs from its plain version")
     return max_abs_err(zip(got, want))
 
@@ -1722,6 +1795,8 @@ HY_TERMS = 9
 HY_BATCH = 16
 HY_BATCHES = 24
 HY_WINDOW = 100              # Elasticsearch's rank_window_size default
+HY_SORT_WINDOW = 300         # a rank window past 256: K10 sorts
+HY_SORT_SYNTH = 10_000       # synthetic windows: K10 sorts in device memory
 HY_RC = 60.0                 # and its rank_constant
 HY_EVAL = 4
 #: relative separation of the fused RRF scores (f32 on the card, f64 in
@@ -1925,8 +2000,8 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.fused_query import (
-        bisect_exact_scores_plain, bool_bm25_topk, rescore_reorder,
-        rescore_reorder_body)
+        bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
+        rescore_reorder, rescore_reorder_body)
     from elasticsearch_tpu_torch.ops.topk import topk_merge_plain
     from elasticsearch_tpu_torch.search.query_planner import \
         bool_rescore_device
@@ -2005,7 +2080,7 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
 
     # ---- the rescore stage, one batch a mode --------------------------------
     bqs = mixes["d"][1]
-    k11_calls, n_rs = {}, 0
+    k11_calls, k5_rec, n_rs = {}, {}, 0
     kb.reset_launches()
     for mode in RESCORE_MODES:
         items = [{"rescore": dict(RESCORE, terms=draw(RESCORE_TERMS))}
@@ -2018,6 +2093,7 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
         (_n, k5a, k5k, (sec, fnd)), = of(calls, "bisect_exact_scores")
         check_bitwise((sec, fnd), bisect_exact_scores_plain(*k5a, **k5k),
                       f"bool rescore ({mode}): K5")
+        k5_rec[mode] = (k5a, k5k)
         (_n, k3a, k3k, k3o), = of(calls, "topk_merge")
         want = topk_merge_plain(*k3a, **k3k)
         check_bitwise(k3o, want, f"bool rescore ({mode}): K3 with sel")
@@ -2079,8 +2155,17 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
                               "bool_d": rows["d"]["ms"]},
                   device_ms_per_dispatch={},
                   launch={f"bool_{m}": v for m, v in launches_k9.items()})
+    a5, kw5 = k5_rec["total"]
     k11_bool = dict(ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_b[0],
-                    bound_by=k11_b[1])
+                    bound_by=k11_b[1],
+                    k5_ms=timed(lambda: bisect_exact_scores(*a5, **kw5),
+                                reps),
+                    k5_plain_ms=timed(lambda: bisect_exact_scores_plain(
+                        *a5, **kw5), 3))
+    print(f"# bisect_exact_scores (bool rescore, total, "
+          f"R={a5[5].shape[2]}, Q={a5[2].shape[2]}): "
+          f"{k11_bool['k5_ms']:.4f} ms, plain "
+          f"{k11_bool['k5_plain_ms']:.3f} ms [{card}]", flush=True)
     # K9's device time a dispatch over each mix's timed batches, served
     # again under the profiler after every timing
     for m, batches in mixes.items():
@@ -2138,6 +2223,105 @@ def hybrid_traffic(rng, corpus, tplane, dim, n_batches=HY_BATCHES):
     return batches, el, p, dense
 
 
+def fusion_lists(dev, B, W, seed=17):
+    """Two ranked lists of W entries a query as the hybrid's reduces give
+    them (text ids ``s · 2^22 + doc``, kNN ids of one shard, a third of
+    the kNN list also in the text list, scores descending, ties, ids
+    unique in a list) and the fuse_rank inputs around them."""
+    import torch
+    rng = np.random.RandomState(seed)
+    n_pad = 1 << 22
+    tv = -np.sort(-rng.choice(np.arange(1, 400, dtype=np.float32) / 8,
+                              (B, W)), axis=1)
+    kv = -np.sort(-rng.rand(B, W).astype(np.float32), axis=1)
+    tg = np.stack([rng.choice(n_pad, W, replace=False)
+                   for _ in range(B)]).astype(np.int32)
+    kg = np.stack([rng.choice(n_pad, W, replace=False)
+                   for _ in range(B)]).astype(np.int32)
+    share = rng.rand(B, W) < 0.35
+    for b in range(B):
+        pick = rng.choice(tg[b], int(share[b].sum()), replace=False)
+        kg[b, share[b]] = pick
+        _, first = np.unique(kg[b], return_index=True)
+        dup = np.setdiff1d(np.arange(W), first)
+        fresh = np.setdiff1d(rng.choice(n_pad, 4 * W, replace=False),
+                             np.concatenate([kg[b], tg[b]]))[:dup.size]
+        kg[b, dup] = fresh
+    t = (lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+    args = (t(tv), t(tg), t(kv), t(kg), t(np.full(B, W, np.int32)),
+            t(np.full(B, W, np.int32)), t(np.full(B, 60.0, np.float32)),
+            t(np.ones(B, np.float32)))
+    kw = dict(n_pad_t=n_pad, n_pad_k=n_pad, UP=n_pad, pad_id=n_pad,
+              similarity="dot_product", k=2 * W)
+    return args, kw
+
+
+def k10_sort_path(tplane, kplane, fqs, el, p, reps, card):
+    """K10's sorting path (n = na + nb past ``K10_COUNT_MAX``): the hybrid
+    at rank windows of ``HY_SORT_WINDOW`` (lists of 512 + 512, the keys in
+    shared memory), rrf and rescored (the payload in the launch), and
+    synthetic lists at windows of ``HY_SORT_SYNTH`` (the keys in device
+    memory), rrf, sum and rrf with a payload. Each call is one launch and
+    bitwise its plain version; these launches count toward no path.
+    Returns a row a call (n, launches, max abs err, ms)."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        K10_COUNT_MAX, fuse_rank, fuse_rank_plain)
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        fused_search_device)
+    rs = np.random.RandomState(4321)
+    wide = [dict(f, wt=HY_SORT_WINDOW, wk=HY_SORT_WINDOW) for f in fqs]
+    rescored = [dict(f, rescore=dict(RESCORE, terms=[
+        f"t{t}" for t in rs.choice(el, RESCORE_TERMS, p=p)])) for f in wide]
+    cases = []
+    for what, batch, mode in (
+            (f"hybrid rrf, windows {HY_SORT_WINDOW}", wide, None),
+            (f"hybrid rescore (rrf, total), windows {HY_SORT_WINDOW}",
+             rescored, "total")):
+        calls = []
+        with recording(calls, ("fuse_rank",)):
+            fused_search_device(tplane, kplane, batch, fusion="rrf",
+                                rescore_mode=mode)
+        (_n, a, kw, _o), = of(calls, "fuse_rank")
+        if mode is not None and kw.get("tsec") is None:
+            fail(f"K10 ({what}): the payload did not ride in the launch")
+        cases.append((what, a, kw))
+    dev = torch.device("cuda")
+    a, kw = fusion_lists(dev, HY_BATCH, HY_SORT_SYNTH)
+    g = np.random.RandomState(7)
+    B, W = a[0].shape
+    payload = {n: torch.from_numpy(x).to(dev) for n, x in (
+        ("tsec", g.rand(B, W).astype(np.float32)),
+        ("tfnd", g.rand(B, W) < 0.5),
+        ("ksec", g.rand(B, W).astype(np.float32)),
+        ("kfnd", g.rand(B, W) < 0.5))}
+    synth = f"windows {HY_SORT_SYNTH} (synthetic lists)"
+    cases += [(f"rrf, {synth}", a, dict(kw, fusion="rrf")),
+              (f"sum, {synth}", a, dict(kw, fusion="sum")),
+              (f"rrf with the rescore payload, {synth}", a,
+               dict(kw, fusion="rrf", **payload))]
+    rows = []
+    for what, a, kw in cases:
+        n = a[0].shape[1] + a[2].shape[1]
+        if n <= K10_COUNT_MAX:
+            fail(f"K10 ({what}): n = {n} takes the counting path")
+        n0 = kb.launches["fuse_rank"]
+        got = fuse_rank(*a, **kw)
+        torch.cuda.synchronize()
+        if kb.launches["fuse_rank"] != n0 + 1:
+            fail(f"K10 ({what}): not one launch a call")
+        err = check_bitwise(got, fuse_rank_plain(*a, **kw),
+                            f"K10 fuse_rank's sorting path ({what})")
+        rows.append(dict(what=what, n=n, payload=kw.get("tsec") is not None,
+                         launches=1, max_abs_err=err,
+                         ms=timed(lambda: fuse_rank(*a, **kw), reps)))
+        print(f"# fuse_rank's sorting path ({what}, n={n}): equal to its "
+              f"plain version bitwise, {rows[-1]['ms']:.4f} ms [{card}]",
+              flush=True)
+    return rows
+
+
 def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                reps=20):
     """Phase 9: the one-dispatch hybrid (config #5) through
@@ -2146,8 +2330,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.fused_query import (
-        bisect_exact_scores_plain, bool_bm25_topk, fuse_rank,
-        fuse_rank_plain, rescore_reorder, rescore_reorder_body)
+        bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
+        fuse_rank, fuse_rank_plain, rescore_reorder, rescore_reorder_body)
     from elasticsearch_tpu_torch.ops.knn import (knn_scan_partials,
                                                  knn_shard_scan_plain)
     from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
@@ -2217,7 +2401,7 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
 
     # ---- sum fusion and the five rescore modes: K10, K5, K11 ---------------
     kb.reset_launches()
-    n_extra, k11_rec, k10_sum = 0, {}, None
+    n_extra, k11_rec, k10_sum, k5_rec, k10_rec = 0, {}, None, {}, {}
     for mode in (None,) + RESCORE_MODES:
         fqs = [dict(f, rescore=dict(RESCORE, terms=[
             f"t{t}" for t in rng.choice(el, RESCORE_TERMS, p=p)]))
@@ -2234,9 +2418,16 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
         if mode is None:
             k10_sum = (a, kw)
             continue
-        for _n, a5, kw5, o5 in of(calls, "bisect_exact_scores"):
-            check_bitwise(o5, bisect_exact_scores_plain(*a5, **kw5),
-                          f"hybrid rescore ({mode}): K5")
+        if kw.get("tsec") is None:
+            fail(f"hybrid rescore ({mode}): K10 did not carry the payload")
+        k10_rec[mode] = (a, kw)
+        # one launch scores both lists; against two plain calls
+        (_n, a5, kw5, o5), = of(calls, "bisect_exact_scores")
+        if kw5.get("cand_docs2") is None or len(o5) != 4:
+            fail(f"hybrid rescore ({mode}): K5 did not take both lists")
+        check_bitwise(o5, bisect_exact_scores_plain(*a5, **kw5),
+                      f"hybrid rescore ({mode}): K5, both lists")
+        k5_rec[mode] = (a5, kw5)
         (_n, a, kw, o), = of(calls, "rescore_reorder")
         check_bitwise(o, rescore_reorder_body(*a, **kw),
                       f"hybrid rescore ({mode}): K11")
@@ -2245,12 +2436,13 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     c_extra = dict(kb.launches)
     n_rs = len(RESCORE_MODES)
     if c_extra["fuse_rank"] != n_extra or c_extra["rescore_reorder"] != \
-            n_rs or c_extra["bisect_exact_scores"] != 2 * n_rs:
+            n_rs or c_extra["bisect_exact_scores"] != n_rs:
         fail(f"hybrid sum/rescore: launches {c_extra} over {n_extra} "
              f"dispatches")
     print(f"# hybrid: sum fusion and rescore ({', '.join(RESCORE_MODES)}; "
-          f"window {RESCORE['window']}): K10, K5, K3 and K11 == plain "
-          f"(bitwise); launches "
+          f"window {RESCORE['window']}): K10 (with the rescore payload), K5 "
+          f"(both lists, one launch), K3 and K11 == plain (bitwise); "
+          f"launches "
           f"{ {n: v for n, v in c_extra.items() if v} } over {n_extra} "
           f"dispatches", flush=True)
 
@@ -2427,9 +2619,25 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
             if name == "fuse_rank" else
             "no one PyTorch call re-sorts a window ahead of its tail"))
     a, kw = k10_sum
-    kernels[0]["ms_by_fusion"] = {"rrf": kernels[0]["ms"],
-                                  "sum": timed(lambda: fuse_rank(*a, **kw),
-                                               reps)}
+    ar, kwr = k10_rec["total"]
+    kernels[0]["ms_by_fusion"] = {
+        "rrf": kernels[0]["ms"],
+        "sum": timed(lambda: fuse_rank(*a, **kw), reps),
+        "rrf_rescore_payload": timed(lambda: fuse_rank(*ar, **kwr), reps)}
+    print(f"# fuse_rank (hybrid): sum {kernels[0]['ms_by_fusion']['sum']:.4f}"
+          f" ms, rrf with the rescore payload "
+          f"{kernels[0]['ms_by_fusion']['rrf_rescore_payload']:.4f} ms "
+          f"[{card}]", flush=True)
+    kernels[0]["sort_path"] = k10_sort_path(tplane, kplane, batches[2], el,
+                                            p, reps, card)
+    a5, kw5 = k5_rec["total"]
+    out["k5"] = dict(ms=timed(lambda: bisect_exact_scores(*a5, **kw5), reps),
+                     plain_ms=timed(lambda: bisect_exact_scores_plain(
+                         *a5, **kw5), 3))
+    print(f"# bisect_exact_scores (hybrid rescore, total, both lists: "
+          f"R={a5[5].shape[2]} + {kw5['cand_docs2'].shape[2]}, "
+          f"Q={a5[2].shape[2]}): {out['k5']['ms']:.4f} ms, plain "
+          f"{out['k5']['plain_ms']:.3f} ms [{card}]", flush=True)
     path = {n: counts[n] + c_extra[n] for n in counts}
     # K9's device time a dispatch over the timed batches, served again
     # under the profiler after every timing
@@ -2953,7 +3161,11 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K19 segment_topk at (e), k = 10": 0.2376,
               "K19 segment_topk at (i), k = 1,000": 0.2503,
               "K19 segment_topk at (i), k = 10,000": 0.4100,
-              "K7 ivf_scan, its chunk lists alone": 0.1012}
+              "K7 ivf_scan, its chunk lists alone": 0.1012,
+              "K5 bisect_exact_scores at (a)": 0.0411,
+              "K5 bisect_exact_scores at (b)": 0.0325,
+              "K10 fuse_rank (rrf, windows 100)": 0.0522,
+              "K10 fuse_rank (sum, windows 100)": 0.0371}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -4130,6 +4342,15 @@ def main() -> int:
     k9_row["launch"]["hybrid"] = hy_times["k9"]["launch"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
+    for kd in kernels:
+        if kd["name"] == "bisect_exact_scores":
+            kd["ms_by_path"] = dict(
+                {f"pruned_{m}": v for m, v in kd["ms_by_mix"].items()},
+                bool_rescore=k11_bool["k5_ms"],
+                hybrid_rescore=hy_times["k5"]["ms"])
+            kd["plain_ms_by_path"] = dict(
+                bool_rescore=k11_bool["k5_plain_ms"],
+                hybrid_rescore=hy_times["k5"]["plain_ms"])
     kernels += [knn_row] + ivf_rows + [k9_row] + hy_rows + agg_rows \
         + seg_rows + ml_rows
     path_counts = dict(pruned_counts, knn_exact=knn_counts,

@@ -90,11 +90,11 @@ _SIGNATURES = {
     "blockmax_scan": (
         "es_blockmax_scan",
         [_P] * 4 + [_I] * 2 + [_P] * 4 + [_I] * 10 + [_P] * 6),
-    # docs, imps, P, starts, lengths, idfw, cand, B, S, Q, R, n_pad,
-    # out_score, out_found, stream
+    # docs, imps, P, starts, lengths, idfw, cand, R, cand2, vals2, R2, B,
+    # S, Q, n_pad, out_score, out_found, out_score2, out_found2, stream
     "bisect_exact_scores": (
         "es_bisect_exact_scores",
-        [_P, _P, _I] + [_P] * 4 + [_I] * 5 + [_P] * 3),
+        [_P, _P, _I] + [_P] * 4 + [_I] + [_P] * 2 + [_I] * 5 + [_P] * 5),
     # vecs, vn, exists, qq, qn, B, S, n_pad, D, k, l2, n_chunks, part_vals,
     # part_rows, workspace, stream
     "knn_scan": (
@@ -111,11 +111,12 @@ _SIGNATURES = {
     "ivf_rerank": (
         "es_ivf_rerank",
         [_P] * 8 + [_I] * 9 + [_P] * 3),
-    # tv, tg, na, kv, kg, nb, wt, wk, rc, kboost, B, n_pad_t, n_pad_k, UP,
-    # pad_id, fusion, sim, k, out_vals, out_ids, out_sel, workspace, stream
+    # tv, tg, na, kv, kg, nb, wt, wk, rc, kboost, tsec, tfnd, ksec, kfnd,
+    # B, n_pad_t, n_pad_k, UP, pad_id, fusion, sim, k, out_vals, out_ids,
+    # out_sel, out_sec, out_fnd, workspace, stream
     "fuse_rank": (
         "es_fuse_rank",
-        [_P, _P, _I, _P, _P, _I] + [_P] * 4 + [_I] * 8 + [_P] * 5),
+        [_P, _P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 8 + [_P] * 7),
     # vals, ids, secondary, matched, qw, rw, window, B, n, mode, k, pad_id,
     # out_vals, out_ids, workspace, stream
     "rescore_reorder": (
@@ -201,7 +202,7 @@ _QUERIES = {
         "es_postings_match_param_runs": ([], ctypes.c_int),
     },
     "fuse_rank": {
-        # (n, B) -> workspace bytes, 0 when a row's sort fits
+        # (n, B) -> workspace bytes, 0 when a row's sort fits or n counts
         "es_fuse_rank_workspace_bytes": ([_I] * 2, ctypes.c_longlong),
     },
     "rescore_reorder": {

@@ -10,14 +10,18 @@ and the wrappers of kernels K5 (``csrc/bisect_exact_scores.cu``), K9
   (must_not) is, and at least ``msm`` should clauses are. Filter and
   must_not slots carry weight 0.0: they set bits and add nothing.
 - :func:`bisect_exact_scores` (K5): exact per-candidate scores by a
-  binary search per (candidate, term slot), summed highest slot first,
-  so a candidate's score is bitwise the eager step's. The block-max
-  pruned step re-scores its survivors with it, the bool and hybrid
-  steps their rescore query.
+  search per (candidate, term slot), summed highest slot first, so a
+  candidate's score is bitwise the eager step's. The block-max pruned
+  step re-scores its survivors with it, the bool and hybrid steps their
+  rescore query (the hybrid both its lists in one call). On the card
+  each (query, shard) stages its slots' pivots in shared memory.
 - :func:`fuse_rank` (K10): the hybrid step's fusion of a text and a kNN
   ranking in one id space, by reciprocal rank (``rrf_fuse_body``) or a
   linear sum (``sum_fuse_body``), first list first, the first occurrence
-  of an id winning, ordered (score desc, id asc).
+  of an id winning, ordered (score desc, id asc); with the rescore
+  payload it also gathers each list's rescore scores in the fused order.
+  On the card a query of at most ``K10_COUNT_MAX`` entries is ranked by
+  counting, a longer one sorted.
 - :func:`rescore_reorder` (K11): the rescore window re-sorted by the
   combined score (``rescore_combine``, five modes), ahead of the tail in
   its old order.
@@ -37,6 +41,7 @@ slot, the selection ``sel`` of −inf slots included.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -62,6 +67,11 @@ BOOL_BLOCKS_PER_SM = TILE_BLOCKS_PER_SM
 BOOL_MERGE_MAX = TILE_MERGE_MAX
 BOOL_EDGES_MAX = TILE_EDGES_MAX
 
+#: K10 ranks a query of at most this many entries (both lists) by
+#: counting (n² compares, no sort, no workspace); longer ones take its
+#: sorting path (``csrc/fuse_rank.cu``)
+K10_COUNT_MAX = 512
+
 #: rescore score modes in K11's numbering
 RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
 #: fusion methods and kNN similarities in K10's numbering
@@ -71,9 +81,20 @@ _SIM_CODE = {"cosine": 0, "cos": 0, "dot_product": 0,
 
 
 def bisect_exact_scores_plain(postings_docs, postings_impact, starts,
-                              lengths, idfw, cand_docs, *, n_pad: int):
+                              lengths, idfw, cand_docs, *, n_pad: int,
+                              cand_docs2=None, cand_vals2=None):
     """Plain version of K5 (see :func:`bisect_exact_scores`): the
-    reference's fixed-trip vectorised bisect."""
+    reference's fixed-trip vectorised bisect, once for each list."""
+    if cand_docs2 is not None:
+        if cand_vals2 is not None:
+            cand_docs2 = torch.where(cand_vals2 > NEG_INF, cand_docs2,
+                                     torch.full_like(cand_docs2, n_pad))
+        return (*bisect_exact_scores_plain(
+                    postings_docs, postings_impact, starts, lengths, idfw,
+                    cand_docs, n_pad=n_pad),
+                *bisect_exact_scores_plain(
+                    postings_docs, postings_impact, starts, lengths, idfw,
+                    cand_docs2, n_pad=n_pad))
     B, S, Q = starts.shape
     R = cand_docs.shape[2]
     P = postings_docs.shape[1]
@@ -107,16 +128,22 @@ def bisect_exact_scores_plain(postings_docs, postings_impact, starts,
 
 
 def bisect_exact_scores(postings_docs, postings_impact, starts, lengths,
-                        idfw, cand_docs, *, n_pad: int):
+                        idfw, cand_docs, *, n_pad: int, cand_docs2=None,
+                        cand_vals2=None):
     """Exact f32 scores of candidates against each query's term runs (K5).
 
     postings_docs i32[S, P] / postings_impact f32[S, P]: the sparse table;
-    starts / lengths i32[B, S, Q]: every slot's whole run; idfw f32[B, Q];
-    cand_docs i32[B, S, R]: shard-local docs, ``n_pad`` on empty slots.
+    starts / lengths i32[B, S, Q]: every slot's whole run (its docs in
+    non-decreasing order); idfw f32[B, Q]; cand_docs i32[B, S, R]:
+    shard-local docs, ``n_pad`` on empty slots. A second list,
+    ``cand_docs2`` i32[B, S, R2] with its ranking's ``cand_vals2`` f32[B,
+    S, R2] (an entry at −inf is empty; None: none is), is scored in the
+    same launch.
 
-    Returns (scores f32[B, S, R], found_any bool[B, S, R]): a slot holding
-    the candidate adds ``idfw · impact``, summed from the highest slot
-    down; empty slots score 0 and are not found.
+    Returns (scores f32[B, S, R], found_any bool[B, S, R]), and the second
+    list's two after them when it is given: a slot holding the candidate
+    adds ``idfw · impact``, summed from the highest slot down; empty slots
+    score 0 and are not found.
 
     A CPU tensor runs the plain version; a CUDA tensor launches K5.
     """
@@ -124,7 +151,8 @@ def bisect_exact_scores(postings_docs, postings_impact, starts, lengths,
     if dev.type == "cpu":
         return bisect_exact_scores_plain(postings_docs, postings_impact,
                                          starts, lengths, idfw, cand_docs,
-                                         n_pad=n_pad)
+                                         n_pad=n_pad, cand_docs2=cand_docs2,
+                                         cand_vals2=cand_vals2)
     if dev.type != "cuda":
         raise ValueError(f"bisect_exact_scores: unsupported device {dev}")
     S, P = postings_docs.shape
@@ -136,15 +164,31 @@ def bisect_exact_scores(postings_docs, postings_impact, starts, lengths,
     _kb.check(lengths, "lengths", torch.int32, (B, S, Q), dev)
     _kb.check(idfw, "idfw", torch.float32, (B, Q), dev)
     _kb.check(cand_docs, "cand_docs", torch.int32, (B, S, R), dev)
+    two = cand_docs2 is not None
+    R2 = cand_docs2.shape[2] if two else 0
+    if two:
+        _kb.check(cand_docs2, "cand_docs2", torch.int32, (B, S, R2), dev)
+        if cand_vals2 is not None:
+            _kb.check(cand_vals2, "cand_vals2", torch.float32, (B, S, R2),
+                      dev)
     score = torch.empty((B, S, R), dtype=torch.float32, device=dev)
     found = torch.empty((B, S, R), dtype=torch.bool, device=dev)
-    if B * S * R == 0:
-        return score, found
+    out = (score, found)
+    if two:
+        out += (torch.empty((B, S, R2), dtype=torch.float32, device=dev),
+                torch.empty((B, S, R2), dtype=torch.bool, device=dev))
+    if B * S * (R + R2) == 0:
+        return out
     _kb.launch("bisect_exact_scores", dev, postings_docs.data_ptr(),
                postings_impact.data_ptr(), P, starts.data_ptr(),
-               lengths.data_ptr(), idfw.data_ptr(), cand_docs.data_ptr(),
-               B, S, Q, R, n_pad, score.data_ptr(), found.data_ptr())
-    return score, found
+               lengths.data_ptr(), idfw.data_ptr(), cand_docs.data_ptr(), R,
+               cand_docs2.data_ptr() if two else None,
+               cand_vals2.data_ptr() if two and cand_vals2 is not None
+               else None, R2, B, S, Q, n_pad, score.data_ptr(),
+               found.data_ptr(),
+               out[2].data_ptr() if two else None,
+               out[3].data_ptr() if two else None)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -361,9 +405,24 @@ def sum_fuse_body(ids_a, vals_a, ids_b, vals_b, *, k: int, pad_id: int):
 
 def fuse_rank_plain(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
                     n_pad_k: int, UP: int, pad_id: int, fusion: str,
-                    similarity: str, k: int):
+                    similarity: str, k: int, tsec=None, tfnd=None,
+                    ksec=None, kfnd=None):
     """Plain version of K10 (see :func:`fuse_rank`): the reference's
-    ``finish`` before its rescore."""
+    ``finish`` before its rescore, and its payload gather."""
+    out = _fuse_rank_plain(tv, tg, kv, kg, wt, wk, rc, kboost,
+                           n_pad_t=n_pad_t, n_pad_k=n_pad_k, UP=UP,
+                           pad_id=pad_id, fusion=fusion,
+                           similarity=similarity, k=k)
+    if tsec is None:
+        return out
+    sel = out[2].long()
+    return (*out, torch.gather(torch.cat([tsec, ksec], 1), 1, sel),
+            torch.gather(torch.cat([tfnd, kfnd], 1), 1, sel))
+
+
+def _fuse_rank_plain(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
+                     n_pad_k: int, UP: int, pad_id: int, fusion: str,
+                     similarity: str, k: int):
     pos_t = torch.arange(tv.shape[-1], device=tv.device)
     pos_k = torch.arange(kv.shape[-1], device=kv.device)
     t_ok = (tv > NEG_INF) & (pos_t < wt[:, None])
@@ -383,9 +442,18 @@ def fuse_rank_plain(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
     return sum_fuse_body(tug, ts, kug, ks, k=k, pad_id=pad_id)
 
 
+@functools.lru_cache(maxsize=256)
+def _fuse_rank_workspace_bytes(n: int, B: int) -> int:
+    """K10's sorting-path workspace for B queries of n entries, as its C
+    entry sizes it (0 where a query's keys fit a block's shared memory),
+    asked once a shape."""
+    return _kb.query("fuse_rank", "es_fuse_rank_workspace_bytes", n, B)
+
+
 def fuse_rank(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
               n_pad_k: int, UP: int, pad_id: int, fusion: str,
-              similarity: str, k: int):
+              similarity: str, k: int, tsec=None, tfnd=None, ksec=None,
+              kfnd=None):
     """Fusion of a text and a kNN ranking (K10).
 
     tv f32[B, na] / tg i32[B, na]: the text ranking (ids ``s · n_pad_t +
@@ -395,20 +463,26 @@ def fuse_rank(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
     the RRF rank constant; kboost f32[B]: the kNN weight of ``"sum"``.
     Ids unify to ``s · UP + doc``. ``fusion``: ``"rrf"`` (``1 / ((rc +
     rank) + 1)`` per list) or ``"sum"`` (text score + ``knn_raw_to_score
-    · kboost``), list a first; a later duplicate drops out.
+    · kboost``), list a first; a later duplicate drops out. The rescore
+    payload, all four or none: ``tsec`` f32 / ``tfnd`` bool [B, na] and
+    ``ksec`` / ``kfnd`` [B, nb], each list entry's rescore score and
+    match.
 
     Returns (vals f32[B, k], ids i32[B, k], sel i32[B, k]) ordered (score
     desc, id asc); ``sel`` indexes ``concat(text, knn)``; −inf slots hold
-    ``pad_id``.
+    ``pad_id``. With the payload also (sec f32[B, k], fnd bool[B, k]), the
+    payload of ``concat(text, knn)`` at ``sel``.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K10.
+    A CPU tensor runs the plain version; a CUDA tensor launches K10 (by
+    counting up to ``K10_COUNT_MAX`` entries, else by its sorts).
     """
     dev = tv.device
     if dev.type == "cpu":
         return fuse_rank_plain(tv, tg, kv, kg, wt, wk, rc, kboost,
                                n_pad_t=n_pad_t, n_pad_k=n_pad_k, UP=UP,
                                pad_id=pad_id, fusion=fusion,
-                               similarity=similarity, k=k)
+                               similarity=similarity, k=k, tsec=tsec,
+                               tfnd=tfnd, ksec=ksec, kfnd=kfnd)
     if dev.type != "cuda":
         raise ValueError(f"fuse_rank: unsupported device {dev}")
     if fusion not in FUSIONS:
@@ -423,22 +497,41 @@ def fuse_rank(tv, tg, kv, kg, wt, wk, rc, kboost, *, n_pad_t: int,
                         ("rc", rc, torch.float32),
                         ("kboost", kboost, torch.float32)):
         _kb.check(t, name, dt, (B,), dev)
+    payload = (tsec, tfnd, ksec, kfnd)
+    with_payload = tsec is not None
+    if any((x is None) == with_payload for x in payload):
+        raise ValueError("fuse_rank: give all of tsec, tfnd, ksec, kfnd "
+                         "or none")
+    if with_payload:
+        for name, t, dt, m in (("tsec", tsec, torch.float32, na),
+                               ("tfnd", tfnd, torch.bool, na),
+                               ("ksec", ksec, torch.float32, nb),
+                               ("kfnd", kfnd, torch.bool, nb)):
+            _kb.check(t, name, dt, (B, m), dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     sel = torch.empty((B, k), dtype=torch.int32, device=dev)
+    out = (vals, ids, sel)
+    if with_payload:
+        out += (torch.empty((B, k), dtype=torch.float32, device=dev),
+                torch.empty((B, k), dtype=torch.bool, device=dev))
     if B == 0 or k == 0:
-        return vals, ids, sel
-    ws_bytes = _kb.query("fuse_rank", "es_fuse_rank_workspace_bytes",
-                         na + nb, B)
+        return out
+    ws_bytes = 0 if na + nb <= K10_COUNT_MAX else \
+        _fuse_rank_workspace_bytes(na + nb, B)
     ws = torch.empty(ws_bytes // 4, dtype=torch.int32,
                      device=dev) if ws_bytes else None
+    pl = [t.data_ptr() if with_payload else None for t in payload]
     _kb.launch("fuse_rank", dev, tv.data_ptr(), tg.data_ptr(), na,
                kv.data_ptr(), kg.data_ptr(), nb, wt.data_ptr(),
-               wk.data_ptr(), rc.data_ptr(), kboost.data_ptr(), B, n_pad_t,
-               n_pad_k, UP, pad_id, FUSIONS.index(fusion),
-               _SIM_CODE[similarity], k, vals.data_ptr(), ids.data_ptr(),
-               sel.data_ptr(), None if ws is None else ws.data_ptr())
-    return vals, ids, sel
+               wk.data_ptr(), rc.data_ptr(), kboost.data_ptr(), *pl, B,
+               n_pad_t, n_pad_k, UP, pad_id, FUSIONS.index(fusion),
+               _SIM_CODE[similarity], k,
+               vals.data_ptr(), ids.data_ptr(), sel.data_ptr(),
+               out[3].data_ptr() if with_payload else None,
+               out[4].data_ptr() if with_payload else None,
+               None if ws is None else ws.data_ptr())
+    return out
 
 
 # ---------------------------------------------------------------------------

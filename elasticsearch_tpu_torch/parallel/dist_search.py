@@ -2042,14 +2042,11 @@ def fused_hybrid_step(postings_docs, postings_impact, kvecs, kvn, kex, starts,
     kv, kd = knn_shard_scan(kvecs, kvn, kex, qq, qn, similarity=similarity,
                             kk=kk_k, blk=blk, use_blocks=use_blocks)
     if rescore:
-        sec_t, fnd_t = bisect_exact_scores(postings_docs, postings_impact,
-                                           st2, ln2, iw2, td, n_pad=n_pad_t)
         # kNN rows are text docs of the same segment; only the pad differs
-        kd_t = torch.where((kv > NEG_INF) & (kd < n_pad_t), kd,
-                           torch.full_like(kd, n_pad_t))
-        sec_k, fnd_k = bisect_exact_scores(postings_docs, postings_impact,
-                                           st2, ln2, iw2, kd_t,
-                                           n_pad=n_pad_t)
+        # (a row at or past the text pad, or at -inf, is empty)
+        sec_t, fnd_t, sec_k, fnd_k = bisect_exact_scores(
+            postings_docs, postings_impact, st2, ln2, iw2, td,
+            n_pad=n_pad_t, cand_docs2=kd, cand_vals2=kv)
         tvals, tids, (tsec, tfnd) = _global_topk_reduce(
             tv, td, kk=kk_t, n_pad=n_pad_t, out_k=out_t,
             payload=(sec_t, fnd_t))
@@ -2061,18 +2058,19 @@ def fused_hybrid_step(postings_docs, postings_impact, kvecs, kvn, kex, starts,
                                           out_k=out_t)
         kvals, kids = _global_topk_reduce(kv, kd, kk=kk_k, n_pad=n_pad_k,
                                           out_k=out_kn)
-    n_f = tvals.shape[1] + kvals.shape[1]
-    fv, fi, sel = fuse_rank(tvals, tids, kvals, kids, wt, wk, rc, kboost,
-                            n_pad_t=n_pad_t, n_pad_k=n_pad_k, UP=UP,
-                            pad_id=pad_id, fusion=fusion,
-                            similarity=similarity,
-                            k=n_f if rescore else k)
+    kw = dict(n_pad_t=n_pad_t, n_pad_k=n_pad_k, UP=UP, pad_id=pad_id,
+              fusion=fusion, similarity=similarity)
     if rescore:
-        sel = sel.long()
-        sec_f = torch.gather(torch.cat([tsec, ksec], 1), 1, sel)
-        fnd_f = torch.gather(torch.cat([tfnd, kfnd], 1), 1, sel)
+        # the payload rides through the fusion in the same launch
+        fv, fi, _sel, sec_f, fnd_f = fuse_rank(
+            tvals, tids, kvals, kids, wt, wk, rc, kboost, **kw,
+            k=tvals.shape[1] + kvals.shape[1], tsec=tsec, tfnd=tfnd,
+            ksec=ksec, kfnd=kfnd)
         fv, fi = rescore_reorder(fv, fi, sec_f, fnd_f, qw, rw, rwin,
                                  mode=rescore_mode, k=k, pad_id=pad_id)
+    else:
+        fv, fi, _sel = fuse_rank(tvals, tids, kvals, kids, wt, wk, rc,
+                                 kboost, **kw, k=k)
     return fv, fi, cnt.sum(1), tvals, tids, kvals, kids
 
 

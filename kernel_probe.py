@@ -4,15 +4,16 @@
 K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
 (``dense_stream_topk``), K12 (``agg_masked_scan``), K14
 (``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``),
-K7 (``ivf_scan``) and K17 (``postings_match``) on one card, at the inputs
-``chip_smoke.py`` gives
-them on its main paths, and of ``chip_smoke.py``'s aggregation,
-per-segment and IVF phases (``aggs``, ``segment``, ``ivf``).
+K7 (``ivf_scan``), K17 (``postings_match``), K5 (``bisect_exact_scores``)
+and K10 (``fuse_rank``) on one card, at the inputs ``chip_smoke.py`` gives
+them on its main paths, of ``chip_smoke.py``'s aggregation, per-segment
+and IVF phases (``aggs``, ``segment``, ``ivf``), and of the pruned route
+and the hybrid path driven (``pruned``, ``hybrid``).
 
     python3 kernel_probe.py [--tree DIR]
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
-                                       k14,k22,k19,k7,k17,aggs,segment,
-                                       ivf]
+                                       k14,k22,k19,k7,k17,k5,k10,aggs,
+                                       segment,ivf,pruned,hybrid]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -138,6 +139,19 @@ JSON lines and writes them to ``--out`` as well.
   2^23-doc segment: CUDA-event mean, host time, device time by kernel,
   device events a call, the bound and whether the counts are the plain
   version's.
+- K5 on the calls one dispatch makes at pruned mixes (a) and (b)'s
+  checked batch, a bool rescore (mix (d), total) and a hybrid rescore
+  (total: a parent's two calls, this tree's one), and K10 at the hybrid's
+  rrf and sum (windows 100), with the rescore payload, and at windows of
+  10,000 (synthetic lists): each dispatch's calls replayed together, the
+  CUDA-event mean, host time a call (enqueued back to back), device time
+  by kernel and device events a call (``torch.profiler``), whether the
+  outputs are the plain version's bits and a digest; ``--variants`` adds
+  K5 built at other sizes (``K5_VARIANTS``: T, a block's candidates).
+- ``pruned``, ``hybrid``: the pruned route (mixes (a), (b)) and the hybrid
+  path (rrf, and rescore at total) driven over the smoke's batches: q/s,
+  p50, the stages, launches a dispatch, and device events and device ms
+  by kernel a dispatch (``torch.profiler``).
 - ``aggs``: ``chip_smoke.run_aggs`` against ``--tree``'s package: config
   #3's route (aggs/s, p50, p99, its stages, on stdout) and the K12–K15
   rows through the caches (about 3 minutes; not in the default list).
@@ -3170,6 +3184,231 @@ def run_k17(rows, reps):
     del seg
     torch.cuda.empty_cache()
 
+#: the wrappers K5 and K10 are called through, by kernel entry
+K5_K10_WRAPPERS = {"bisect_exact_scores": ("bisect_exact_scores",
+                                           "bisect_exact_scores_plain"),
+                   "fuse_rank": ("fuse_rank", "fuse_rank_plain")}
+
+
+def recorded_row(rows, name, what, calls, reps, **extra):
+    """One row for the calls of kernel ``name`` that one dispatch made
+    (``calls``: the recorded (args, kwargs) in order), replayed together:
+    CUDA-event ms, host ms (enqueued back to back), device ms by kernel and
+    device events (``torch.profiler``), whether the outputs are the plain
+    version's bits, and a digest."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.ops import fused_query as fq
+    wrap, plain = (getattr(fq, n) for n in K5_K10_WRAPPERS[name])
+
+    def call():
+        return [wrap(*a, **kw) for a, kw in calls]
+    got = call()
+    want = [plain(*a, **kw) for a, kw in calls]
+    same = all(len(g) == len(w) and all(cs.same_bits(x, y)
+                                        for x, y in zip(g, w))
+               for g, w in zip(got, want))
+    by_name = cs.device_ms_by_name(call, reps)
+    shapes = [[list(x.shape) for x in list(a) + list(kw.values())
+               if hasattr(x, "shape")] for a, kw in calls]
+    emit(rows, kernel=name, what=what, calls_a_dispatch=len(calls),
+         shapes=shapes, ms=cs.timed(call, 5 * reps),
+         host_ms=host_ms(call, 5 * reps), device_ms=sum(by_name.values()),
+         by_name=by_name,
+         device_events_a_call=cs.device_events_a_call(call, reps),
+         equals_plain=bool(same),
+         digest=digest([x for g in got for x in g]), **extra)
+
+
+#: builds of csrc/bisect_exact_scores.cu at other sizes: T (pivots a
+#: slot) of 32 and 1,024 in place of 128, and a block's candidates (RC) a
+#: quarter or four times what the C entry picks
+_K5_RC_LINE = "  while (rc * n_sm < work && rc < K5_ITEMS) rc <<= 1;\n"
+K5_VARIANTS = {
+    "T32": [("#define K5_PIVOTS 128\n", "#define K5_PIVOTS 32\n")],
+    "T1024": [("#define K5_PIVOTS 128\n", "#define K5_PIVOTS 1024\n")],
+    "RC_quarter": [(_K5_RC_LINE,
+                    _K5_RC_LINE + "  rc = rc >= 4 ? rc / 4 : 1;\n")],
+    "RC_x4": [(_K5_RC_LINE, _K5_RC_LINE + "  rc *= 4;\n")]}
+
+
+def k5_variants(calls, reps):
+    """Each build of ``K5_VARIANTS`` of this tree's source on the recorded
+    calls: its device ms by ``torch.profiler`` (all calls of the dispatch)
+    beside the tree's build's, and whether its outputs are the tree's
+    bits."""
+    import torch
+    cs = smoke()
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import fused_query as fq
+
+    def call():
+        return [fq.bisect_exact_scores(*a, **kw) for a, kw in calls]
+    want = call()
+    out = {"tree_device_ms": sum(cs.device_ms_by_name(call, reps).values())}
+    for name, edits in K5_VARIANTS.items():
+        lib = build_variant(str(kb.PKG_DIR.parent), name, edits,
+                            scratch_dir(), source="bisect_exact_scores")
+        if lib is None:
+            out[name] = "not measured (edit target missing)"
+            continue
+        typed_variant("bisect_exact_scores", lib)
+        with swapped_library("bisect_exact_scores", lib):
+            got = call()
+            torch.cuda.synchronize()
+            by = cs.device_ms_by_name(call, reps)
+        out[name] = dict(
+            device_ms=sum(by.values()),
+            same_bits=all(cs.same_bits(x, y) for g, w in zip(got, want)
+                          for x, y in zip(g, w)))
+    return out
+
+
+def dispatch_row(rows, kernel, what, batches, call, kb, reps):
+    """A path driven over ``batches`` (the first a warm-up) through
+    ``call(batch, stages)``: q/s, p50 and the mean stages a batch (host
+    clock), launches a dispatch, and the device events and device ms by
+    kernel a dispatch over the timed batches served again under
+    ``torch.profiler``."""
+    cs = smoke()
+    call(batches[0], {})
+    kb.reset_launches()
+    lat, st = [], {}
+    for b in batches[1:]:
+        s1 = {}
+        t0 = time.perf_counter()
+        call(b, s1)
+        lat.append(time.perf_counter() - t0)
+        for key in ("prep_ms", "dispatch_ms", "fetch_ms"):
+            st[key] = st.get(key, 0.0) + s1[key]
+    n = len(lat)
+    launches = {k: v / n for k, v in kb.launches.items() if v}
+
+    def serve_all():
+        for b in batches[1:]:
+            call(b, {})
+    by_name = cs.device_ms_by_name(serve_all, 1)
+    events = cs.device_events_a_call(serve_all, 1) / n
+    lat = np.asarray(lat)
+    emit(rows, kernel=kernel, what=what, batches=n,
+         batch=len(batches[1]), qps=len(batches[1]) * n / float(lat.sum()),
+         p50_ms=float(np.percentile(lat, 50)) * 1e3,
+         **{f"{k}_mean": v / n for k, v in st.items()},
+         launches_a_dispatch=launches, device_events_a_dispatch=events,
+         device_ms_a_dispatch=sum(by_name.values()) / n,
+         by_name_a_dispatch={k: v / n for k, v in by_name.items()})
+
+
+def run_k5_k10(rows, reps, which, variants=False):
+    """K5 and K10 at the smoke's shapes (``k5``, ``k10``) and the pruned
+    route and the hybrid path end to end (``pruned``, ``hybrid``), sharing
+    the planes: K5 on the calls one dispatch makes at pruned (a) and (b)'s
+    checked batch, the bool rescore (mix (d), total) and the hybrid
+    rescore (total; a parent makes two calls there, this tree one); K10
+    at the hybrid's rrf and sum (windows 100), with the rescore payload
+    (this tree; a parent gathers it with five PyTorch ops after the call),
+    and at windows of 10,000 (synthetic lists of the reduces' form); the
+    phases' q/s, p50, stages, launches, device events and device ms a
+    dispatch. ``variants``: K5 also at other sizes (``k5_variants``)."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.parallel import dist_search
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        DistributedKnnPlane, DistributedSearchPlane, fused_search_device)
+    from elasticsearch_tpu_torch.search.query_planner import \
+        bool_rescore_device
+    dev = torch.device("cuda")
+
+    def record(name, fn):
+        calls = []
+        with cs.recording(calls, (name,), (dist_search,)):
+            fn()
+        return [(a, kw) for _n, a, kw, _o in calls]
+
+    if "k5" in which or "pruned" in which:
+        rng, corpus, plane, _cs, _ps = cs.prune_plane(dev)
+        mixes = {m: cs.sample_queries(rng, corpus, 1 + cs.PRUNE_BATCHES,
+                                      cs.PRUNE_BATCH, weighted=m == "a")
+                 for m in ("a", "b")}
+        if "k5" in which:
+            for m, qs in mixes.items():
+                calls = record("bisect_exact_scores",
+                               lambda: plane.serve(qs[1], k=cs.K))
+                recorded_row(rows, "bisect_exact_scores",
+                             f"pruned mix ({m}), checked batch", calls,
+                             reps, variants=k5_variants(calls, reps)
+                             if variants else None)
+            bmix, _extra, draw = cs.bool_traffic(corpus)
+            bqs = bmix["d"][1]
+            items = [{"rescore": dict(cs.RESCORE,
+                                      terms=draw(cs.RESCORE_TERMS))}
+                     for _ in bqs]
+            calls = record("bisect_exact_scores", lambda: bool_rescore_device(
+                plane, bqs, items, cs.RESCORE_WT, "total"))
+            recorded_row(rows, "bisect_exact_scores",
+                         "bool rescore (mix (d), total)", calls, reps)
+        if "pruned" in which:
+            for m, qs in mixes.items():
+                dispatch_row(rows, "pruned_phase", f"pruned mix ({m})", qs,
+                             lambda b, st: plane.serve(b, k=cs.K, stages=st),
+                             kb, reps)
+        del plane, corpus
+        torch.cuda.empty_cache()
+    if not ({"k5", "k10", "hybrid"} & which):
+        return
+    rng = np.random.RandomState(1234)
+    corpus = cs.hybrid_corpus(rng, cs.HY_DOCS)
+    tplane = DistributedSearchPlane([corpus], "body", device=dev)
+    vecs = cs.hybrid_vectors(cs.HY_DOCS, cs.HY_DIM)
+    kplane = DistributedKnnPlane([dict(vectors=vecs)],
+                                 similarity="dot_product", device=dev)
+    del vecs
+    batches, el, p, _dense = cs.hybrid_traffic(rng, corpus, tplane,
+                                               cs.HY_DIM)
+    rs_rng = np.random.RandomState(4321)
+    rescored = [[dict(f, rescore=dict(cs.RESCORE, terms=[
+        f"t{t}" for t in rs_rng.choice(el, cs.RESCORE_TERMS, p=p)]))
+        for f in b] for b in batches[:9]]
+    if "k10" in which:
+        for fusion in ("rrf", "sum"):
+            calls = record("fuse_rank", lambda: fused_search_device(
+                tplane, kplane, batches[1], fusion=fusion))
+            recorded_row(rows, "fuse_rank",
+                         f"hybrid {fusion}, windows {cs.HY_WINDOW}", calls,
+                         reps)
+        calls = record("fuse_rank", lambda: fused_search_device(
+            tplane, kplane, rescored[1], fusion="rrf",
+            rescore_mode="total"))
+        recorded_row(rows, "fuse_rank", "hybrid rescore (rrf, total): the "
+                     "fusion (and its payload where the call carries it)",
+                     calls, reps,
+                     payload_in_call=calls[0][1].get("tsec") is not None)
+        for fusion in ("rrf", "sum"):
+            args, kw = cs.fusion_lists(dev, cs.HY_BATCH, 10000)
+            recorded_row(rows, "fuse_rank",
+                         f"{fusion}, windows 10,000 (synthetic lists)",
+                         [(args, dict(kw, fusion=fusion))], reps)
+    if "k5" in which:
+        calls = record("bisect_exact_scores", lambda: fused_search_device(
+            tplane, kplane, rescored[1], fusion="rrf", rescore_mode="total"))
+        recorded_row(rows, "bisect_exact_scores",
+                     "hybrid rescore (rrf, total), both lists", calls, reps,
+                     variants=k5_variants(calls, reps) if variants
+                     else None)
+    if "hybrid" in which:
+        dispatch_row(rows, "hybrid_phase", "hybrid rrf", batches,
+                     lambda b, st: fused_search_device(
+                         tplane, kplane, b, fusion="rrf", stages=st),
+                     kb, reps)
+        dispatch_row(rows, "hybrid_phase", "hybrid rescore (rrf, total)",
+                     rescored,
+                     lambda b, st: fused_search_device(
+                         tplane, kplane, b, fusion="rrf",
+                         rescore_mode="total", stages=st),
+                     kb, reps)
+    del tplane, kplane, corpus
+    torch.cuda.empty_cache()
+
 
 def run_aggs_phase(rows):
     """Config #3's aggregation phase of ``chip_smoke.py`` (``run_aggs``)
@@ -3221,12 +3460,13 @@ def main() -> int:
     p.add_argument("--tree", default=HERE)
     p.add_argument("--kernels",
                    default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22,k19,"
-                   "k7,k17",
+                   "k7,k17,k5,k10",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21, k2, k12, k14, k22, k19, k7, k17 to probe, and "
-                   "aggs, "
-                   "segment and ivf (chip_smoke.py's aggregation, "
-                   "per-segment and IVF phases)")
+                   "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10 to "
+                   "probe, and aggs, segment and ivf (chip_smoke.py's "
+                   "aggregation, per-segment and IVF phases) and pruned "
+                   "and hybrid (the pruned route and the hybrid path "
+                   "driven, their device events a dispatch)")
     p.add_argument("--variants", action="store_true")
     p.add_argument("--k7-ks", default=None,
                    help="comma-separated ks whose IVF windows k7 times "
@@ -3280,6 +3520,8 @@ def main() -> int:
                opts.k7_ks and [int(k) for k in opts.k7_ks.split(",")])
     if "k17" in which:
         run_k17(rows, opts.reps)
+    if which & {"k5", "k10", "pruned", "hybrid"}:
+        run_k5_k10(rows, opts.reps, which, opts.variants)
     if "aggs" in which:
         run_aggs_phase(rows)
     if "segment" in which:

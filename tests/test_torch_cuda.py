@@ -8,6 +8,8 @@ conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +19,9 @@ from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
                                                   blockmax_scan_plain,
                                                   blockmax_scan_plan)
 from elasticsearch_tpu_torch.ops.fused_query import (
-    BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, bisect_exact_scores,
-    bisect_exact_scores_plain, bool_bm25_topk, bool_bm25_topk_plain,
+    BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, K10_COUNT_MAX,
+    bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
+    bool_bm25_topk_plain,
     bool_bm25_topk_plan, fuse_rank, fuse_rank_plain, rescore_reorder,
     rescore_reorder_body)
 from elasticsearch_tpu_torch.ops.knn import (
@@ -48,8 +51,9 @@ from elasticsearch_tpu_torch.xpack import ml as tml
 from torch_cases import (agg_pairs_case, assert_topk_close, bool_case,
                          build_segments, csr_case, dense_case, fusion_case,
                          full_tree_arrays, hit_ids, knn_tol, logreg_case,
-                         outlier_frame, pairs_case, query_mix, sparse_case,
-                         topk_lists_case, topk_scores, tree_arrays_case)
+                         outlier_frame, pairs_case, query_mix, runs_case,
+                         sparse_case, topk_lists_case, topk_scores,
+                         tree_arrays_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -504,6 +508,92 @@ def test_k5_bitwise_equals_plain(cuda, S):
     want = bisect_exact_scores_plain(*x, n_pad=gpu.n_pad)
     torch.cuda.synchronize()
     _same_bits(got, want)
+
+
+def _k5_args(c, cuda):
+    return [_t(c[n], cuda) for n in ("postings_docs", "postings_impact",
+                                     "starts", "lengths", "idfw",
+                                     "cand_docs")]
+
+
+@pytest.mark.parametrize("S,B,R,R2", [(1, 16, 128, 128), (2, 3, 40, 7),
+                                      (1, 64, 100, 100), (3, 2, 5, 300)])
+def test_k5_two_lists_bitwise_equal_two_plain_calls(cuda, S, B, R, R2):
+    """One launch scores both lists (the hybrid rescore's text and kNN
+    candidates, a fifth of the kNN entries at -inf) bitwise as two plain
+    calls do; without values every second-list entry below n_pad is live.
+    Lists that straddle a block's candidates included."""
+    c = runs_case(R + R2, S=S, B=B, Q=8, R=R, R2=R2,
+                  lengths=(0, 1, 5, 127, 128, 129, 1025, 40000))
+    x = _k5_args(c, cuda)
+    d2, v2 = _t(c["cand_docs2"], cuda), _t(c["cand_vals2"], cuda)
+    n0 = kb.launches["bisect_exact_scores"]
+    got = bisect_exact_scores(*x, n_pad=c["n_pad"], cand_docs2=d2,
+                              cand_vals2=v2)
+    assert kb.launches["bisect_exact_scores"] == n0 + 1
+    live2 = torch.where(v2 > -np.inf, d2, torch.full_like(d2, c["n_pad"]))
+    want = bisect_exact_scores_plain(*x, n_pad=c["n_pad"]) + \
+        bisect_exact_scores_plain(*x[:5], live2, n_pad=c["n_pad"])
+    torch.cuda.synchronize()
+    assert len(got) == 4
+    _same_bits(got, want)
+    assert got[1].any() and got[3].any()
+    got = bisect_exact_scores(*x, n_pad=c["n_pad"], cand_docs2=d2)
+    _same_bits(got[2:], bisect_exact_scores_plain(*x[:5], d2,
+                                                  n_pad=c["n_pad"]))
+
+
+#: K5's pivots a slot (T), read from its source
+K5_PIVOTS = int(re.search(r"^#define K5_PIVOTS (\d+)$", (
+    kb.CSRC_DIR / "bisect_exact_scores.cu").read_text(), re.M)[1])
+
+
+@pytest.mark.parametrize("Q", [1, 2, 8, 256, 257, 1024, 1500, 4096])
+def test_k5_slots_and_long_runs_equal_plain(cuda, Q):
+    """Q of 1, 2 and 8, one chunk of slots (256), one past it, and up to
+    16 chunks, over runs of 0, 1, T - 1, T, T + 1 docs and up to 2^20:
+    open segments of every width, candidates at runs' ends and between
+    their docs, n_pad and n_pad - 1; past a chunk the sum is carried from
+    chunk to chunk in the plain version's order."""
+    T = K5_PIVOTS
+    lengths = (0, 1, 2, T - 1, T, T + 1, 32 * T - 1, 32 * T + 1, 70001,
+               1 << 20)
+    B, R = (4, 64) if Q <= 8 else (2, 3)
+    c = runs_case(Q, S=2, B=B, Q=Q, R=R, lengths=lengths)
+    x = _k5_args(c, cuda)
+    n0 = kb.launches["bisect_exact_scores"]
+    got = bisect_exact_scores(*x, n_pad=c["n_pad"])
+    assert kb.launches["bisect_exact_scores"] == n0 + 1
+    want = bisect_exact_scores_plain(*x, n_pad=c["n_pad"])
+    torch.cuda.synchronize()
+    _same_bits(got, want)
+    assert got[1].any()
+
+
+def test_k5_refuses_sizes_outside_its_range(cuda):
+    """The C entry refuses a second list's length without its docs, a
+    negative size, and more blocks of a pair's candidates than a grid's
+    second axis holds; a launch inside them is served."""
+    c = runs_case(4, S=1, B=1, Q=8, R=4, lengths=(3, 9))
+    x = _k5_args(c, cuda)
+    out = torch.empty((1, 1, 4), device=cuda)
+    fnd = torch.empty((1, 1, 4), dtype=torch.bool, device=cuda)
+
+    def call(R2, Q, R=4):
+        kb.launch("bisect_exact_scores", cuda, x[0].data_ptr(),
+                  x[1].data_ptr(), x[0].shape[1], x[2].data_ptr(),
+                  x[3].data_ptr(), x[4].data_ptr(), x[5].data_ptr(), R,
+                  None, None, R2, 1, 1, Q, c["n_pad"], out.data_ptr(),
+                  fnd.data_ptr(), out.data_ptr(), fnd.data_ptr())
+    # 65,536 blocks of one candidate: a full chunk caps RC at 8
+    for R2, Q, R in ((4, 8, 4), (0, -1, 4), (0, 8, -1),
+                     (0, 4096, 8 * 65535 + 1)):
+        with pytest.raises(RuntimeError, match="bisect_exact_scores: launch "
+                                               "refused: a size argument"):
+            call(R2, Q, R)
+    call(0, 8)
+    torch.cuda.synchronize()
+    _same_bits((out, fnd), bisect_exact_scores_plain(*x, n_pad=c["n_pad"]))
 
 
 def test_k4_k5_refuse_wrong_dtypes(cuda):
@@ -1248,24 +1338,57 @@ def test_k8_matches_plain_at_odd_shapes(cuda, R, D, misaligned, l2):
     np.testing.assert_allclose(e[f], ep[f], rtol=0.0, atol=tol)
 
 
+@pytest.mark.parametrize("payload", [False, True])
 @pytest.mark.parametrize("fusion", ["rrf", "sum"])
-@pytest.mark.parametrize("W", [1, 128, 16384])
-def test_k10_bitwise_equals_plain(cuda, fusion, W):
+@pytest.mark.parametrize("W", [1, 128, 256, 257, 16384])
+def test_k10_bitwise_equals_plain(cuda, fusion, W, payload):
     """Windows 1, 100 and 10,000 (lists of 1, 128 and 16384 entries; the
-    widest sorts in device memory)."""
+    widest sorts in device memory), and lists of 256 and 257 (n at
+    K10_COUNT_MAX, ranked by counting, and one past it, sorted); with the
+    rescore payload, (sec, fnd) too."""
+    assert 2 * 256 == K10_COUNT_MAX
     c = fusion_case(W, B=6, W=W)
     args = [_t(c[n], cuda) for n in ("tv", "tg", "kv", "kg", "wt", "wk",
                                      "rc", "kboost")]
     kw = dict(n_pad_t=c["n_pad_t"], n_pad_k=c["n_pad_k"], UP=c["UP"],
               pad_id=c["pad_id"], fusion=fusion, similarity="dot_product")
+    if payload:
+        rng = np.random.RandomState(W)
+        kw.update(tsec=_t(rng.rand(6, W).astype(np.float32), cuda),
+                  tfnd=_t(rng.rand(6, W) < 0.5, cuda),
+                  ksec=_t(rng.rand(6, W).astype(np.float32), cuda),
+                  kfnd=_t(rng.rand(6, W) < 0.5, cuda))
     for k in (2 * W, min(10, 2 * W), 2 * W + 3):
         n0 = kb.launches["fuse_rank"]
         got = fuse_rank(*args, **kw, k=k)
         assert kb.launches["fuse_rank"] == n0 + 1
         want = fuse_rank_plain(*args, **kw, k=k)
         torch.cuda.synchronize()
+        assert len(got) == len(want) == (5 if payload else 3)
         _same(got, want)
     assert np.isfinite(got[0].cpu().numpy()).any()
+
+
+def test_k10_refuses_a_partial_payload(cuda):
+    """The payload is all four inputs or none: the wrapper refuses a part
+    by name, the C entry with its argument code."""
+    c = fusion_case(3, B=2, W=8)
+    args = [_t(c[n], cuda) for n in ("tv", "tg", "kv", "kg", "wt", "wk",
+                                     "rc", "kboost")]
+    kw = dict(n_pad_t=c["n_pad_t"], n_pad_k=c["n_pad_k"], UP=c["UP"],
+              pad_id=c["pad_id"], fusion="rrf", similarity="cosine", k=16)
+    sec = torch.zeros((2, 8), device=cuda)
+    with pytest.raises(ValueError, match="all of tsec, tfnd, ksec, kfnd"):
+        fuse_rank(*args, **kw, tsec=sec, ksec=sec)
+    o = [torch.empty((2, 16), dtype=dt, device=cuda)
+         for dt in (torch.float32, torch.int32, torch.int32)]
+    with pytest.raises(RuntimeError, match="fuse_rank: launch refused"):
+        kb.launch("fuse_rank", cuda, *[a.data_ptr() for a in args[:2]], 8,
+                  *[a.data_ptr() for a in args[2:4]], 8,
+                  *[a.data_ptr() for a in args[4:]], sec.data_ptr(), None,
+                  None, None, 2, c["n_pad_t"], c["n_pad_k"], c["UP"],
+                  c["pad_id"], 0, 0, 16, *[x.data_ptr() for x in o], None,
+                  None, None)
 
 
 @pytest.mark.parametrize("mode", ["total", "multiply", "avg", "max", "min"])
@@ -1336,9 +1459,9 @@ def test_new_kernels_refuse_what_they_cannot_launch(cuda):
                                            "unknown mode"):
         kb.launch("fuse_rank", cuda, f.data_ptr(), i.data_ptr(), 4,
                   f.data_ptr(), i.data_ptr(), 4, zb.data_ptr(),
-                  zb.data_ptr(), o.data_ptr(), o.data_ptr(), 1, 8, 8, 8,
-                  16, 5, 0, 4, f.data_ptr(), i.data_ptr(), i.data_ptr(),
-                  None)
+                  zb.data_ptr(), o.data_ptr(), o.data_ptr(), None, None,
+                  None, None, 1, 8, 8, 8, 16, 5, 0, 4, f.data_ptr(),
+                  i.data_ptr(), i.data_ptr(), None, None, None)
     with pytest.raises(RuntimeError, match="rescore_reorder: launch "
                                            "refused: unknown mode"):
         kb.launch("rescore_reorder", cuda, f.data_ptr(), i.data_ptr(),

@@ -281,6 +281,78 @@ def fusion_case(seed: int, *, B: int, W: int, S: int = 2,
                 UP=max(n_pad_t, n_pad_k), pad_id=S * max(n_pad_t, n_pad_k))
 
 
+def runs_case(seed: int, *, S: int, B: int, Q: int, R: int,
+              lengths, n_pad: int = 1 << 22, R2: int = 0) -> dict:
+    """K5's inputs over doc-sorted runs of the given ``lengths`` (each
+    shard holds every length once, strictly ascending docs below
+    ``n_pad``, 0 to 3 dead postings between runs): starts / lengths
+    i32[B, S, Q] (each slot a run drawn at random, a slot in five the
+    empty run), idfw f32[B, Q], and candidates i32[B, S, R] (and [B, S,
+    R2] with kNN-like values, a fifth at -inf): docs of the slots' runs
+    (their first and last docs among them), docs between a run's
+    neighbours, random docs, ``n_pad`` and ``n_pad - 1``."""
+    rng = np.random.RandomState(seed)
+    lengths = list(lengths)
+    tables, offs = [], []
+    for _s in range(S):
+        docs, imps, off = [], [], []
+        pos = 0
+        for ln in lengths:
+            gap = rng.randint(0, 4)
+            docs.append(rng.randint(0, n_pad, gap))
+            imps.append(rng.rand(gap).astype(np.float32))
+            pos += gap
+            run = np.sort(rng.choice(n_pad - 1, ln, replace=False))
+            docs.append(run)
+            imps.append((rng.rand(ln) * 3).astype(np.float32))
+            off.append((pos, ln))
+            pos += ln
+        tables.append((np.concatenate(docs), np.concatenate(imps)))
+        offs.append(off)
+    P = max(t[0].size for t in tables) + 1
+    pd = np.zeros((S, P), np.int32)
+    pi = np.zeros((S, P), np.float32)
+    for s, (d, i) in enumerate(tables):
+        pd[s, :d.size], pi[s, :i.size] = d, i
+    starts = np.zeros((B, S, Q), np.int32)
+    lens = np.zeros((B, S, Q), np.int32)
+    for b in range(B):
+        for s in range(S):
+            for q in range(Q):
+                st, ln = offs[s][rng.randint(len(lengths))]
+                if rng.rand() < 0.2:
+                    ln = 0
+                starts[b, s, q], lens[b, s, q] = st, ln
+
+    def cands(r):
+        c = rng.randint(0, n_pad, (B, S, r)).astype(np.int32)
+        for b in range(B):
+            for s in range(S):
+                for j in range(r):
+                    q = rng.randint(Q)
+                    st, ln = starts[b, s, q], lens[b, s, q]
+                    kind = rng.randint(6)
+                    if ln and kind < 3:
+                        at = (st, st + ln - 1, st + rng.randint(ln))[kind]
+                        c[b, s, j] = pd[s, at]
+                    elif ln and kind == 3:
+                        c[b, s, j] = pd[s, st + rng.randint(ln)] + 1
+                    elif kind == 4:
+                        c[b, s, j] = (n_pad, n_pad - 1)[rng.randint(2)]
+        return c
+
+    out = dict(postings_docs=pd, postings_impact=pi, starts=starts,
+               lengths=lens,
+               idfw=(rng.rand(B, Q) * 2).astype(np.float32),
+               cand_docs=cands(R), n_pad=n_pad)
+    if R2:
+        out["cand_docs2"] = cands(R2)
+        v = rng.rand(B, S, R2).astype(np.float32)
+        v[rng.rand(B, S, R2) < 0.2] = -np.inf
+        out["cand_vals2"] = v
+    return out
+
+
 def agg_pairs_case(seed, M, V, n_pad, density, docs_kind, pad=True):
     """An ordinal CSR of M pairs in V runs (zero-length runs included), as
     the aggregation kernels (K12–K15) take it, padded to powers of two as
