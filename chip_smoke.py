@@ -71,7 +71,8 @@ times its size). Phases, each fatal on failure:
    reference (clause membership, scores within 1 %, totals exact); mix
    (c) equal to ``plane.search`` of the same bags (the K1 path); the
    rescore stage (``bool_rescore_device``) for each of the five score
-   modes with K5, K3's selection, the payload gather and K11 bitwise;
+   modes with K5, K3's selection, the payload gather and K11 (its
+   counting path, n = 100) bitwise;
    each mix's launches counted alone; K9's and K11's times, K9's launch
    (its plan, blocks, blocks an SM) and, after every timing, its device
    time a dispatch over each mix's timed batches (``torch.profiler``);
@@ -100,7 +101,9 @@ times its size). Phases, each fatal on failure:
    ``fused_search_device``: K9, K10 and every K3 call bitwise and K6
    within the parity bar against their plain versions; sum fusion and
    the five rescore modes with K10 (its rescore payload too), K5 (one
-   launch for both lists) and K11 bitwise; a dense-tier term refused; four queries against numpy (exact BM25 top-100, matmul +
+   launch for both lists) and K11 (its counting path, n = 200) bitwise;
+   K10's and K11's sorting paths at rank windows of 300 (K11 in the five
+   modes, n = 1,024); a dense-tier term refused; four queries against numpy (exact BM25 top-100, matmul +
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
    launches counted alone; each kernel's time, K9's launch and its device
    time a dispatch over the timed batches;
@@ -130,8 +133,10 @@ times its size). Phases, each fatal on failure:
     ``kibana_sample_data_flights``' schema at 131,072 docs (eight numeric
     fields), paged through ``_load_frame`` from an in-memory source, then
     regression of ``FlightDelayMin`` (host ``lstsq``, timed only): K20
-    equal to its plain version and to a numpy walk on every recorded
-    call, K21 bitwise to its plain version over every row (in chunks)
+    (its batch shape at (j), its few-docs shape at (k), over the pack
+    the model built once: no pack at inference) equal to its plain
+    version and to a numpy walk on every recorded call, and on a model of
+    8,191-node trees at (j)'s and (k)'s n (the batch shape), K21 bitwise to its plain version over every row (in chunks)
     and 1,024 sampled rows' dk against f64, K22 within 1e-5 of
     max(1, |W|) of its plain version and of a numpy f64 run (a planted
     TF32 run must land outside that bar), the written results recomputed
@@ -271,10 +276,37 @@ def timed(fn, reps):
     return a.elapsed_time(b) / reps
 
 
+def queued_ms(fn, reps, sleep_cycles=50_000_000):
+    """Mean card ms of ``fn`` a call: CUDA events around ``reps`` calls
+    enqueued behind a sleep kernel, so the card runs them back to back and
+    no host time falls between them; None when the host took longer to
+    enqueue the calls than the card slept (then host time would count)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    e0.record()
+    torch.cuda._sleep(sleep_cycles)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3
+    b.record()
+    torch.cuda.synchronize()
+    if host >= e0.elapsed_time(a):
+        return None
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes, flops):
     t_b = nbytes / HBM_BPS * 1e3
     t_f = flops / F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def same_bits(a, b):
@@ -1998,6 +2030,7 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
     phase's plane. Returns K9's row, K11's bool timing and the path's
     launch counts."""
     import torch
+    from elasticsearch_tpu_torch.ops.fused_query import K11_COUNT_MAX
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.fused_query import (
         bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
@@ -2098,6 +2131,8 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
         want = topk_merge_plain(*k3a, **k3k)
         check_bitwise(k3o, want, f"bool rescore ({mode}): K3 with sel")
         (_n, k11a, k11k, k11o), = of(calls, "rescore_reorder")
+        if k11a[0].shape[1] > K11_COUNT_MAX:
+            fail(f"bool rescore ({mode}): K11 took its sorting path")
         B = sec.shape[0]
         sel = want[2].long()
         for x, ch in ((k11a[2], sec), (k11a[3], fnd)):
@@ -2116,8 +2151,9 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
     for name in path:
         path[name] += c[name]
     print(f"# bool rescore (window {RESCORE['window']}, over "
-          f"{RESCORE_WT}): K5, K3 with sel, the payload gather and K11 == "
-          f"plain (bitwise) for {', '.join(RESCORE_MODES)}; launches "
+          f"{RESCORE_WT}): K5, K3 with sel, the payload gather and K11 "
+          f"(its counting path, n = {RESCORE_WT}) == plain (bitwise) for "
+          f"{', '.join(RESCORE_MODES)}; launches "
           f"{ {n: v for n, v in c.items() if v} } over {n_rs} dispatches",
           flush=True)
 
@@ -2139,12 +2175,14 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
               flush=True)
     a, kw = k11_calls["total"]
     k11_ms = timed(lambda: rescore_reorder(*a, **kw), reps)
+    k11_dev = queued_ms(lambda: rescore_reorder(*a, **kw), reps)
     k11_plain = timed(lambda: rescore_reorder_body(*a, **kw), 3)
     nb, nf = k11_work(a, kw["k"])
     k11_b = bound(nb, nf)
     print(f"# rescore_reorder (bool, total, n={a[0].shape[1]}): "
-          f"{k11_ms:.4f} ms (bound {k11_b[0]:.6f} ms by {k11_b[1]}), plain "
-          f"{k11_plain:.3f} ms [{card}]", flush=True)
+          f"{k11_ms:.4f} ms (on the card {fmt_ms(k11_dev)}; bound "
+          f"{k11_b[0]:.6f} ms by {k11_b[1]}), plain {k11_plain:.3f} ms "
+          f"[{card}]", flush=True)
     k9_row = dict(name="bool_bm25_topk", route="cuda",
                   source="elasticsearch_tpu_torch/csrc/bool_bm25_topk.cu",
                   replaces="elasticsearch_tpu/ops/fused_query.py:50",
@@ -2156,8 +2194,8 @@ def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
                   device_ms_per_dispatch={},
                   launch={f"bool_{m}": v for m, v in launches_k9.items()})
     a5, kw5 = k5_rec["total"]
-    k11_bool = dict(ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_b[0],
-                    bound_by=k11_b[1],
+    k11_bool = dict(ms=k11_ms, device_ms=k11_dev, plain_ms=k11_plain,
+                    bound_ms=k11_b[0], bound_by=k11_b[1],
                     k5_ms=timed(lambda: bisect_exact_scores(*a5, **kw5),
                                 reps),
                     k5_plain_ms=timed(lambda: bisect_exact_scores_plain(
@@ -2322,6 +2360,55 @@ def k10_sort_path(tplane, kplane, fqs, el, p, reps, card):
     return rows
 
 
+def k11_sort_path(tplane, kplane, fqs, el, p, reps, card):
+    """K11's sorting path (n past ``K11_COUNT_MAX``): the hybrid rescored
+    at rank windows of ``HY_SORT_WINDOW`` (a fused list of 512 + 512
+    entries), in the five score modes. Each call is one launch and bitwise
+    its plain version; these launches count toward no path. Returns a row
+    a mode (n, launches, max abs err, ms; the card's ms for total)."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.fused_query import (
+        K11_COUNT_MAX, rescore_reorder, rescore_reorder_body)
+    from elasticsearch_tpu_torch.parallel.dist_search import (
+        fused_search_device)
+    rs = np.random.RandomState(4322)
+    rows = []
+    for mode in RESCORE_MODES:
+        batch = [dict(f, wt=HY_SORT_WINDOW, wk=HY_SORT_WINDOW,
+                      rescore=dict(RESCORE, terms=[
+                          f"t{t}" for t in rs.choice(el, RESCORE_TERMS,
+                                                     p=p)])) for f in fqs]
+        calls = []
+        n0 = kb.launches["rescore_reorder"]
+        with recording(calls, ("rescore_reorder",)):
+            fused_search_device(tplane, kplane, batch, fusion="rrf",
+                                rescore_mode=mode)
+        torch.cuda.synchronize()
+        (_n, a, kw, o), = of(calls, "rescore_reorder")
+        n = a[0].shape[1]
+        if n <= K11_COUNT_MAX:
+            fail(f"K11 (windows {HY_SORT_WINDOW}, {mode}): n = {n} takes "
+                 f"the counting path")
+        if kb.launches["rescore_reorder"] != n0 + 1:
+            fail(f"K11 (windows {HY_SORT_WINDOW}, {mode}): not one launch "
+                 f"a call")
+        err = check_bitwise(o, rescore_reorder_body(*a, **kw),
+                            f"K11 rescore_reorder's sorting path ({mode})")
+        row = dict(what=f"hybrid rescore (rrf, {mode}), windows "
+                        f"{HY_SORT_WINDOW}", n=n, launches=1,
+                   max_abs_err=err,
+                   ms=timed(lambda: rescore_reorder(*a, **kw), reps))
+        if mode == "total":
+            row["device_ms"] = queued_ms(lambda: rescore_reorder(*a, **kw),
+                                         reps)
+        rows.append(row)
+        print(f"# rescore_reorder's sorting path ({row['what']}, n={n}): "
+              f"equal to its plain version bitwise, {row['ms']:.4f} ms "
+              f"[{card}]", flush=True)
+    return rows
+
+
 def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                reps=20):
     """Phase 9: the one-dispatch hybrid (config #5) through
@@ -2330,8 +2417,9 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
     import torch
     from elasticsearch_tpu_torch.kernels import build as kb
     from elasticsearch_tpu_torch.ops.fused_query import (
-        bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
-        fuse_rank, fuse_rank_plain, rescore_reorder, rescore_reorder_body)
+        K11_COUNT_MAX, bisect_exact_scores, bisect_exact_scores_plain,
+        bool_bm25_topk, fuse_rank, fuse_rank_plain, rescore_reorder,
+        rescore_reorder_body)
     from elasticsearch_tpu_torch.ops.knn import (knn_scan_partials,
                                                  knn_shard_scan_plain)
     from elasticsearch_tpu_torch.ops.topk import topk_merge, topk_merge_plain
@@ -2429,6 +2517,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                       f"hybrid rescore ({mode}): K5, both lists")
         k5_rec[mode] = (a5, kw5)
         (_n, a, kw, o), = of(calls, "rescore_reorder")
+        if a[0].shape[1] > K11_COUNT_MAX:
+            fail(f"hybrid rescore ({mode}): K11 took its sorting path")
         check_bitwise(o, rescore_reorder_body(*a, **kw),
                       f"hybrid rescore ({mode}): K11")
         k11_rec[mode] = (a, kw)
@@ -2441,7 +2531,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
              f"dispatches")
     print(f"# hybrid: sum fusion and rescore ({', '.join(RESCORE_MODES)}; "
           f"window {RESCORE['window']}): K10 (with the rescore payload), K5 "
-          f"(both lists, one launch), K3 and K11 == plain (bitwise); "
+          f"(both lists, one launch), K3 and K11 (its counting path) == "
+          f"plain (bitwise); "
           f"launches "
           f"{ {n: v for n, v in c_extra.items() if v} } over {n_extra} "
           f"dispatches", flush=True)
@@ -2598,6 +2689,7 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
         f, fp = (fuse_rank, fuse_rank_plain) if name == "fuse_rank" else \
             (rescore_reorder, rescore_reorder_body)
         ms = timed(lambda: f(*a, **kw), reps)
+        dev_ms = queued_ms(lambda: f(*a, **kw), reps)
         plain = timed(lambda: fp(*a, **kw), 3)
         if name == "fuse_rank":
             Bq, n_in = a[0].shape[0], a[0].shape[1] + a[2].shape[1]
@@ -2607,13 +2699,14 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
             n_in = a[0].shape[1]
             nb, nf = k11_work(a, kw["k"])
         bms, bby = bound(nb, nf)
-        print(f"# {name} (hybrid, {what}, n={n_in}): {ms:.4f} ms (bound "
-              f"{bms:.6f} ms by {bby}), plain {plain:.3f} ms [{card}]",
-              flush=True)
+        print(f"# {name} (hybrid, {what}, n={n_in}): {ms:.4f} ms (on the "
+              f"card {fmt_ms(dev_ms)}; bound {bms:.6f} ms by {bby}), plain "
+              f"{plain:.3f} ms [{card}]", flush=True)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"elasticsearch_tpu_torch/csrc/{src}", replaces=repl,
-            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms,
+            max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=plain,
+            bound_ms=bms,
             bound_by=bby, library_ms=None,
             library_none="no one PyTorch call fuses two rankings by rank"
             if name == "fuse_rank" else
@@ -2629,6 +2722,8 @@ def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
           f"{kernels[0]['ms_by_fusion']['rrf_rescore_payload']:.4f} ms "
           f"[{card}]", flush=True)
     kernels[0]["sort_path"] = k10_sort_path(tplane, kplane, batches[2], el,
+                                            p, reps, card)
+    kernels[1]["sort_path"] = k11_sort_path(tplane, kplane, batches[2], el,
                                             p, reps, card)
     a5, kw5 = k5_rec["total"]
     out["k5"] = dict(ms=timed(lambda: bisect_exact_scores(*a5, **kw5), reps),
@@ -3165,7 +3260,10 @@ EARLIER_MS = {"K16 bm25_scatter at (e)": 0.3892,
               "K5 bisect_exact_scores at (a)": 0.0411,
               "K5 bisect_exact_scores at (b)": 0.0325,
               "K10 fuse_rank (rrf, windows 100)": 0.0522,
-              "K10 fuse_rank (sum, windows 100)": 0.0371}
+              "K10 fuse_rank (sum, windows 100)": 0.0371,
+              "K11 rescore_reorder on the hybrid rescore": 0.0483,
+              "K11 rescore_reorder on the bool rescore": 0.0511,
+              "K20 tree_eval at (j)": 0.0419}
 #: the K16–K19 wrappers the per-segment path calls, by their kernel entry
 SEG_KERNELS = {"bm25_score": "bm25_scatter",
                "postings_match": "postings_match",
@@ -3748,6 +3846,8 @@ ML_DEFAULT_RIGHT = 0.2       # splits with default_left: false
 ML_INFER_DOCS = 1024         # docs a _infer call
 ML_INFER_CALLS = 20          # timed calls (one warm-up more)
 ML_INGEST_DOCS = 256         # docs through the ingest pipeline, one a time
+ML_DEEP_TREES = 8            # a model past 2,457 nodes a tree:
+ML_DEEP_LEVELS = 12          # 8,191 nodes
 #: kibana_sample_data_flights' 13,059 docs, times ten
 ML_FRAME_DOCS = 131_072
 ML_STEPS = 500               # _train_logreg's default
@@ -3768,21 +3868,21 @@ ML_FLIGHT_FIELDS = ("AvgTicketPrice", "DistanceKilometers", "DistanceMiles",
 ML_CARRIERS = ("Kibana Airlines", "Logstash Airways", "JetBeats", "ES-Air")
 
 
-def ml_model(rng):
+def ml_model(rng, n_trees=ML_TREES, levels=ML_TREE_LEVELS):
     """A ``weighted_sum`` regression ensemble in the trained-model
-    definition format (``Ensemble.java``/``Tree.java``): ML_TREES full
-    binary trees of ML_TREE_LEVELS split levels over ML_FEATURES features,
+    definition format (``Ensemble.java``/``Tree.java``): ``n_trees`` full
+    binary trees of ``levels`` split levels over ML_FEATURES features,
     thresholds and leaves drawn from ``rng``, a fifth of the splits with
     ``default_left: false``."""
     names = [f"f{j:02d}" for j in range(ML_FEATURES)]
-    n_split = 2 ** ML_TREE_LEVELS - 1
+    n_split = 2 ** levels - 1
     n_nodes = 2 * n_split + 1
-    feat = rng.randint(0, ML_FEATURES, (ML_TREES, n_split))
-    thr = rng.randn(ML_TREES, n_split)
-    right = rng.rand(ML_TREES, n_split) < ML_DEFAULT_RIGHT
-    leaf = rng.randn(ML_TREES, n_nodes - n_split) * 0.1
+    feat = rng.randint(0, ML_FEATURES, (n_trees, n_split))
+    thr = rng.randn(n_trees, n_split)
+    right = rng.rand(n_trees, n_split) < ML_DEFAULT_RIGHT
+    leaf = rng.randn(n_trees, n_nodes - n_split) * 0.1
     trees = []
-    for t in range(ML_TREES):
+    for t in range(n_trees):
         nodes = []
         for i in range(n_split):
             node = {"node_index": i, "split_feature": int(feat[t, i]),
@@ -3801,7 +3901,7 @@ def ml_model(rng):
                 "feature_names": names,
                 "aggregate_output": {"weighted_sum": {
                     "weights": [float(w) for w in
-                                rng.uniform(0.5, 1.5, ML_TREES)]}},
+                                rng.uniform(0.5, 1.5, n_trees)]}},
                 "trained_models": trees}}}}
 
 
@@ -3873,6 +3973,52 @@ def numpy_walk(X, feats, thresh, left, right, dleft, depth):
     return idx.astype(np.int32)
 
 
+def check_k20_call(ml, model, arrs, args, out, what):
+    """A recorded K20 call of ``model``'s inference: over the model's own
+    pack, equal to the plain version and to the numpy walk; returns the
+    walk."""
+    import torch
+    X, pack, depth = args
+    if pack is not model._pack:
+        fail(f"{what}: K20 walked another pack than the model's")
+    if not torch.equal(out, ml._eval_trees_plain(X, *pack.arrays, depth)):
+        fail(f"{what}: K20 differs from its plain version")
+    walk = numpy_walk(X.cpu().numpy(), *arrs, depth)
+    if not np.array_equal(out.cpu().numpy(), walk):
+        fail(f"{what}: K20 differs from the numpy walk")
+    return walk
+
+
+def k20_deep_model(svc, ml, kb, card):
+    """A model of deep trees: ``ML_DEEP_TREES`` trees of
+    ``ML_DEEP_LEVELS`` split levels (8,191 nodes, past the 3,000 or so
+    16-byte records a few-docs block stages in 48 KB, so both calls take
+    the batch shape), through ``infer`` at (j)'s batch of docs and at one
+    doc: each call one launch, equal to the plain version and the numpy
+    walk (seed 77). Its launches count toward no path."""
+    rng = np.random.RandomState(77)
+    svc.put_trained_model("deep", ml_model(rng, ML_DEEP_TREES,
+                                           ML_DEEP_LEVELS))
+    model = svc.models["deep"]
+    T, N = model._arrays[0].shape
+    arrs = [a.cpu().numpy() for a in model._dev_arrays]
+    calls = []
+    n0 = kb.launches["tree_eval"]
+    with recording(calls, ["eval_tree_pack"], (ml,)):
+        for n in (ML_INFER_DOCS, 1):
+            svc.infer("deep", {"docs": ml_docs(rng, n)})
+    if kb.launches["tree_eval"] != n0 + 2 or len(calls) != 2:
+        fail(f"deep model: K20 launched {kb.launches['tree_eval'] - n0} "
+             f"times in 2 calls")
+    for (_n, args, _kw, out), n in zip(calls, (ML_INFER_DOCS, 1)):
+        check_k20_call(ml, model, arrs, args, out, f"deep model, n = {n}")
+    print(f"# ml: a model of {T} trees x {N} nodes (depth {model._depth}): "
+          f"K20 at {ML_INFER_DOCS} docs and at one, one launch each, equal "
+          f"to its plain version and the numpy walk [{card}]", flush=True)
+    return dict(trees=T, nodes=N, depth=model._depth,
+                docs=[ML_INFER_DOCS, 1], launches=2, max_abs_err=0.0)
+
+
 def run_ml(card, *, reps=10):
     """Phase 12: the ML path (``xpack/ml.py``) with K20–K22: (j) ``_infer``
     on a 500-tree ensemble, (k) the ``inference`` ingest processor, (l)
@@ -3912,7 +4058,7 @@ def run_ml(card, *, reps=10):
     # ---- (j) _infer ---------------------------------------------------------
     calls = []
     docs = [ml_docs(rng, ML_INFER_DOCS) for _ in range(ML_INFER_CALLS + 1)]
-    with recording(calls, ["_eval_trees"], (ml,)):
+    with recording(calls, ["eval_tree_pack", "pack_tree_nodes"], (ml,)):
         svc.infer("flights-ens", {"docs": docs[0]})          # warm-up
         torch.cuda.synchronize()
         kb.reset_launches()
@@ -3926,6 +4072,8 @@ def run_ml(card, *, reps=10):
     if paths["ml_infer"]["tree_eval"] != ML_INFER_CALLS:
         fail(f"(j): K20 launched {paths['ml_infer']['tree_eval']} times "
              f"in {ML_INFER_CALLS} _infer calls")
+    if of(calls, "pack_tree_nodes"):
+        fail("(j): the model's trees were packed again at inference")
     st_j = latency_stats(lat, ML_INFER_DOCS)
     print(f"# ml (j) _infer: {st_j['qps']:.1f} docs/s, p50 "
           f"{st_j['p50_ms']:.3f} ms, p99 {st_j['p99_ms']:.3f} ms a call of "
@@ -3935,19 +4083,16 @@ def run_ml(card, *, reps=10):
     leaves = model._arrays[5]
     w = np.asarray(model.weights, dtype=np.float32)[:, None, None]
     for ci, (_n, args, kw, out) in enumerate(calls[1:]):
-        if not torch.equal(out, ml._eval_trees_plain(*args, **kw)):
-            fail(f"(j) call {ci}: K20 differs from its plain version")
-        walk = numpy_walk(args[0].cpu().numpy(), *arrs, args[-1])
-        if not np.array_equal(out.cpu().numpy(), walk):
-            fail(f"(j) call {ci}: K20 differs from the numpy walk")
+        walk = check_k20_call(ml, model, arrs, args, out, f"(j) call {ci}")
         vals = (leaves[np.arange(T)[:, None], walk][:, :, 0]
                 * w[:, :, 0]).sum(axis=0)
         got = [r["predicted_value"] for r in results[ci]["inference_results"]]
         if got != [float(v) for v in vals]:
             fail(f"(j) call {ci}: predicted values differ from the numpy "
                  f"walk's weighted sums")
-    print(f"# ml (j): K20 equal to its plain version and to the numpy walk "
-          f"on all {ML_INFER_CALLS} calls; predicted values equal",
+    print(f"# ml (j): K20 (the batch shape) equal to its plain version and "
+          f"to the numpy walk on all {ML_INFER_CALLS} calls, over the pack "
+          f"built once at put_trained_model; predicted values equal",
           flush=True)
 
     # ---- (k) the inference ingest processor ----------------------------------
@@ -3956,7 +4101,7 @@ def run_ml(card, *, reps=10):
         "model_id": "flights-ens", "target_field": "ml.inference"}}]})
     ing = ml_docs(rng, ML_INGEST_DOCS + 1)
     calls_k = []
-    with recording(calls_k, ["_eval_trees"], (ml,)):
+    with recording(calls_k, ["eval_tree_pack", "pack_tree_nodes"], (ml,)):
         pipe.execute(IngestDocument("flights", "w", dict(ing[0])))
         torch.cuda.synchronize()
         kb.reset_launches()
@@ -3971,20 +4116,21 @@ def run_ml(card, *, reps=10):
     if paths["ml_ingest"]["tree_eval"] != ML_INGEST_DOCS:
         fail(f"(k): K20 launched {paths['ml_ingest']['tree_eval']} times "
              f"for {ML_INGEST_DOCS} docs")
+    if of(calls_k, "pack_tree_nodes"):
+        fail("(k): the model's trees were packed again at inference")
     st_k = latency_stats(lat, 1)
     for i, ((_n, args, kw, out), doc) in enumerate(zip(calls_k[1:], outs)):
-        walk = numpy_walk(args[0].cpu().numpy(), *arrs, args[-1])
-        if not (np.array_equal(out.cpu().numpy(), walk) and torch.equal(
-                out, ml._eval_trees_plain(*args, **kw))):
-            fail(f"(k) doc {i}: K20 differs")
+        walk = check_k20_call(ml, model, arrs, args, out, f"(k) doc {i}")
         val = float((leaves[np.arange(T), walk[:, 0], 0] * w[:, 0, 0]).sum())
         res = doc.source["ml"]["inference"]
         if res != {"predicted_value": val, "model_id": "flights-ens"}:
             fail(f"(k) doc {i}: {res} != {val}")
     print(f"# ml (k) ingest: {st_k['qps']:.1f} docs/s, p50 "
           f"{st_k['p50_ms']:.3f} ms, p99 {st_k['p99_ms']:.3f} ms a doc over "
-          f"{ML_INGEST_DOCS} docs; K20 once a doc, equal to its plain "
-          f"version and the numpy walk [{card}]", flush=True)
+          f"{ML_INGEST_DOCS} docs; K20 (the few-docs shape) once a doc, "
+          f"equal to its plain version and the numpy walk [{card}]",
+          flush=True)
+    deep = k20_deep_model(svc, ml, kb, card)
 
     # ---- the analytics' stages ----------------------------------------------
     marks = {}
@@ -4258,28 +4404,42 @@ def run_ml(card, *, reps=10):
           f"{svc.analytics['flights-delay-min']['metrics']['r_squared']:.4f}"
           f" [{card}]", flush=True)
 
-    # ---- K20's times: (j)'s call shape ----------------------------------------
-    _n, args, kw, out = calls[1]
-    Xj = args[0]
-    nj, Fj = Xj.shape
-    k20_ms = timed(lambda: ml._eval_trees(*args, **kw), reps)
-    k20_plain = timed(lambda: ml._eval_trees_plain(*args, **kw), 2)
-    # X once, 20 bytes of each split node and the feat of each leaf, and
-    # the output
-    n_split = int((args[1] >= 0).sum())
-    bms, bby = bound(4 * nj * Fj + 20 * n_split + 4 * (T * N - n_split)
-                     + 4 * T * nj,
-                     T * nj * args[-1])
+    # ---- K20's times: (j)'s call shape, and (k)'s ------------------------------
+    shapes = {}
+    for what, (_n, args, kw, out) in (("batch_j", calls[1]),
+                                      ("single_doc_k", calls_k[1])):
+        X, pack, depth = args
+        nx, Fx = X.shape
+        ms = timed(lambda: ml.eval_tree_pack(*args, **kw), reps)
+        plain = timed(lambda: ml._eval_trees_plain(X, *pack.arrays, depth),
+                      2)
+        dev_ms = queued_ms(lambda: ml.eval_tree_pack(*args, **kw), reps)
+        if nx == 1:
+            # one doc: X's row, the records its walks read (the trees are
+            # full: depth - 1 splits of 16 bytes and a leaf's mark of 4
+            # a tree) and the output
+            nb = 4 * Fx + T * (16 * (depth - 1) + 4) + 4 * T
+        else:
+            # X once, 16 bytes of each split node and the mark of each
+            # leaf, and the output
+            n_split = int((pack.arrays[0] >= 0).sum())
+            nb = 4 * nx * Fx + 16 * n_split + 4 * (T * N - n_split) \
+                + 4 * T * nx
+        bms, bby = bound(nb, T * nx * depth)
+        shapes[what] = dict(n=nx, ms=ms, device_ms=dev_ms, plain_ms=plain,
+                            bound_ms=bms, bound_by=bby)
+        print(f"# tree_eval ({what}: {T} trees x {nx} docs, depth {depth}):"
+              f" {ms:.4f} ms (on the card {fmt_ms(dev_ms)}; bound {bms:.6f} ms "
+              f"by {bby}), plain {plain:.3f} ms, no library call walks "
+              f"trees [{card}]", flush=True)
+    j = shapes["batch_j"]
     rows.insert(0, dict(
         name="tree_eval", route="cuda",
         source="elasticsearch_tpu_torch/csrc/tree_eval.cu",
         replaces="elasticsearch_tpu/xpack/ml.py:380", max_abs_err=0.0,
-        ms=k20_ms, plain_ms=k20_plain, bound_ms=bms, bound_by=bby,
-        library_ms=None, library_call=None,
-        infer=st_j, ingest=st_k))
-    print(f"# tree_eval: {k20_ms:.4f} ms ({T} trees x {nj} docs, depth "
-          f"{args[-1]}; bound {bms:.5f} ms by {bby}), plain {k20_plain:.3f} "
-          f"ms, no library call walks trees [{card}]", flush=True)
+        ms=j["ms"], plain_ms=j["plain_ms"], bound_ms=j["bound_ms"],
+        bound_by=j["bound_by"], library_ms=None, library_call=None,
+        shapes=shapes, deep_model=deep, infer=st_j, ingest=st_k))
     print(f"# peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return rows, paths
@@ -4342,6 +4502,8 @@ def main() -> int:
     k9_row["launch"]["hybrid"] = hy_times["k9"]["launch"]
     hy_rows[1]["ms_by_path"] = {"hybrid": hy_rows[1]["ms"],
                                 "bool": k11_bool["ms"]}
+    hy_rows[1]["device_ms_by_path"] = {"hybrid": hy_rows[1]["device_ms"],
+                                       "bool": k11_bool["device_ms"]}
     for kd in kernels:
         if kd["name"] == "bisect_exact_scores":
             kd["ms_by_path"] = dict(

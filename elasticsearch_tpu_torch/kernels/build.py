@@ -160,10 +160,10 @@ _SIGNATURES = {
     "segment_topk": (
         "es_segment_topk",
         [_P, _P, _L, _I] + [_P] * 4),
-    # X, n, F, feats, thresh, left, right, dleft, T, N, depth, out, stream
+    # X, n, F, nodes, T, N, depth, out, stream
     "tree_eval": (
         "es_tree_eval",
-        [_P, _I, _I] + [_P] * 5 + [_I] * 3 + [_P] * 2),
+        [_P, _I, _I, _P] + [_I] * 3 + [_P] * 2),
     # X, n, f, kk, sq (workspace of n + 1), dk, stream
     "knn_outlier": (
         "es_knn_outlier",

@@ -24,7 +24,8 @@ and the wrappers of kernels K5 (``csrc/bisect_exact_scores.cu``), K9
   counting, a longer one sorted.
 - :func:`rescore_reorder` (K11): the rescore window re-sorted by the
   combined score (``rescore_combine``, five modes), ahead of the tail in
-  its old order.
+  its old order. On the card a query of at most ``K11_COUNT_MAX`` entries
+  is ranked by counting, a longer one sorted.
 
 Arithmetic follows what XLA:CPU compiles for the reference: it contracts
 the rescore's ``qw·primary + rw·secondary`` into ``fma(rw, secondary,
@@ -71,6 +72,12 @@ BOOL_EDGES_MAX = TILE_EDGES_MAX
 #: counting (n² compares, no sort, no workspace); longer ones take its
 #: sorting path (``csrc/fuse_rank.cu``)
 K10_COUNT_MAX = 512
+
+#: K11 ranks a query of at most this many entries by counting (the window
+#: by key counts, the tail and the −inf entries by a prefix count; no
+#: sort, no workspace); longer ones take its sorting path
+#: (``csrc/rescore_reorder.cu``)
+K11_COUNT_MAX = 512
 
 #: rescore score modes in K11's numbering
 RESCORE_MODES = ("total", "multiply", "avg", "max", "min")
@@ -591,6 +598,15 @@ def rescore_reorder_body(vals, ids, secondary, matched, qw, rw, window, *,
     return out_v, out_i
 
 
+@functools.lru_cache(maxsize=256)
+def _rescore_reorder_workspace_bytes(n: int, B: int) -> int:
+    """K11's workspace for B queries of n entries, asked of its C entry
+    once a shape (0 on the counting path, and when a query's sort keys fit
+    shared memory)."""
+    return _kb.query("rescore_reorder", "es_rescore_reorder_workspace_bytes",
+                     n, B)
+
+
 def rescore_reorder(vals, ids, secondary, matched, qw, rw, window, *,
                     mode: str, k: int, pad_id: int):
     """The rescore stage (K11): reorder each query's window of an already
@@ -606,7 +622,8 @@ def rescore_reorder(vals, ids, secondary, matched, qw, rw, window, *,
     (combined score desc, id asc), then the tail's at ``qw · score`` in
     their order, then −inf slots holding ``pad_id``.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K11.
+    A CPU tensor runs the plain version; a CUDA tensor launches K11 (by
+    counting up to ``K11_COUNT_MAX`` entries, else by its sort).
     """
     dev = vals.device
     if dev.type == "cpu":
@@ -628,8 +645,7 @@ def rescore_reorder(vals, ids, secondary, matched, qw, rw, window, *,
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0 or k == 0:
         return out_v, out_i
-    ws_bytes = _kb.query("rescore_reorder",
-                         "es_rescore_reorder_workspace_bytes", n, B)
+    ws_bytes = _rescore_reorder_workspace_bytes(n, B)
     ws = torch.empty(ws_bytes // 4, dtype=torch.int32,
                      device=dev) if ws_bytes else None
     _kb.launch("rescore_reorder", dev, vals.data_ptr(), ids.data_ptr(),

@@ -18,10 +18,13 @@ Design — the compute lives on the card, not in a side-car:
   ``.ml-anomalies-shared`` exactly like the reference's results index, so
   they are searchable with the ordinary query DSL.
 * **Inference** (``inference/``): tree ensembles are flattened into
-  padded ``(tree, node)`` arrays, uploaded to the card once, and walked by
-  one kernel launch a call (K20, ``csrc/tree_eval.cu``): a thread per
-  ``(tree, doc)``, instead of the reference's per-document recursive Java
-  walk. The leaf gather and the weighted sums stay host numpy.
+  padded ``(tree, node)`` arrays, packed on the card once a model into one
+  16-byte record a node (:class:`TreePack`), and walked by one kernel
+  launch a call (K20, ``csrc/tree_eval.cu``: for a batch, a doc tile's
+  rows staged and several walks a thread; for a few docs, a block a tree
+  staged in shared memory and a thread a doc), instead of the
+  reference's per-document recursive Java walk. The leaf gather and the
+  weighted sums stay host numpy.
 * **Dataframe analytics** (``dataframe/``): outlier detection is a
   pairwise-distance kernel (K21, ``csrc/knn_outlier.cu``: the
   ``|x|^2 + |y|^2 - 2 x.y`` form streamed past each row with a running
@@ -30,7 +33,7 @@ Design — the compute lives on the card, not in a side-car:
   multinomial logistic regression, one kernel launch a gradient step
   (K22, ``csrc/logreg_train.cu``).
 
-Each kernel's wrapper (:func:`_eval_trees`, :func:`knn_kdist`,
+Each kernel's wrapper (:func:`eval_tree_pack`, :func:`knn_kdist`,
 :func:`logreg_train`) has its plain PyTorch version beside it, which
 serves CPU tensors only; a CUDA tensor launches the kernel or raises. The
 service and its models run on the card unless the caller passes
@@ -407,17 +410,86 @@ def _eval_trees_plain(X, feats, thresh, left, right, dleft, depth):
     return idx
 
 
+def pack_tree_nodes(feats, thresh, left, right, dleft, F: int):
+    """The trees as K20 reads them: i32[T, N, 4], one 16-byte record a
+    node of (``min(feat, F) << 1 | (dleft != 0)``, or −1 for a leaf;
+    ``thresh``'s f32 bits; ``left``; ``right``). Exact: every feature
+    index ≥ F reads NaN alike, so F stands for all of them, and the index
+    rules act on the node index before the read. Plain torch on the
+    arrays' device."""
+    if not 1 <= F < 1 << 30:
+        raise ValueError(f"pack_tree_nodes: needs 1 <= F < 2^30 features; "
+                         f"got F = {F}")
+    f = torch.where(feats < 0, -1, (feats.clamp_max(F) << 1)
+                    | (dleft != 0).to(torch.int32))
+    return torch.stack([f.to(torch.int32), thresh.view(torch.int32), left,
+                        right], dim=-1).contiguous()
+
+
+class TreePack:
+    """A model's trees for K20: the node arrays ``(feats, thresh, left,
+    right, dleft)`` (:func:`_eval_trees`' inputs, kept for the plain
+    version) and their packed records (:func:`pack_tree_nodes`) over
+    ``F`` features, built and checked once a model."""
+
+    def __init__(self, feats, thresh, left, right, dleft, F: int):
+        T, N = feats.shape
+        if F < 1 or N < 1:
+            raise ValueError(f"TreePack: needs F >= 1 features and N >= 1 "
+                             f"nodes; got F = {F}, N = {N}")
+        dev = _kb.wrapper_device("tree_eval", feats)
+        for name, t, dt in (("feats", feats, torch.int32),
+                            ("thresh", thresh, torch.float32),
+                            ("left", left, torch.int32),
+                            ("right", right, torch.int32),
+                            ("dleft", dleft, torch.int32)):
+            _kb.check(t, name, dt, (T, N), dev)
+        self.arrays = (feats, thresh, left, right, dleft)
+        self.nodes = pack_tree_nodes(feats, thresh, left, right, dleft, F)
+        self.T, self.N, self.F = T, N, F
+        self.device = dev
+
+
+def eval_tree_pack(X, pack: TreePack, depth: int):
+    """Walk every (tree, doc) pair of ``pack``'s trees over X down to its
+    leaf node index.
+
+    X: (n, F) float32, F the pack's. Returns leaf node indices (T, n)
+    int32, after exactly ``depth`` levels, with the reference's index
+    rules (a negative index wraps once, reads clamp to the tree, a feature
+    index past ``F`` reads NaN, a NaN feature follows ``dleft``; the
+    returned index is raw: see ``csrc/tree_eval.cu``). Only X is checked
+    a call; the pack was when it was built.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches K20.
+    """
+    dev = _kb.wrapper_device("tree_eval", X)
+    if dev.type == "cpu":
+        return _eval_trees_plain(X, *pack.arrays, depth)
+    if depth < 0:
+        raise ValueError(f"eval_tree_pack: needs depth >= 0; got {depth}")
+    n = X.shape[0]
+    _kb.check(X, "X", torch.float32, (n, pack.F), dev)
+    if pack.device != dev:
+        raise ValueError(f"tree_eval: the pack is on {pack.device}, X on "
+                         f"{dev}")
+    out = torch.empty((pack.T, n), dtype=torch.int32, device=dev)
+    _kb.launch("tree_eval", dev, X.data_ptr(), n, pack.F,
+               pack.nodes.data_ptr(), pack.T, pack.N, int(depth),
+               out.data_ptr())
+    return out
+
+
 def _eval_trees(X, feats, thresh, left, right, dleft, depth):
     """Walk every (tree, doc) pair down to its leaf node index.
 
     X: (n, f) float32; feats/left/right/dleft: (T, N) int32 (feat = -1
     marks a leaf); thresh: (T, N) float32.  Returns leaf node indices
-    (T, n) int32, after exactly ``depth`` levels, with the reference's
-    index rules (a negative index wraps once, reads clamp to the tree, a
-    feature index past ``f`` reads NaN, a NaN feature follows ``dleft``;
-    the returned index is raw: see ``csrc/tree_eval.cu``).
+    (T, n) int32, after exactly ``depth`` levels (see
+    :func:`eval_tree_pack`, which a model calls with the pack it keeps).
 
-    A CPU tensor runs the plain version; a CUDA tensor launches K20.
+    A CPU tensor runs the plain version; a CUDA tensor packs the trees and
+    launches K20.
     """
     dev = _kb.wrapper_device("tree_eval", X)
     if dev.type == "cpu":
@@ -429,18 +501,8 @@ def _eval_trees(X, feats, thresh, left, right, dleft, depth):
         raise ValueError(f"_eval_trees: needs F >= 1 features, N >= 1 "
                          f"nodes and depth >= 0; got F = {F}, N = {N}, "
                          f"depth = {depth}")
-    _kb.check(X, "X", torch.float32, (n, F), dev)
-    for name, t, dt in (("feats", feats, torch.int32),
-                        ("thresh", thresh, torch.float32),
-                        ("left", left, torch.int32),
-                        ("right", right, torch.int32),
-                        ("dleft", dleft, torch.int32)):
-        _kb.check(t, name, dt, (T, N), dev)
-    out = torch.empty((T, n), dtype=torch.int32, device=dev)
-    _kb.launch("tree_eval", dev, X.data_ptr(), n, F, feats.data_ptr(),
-               thresh.data_ptr(), left.data_ptr(), right.data_ptr(),
-               dleft.data_ptr(), T, N, int(depth), out.data_ptr())
-    return out
+    return eval_tree_pack(X, TreePack(feats, thresh, left, right, dleft, F),
+                          depth)
 
 
 class TrainedModel:
@@ -467,6 +529,7 @@ class TrainedModel:
         self.classification_labels: List[str] = []
         self._arrays = None
         self._dev_arrays = None
+        self._pack = None
         self._depth = 1
         if definition:
             self._parse(definition.get("trained_model") or {})
@@ -551,6 +614,8 @@ class TrainedModel:
         self._dev_arrays = tuple(
             torch.from_numpy(a).to(self.device)
             for a in (feats, thresh, left, right, dleft))
+        self._pack = TreePack(*self._dev_arrays,
+                              F=max(1, len(self.feature_names)))
         self._depth = depth
 
     # -- feature assembly ------------------------------------------------
@@ -594,8 +659,8 @@ class TrainedModel:
                 f"[{self.model_id}] has no model definition")
         X = self._vectorize(docs)
         leaves = self._arrays[5]
-        idx = _eval_trees(torch.from_numpy(X).to(self.device),
-                          *self._dev_arrays, self._depth).cpu().numpy()
+        idx = eval_tree_pack(torch.from_numpy(X).to(self.device),
+                             self._pack, self._depth).cpu().numpy()
         # (T, n)
         per_tree = leaves[np.arange(len(self.trees))[:, None], idx]
         # per_tree: (T, n, C)

@@ -4,16 +4,18 @@
 K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
 (``dense_stream_topk``), K12 (``agg_masked_scan``), K14
 (``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``),
-K7 (``ivf_scan``), K17 (``postings_match``), K5 (``bisect_exact_scores``)
-and K10 (``fuse_rank``) on one card, at the inputs ``chip_smoke.py`` gives
+K7 (``ivf_scan``), K17 (``postings_match``), K5 (``bisect_exact_scores``),
+K10 (``fuse_rank``), K11 (``rescore_reorder``), K20 (``tree_eval``) and
+K18 (``range_mask``) on one card, at the inputs ``chip_smoke.py`` gives
 them on its main paths, of ``chip_smoke.py``'s aggregation, per-segment
 and IVF phases (``aggs``, ``segment``, ``ivf``), and of the pruned route
 and the hybrid path driven (``pruned``, ``hybrid``).
 
     python3 kernel_probe.py [--tree DIR]
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
-                                       k14,k22,k19,k7,k17,k5,k10,aggs,
-                                       segment,ivf,pruned,hybrid]
+                                       k14,k22,k19,k7,k17,k5,k10,k11,
+                                       k20,k18,aggs,segment,ivf,pruned,
+                                       hybrid]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -148,6 +150,24 @@ JSON lines and writes them to ``--out`` as well.
   by kernel and device events a call (``torch.profiler``), whether the
   outputs are the plain version's bits and a digest; ``--variants`` adds
   K5 built at other sizes (``K5_VARIANTS``: T, a block's candidates).
+- K11 at the bool rescore's shape (16 rankings of 100, window 50, k =
+  100), the hybrid rescore's (n = 256, window 50, k = 10) and the hybrid's
+  at windows of 300 (n = 1,024, the sorting path), synthetic rankings of
+  the routes' form (``k11_inputs``): CUDA-event mean, host time a call,
+  device time and device events a call, the bound, a digest, and whether
+  the five modes' outputs are the plain version's bits.
+- K20 at the smoke's 500-tree model (511 nodes, 32 features) at (j)'s
+  call (1,024 docs) and (k)'s (one doc): the same figures and whether
+  the leaf ids are the numpy walk's; then (j) ``_infer`` and (k) the
+  ingest processor driven (docs/s, p50, launches a call). ``--variants``
+  adds builds with the batch block's warps along docs or the walks a
+  thread changed at (j) (``K20_VARIANTS``) and with every n sent to the
+  batch shape at (k) (``K20_FEW_VARIANTS``), each with its card time and
+  whether its leaf ids are the tree's, and (k) driven with the latter in
+  turns with the tree's build.
+- K18 at mix (g)'s price range and (h)'s tag range on the 2^23-doc
+  segment: the same figures, the bound and the ``scatter_reduce_``
+  yardstick.
 - ``pruned``, ``hybrid``: the pruned route (mixes (a), (b)) and the hybrid
   path (rrf, and rescore at total) driven over the smoke's batches: q/s,
   p50, the stages, launches a dispatch, and device events and device ms
@@ -3410,6 +3430,281 @@ def run_k5_k10(rows, reps, which, variants=False):
     torch.cuda.empty_cache()
 
 
+def timed_row(rows, kernel, what, call, plain, reps, **extra):
+    """One row for one wrapper call at a main path's shape: CUDA-event ms,
+    host ms a call (enqueued back to back), card ms a call (CUDA events
+    around calls queued behind a sleep kernel, ``chip_smoke.queued_ms``),
+    device ms by kernel and device events a call (``torch.profiler``),
+    whether the outputs are the plain version's bits, and a digest."""
+    cs = smoke()
+    got, want = call(), plain()
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
+    by_name = cs.device_ms_by_name(call, reps)
+    emit(rows, kernel=kernel, what=what, ms=cs.timed(call, 5 * reps),
+         host_ms=host_ms(call, 5 * reps),
+         queued_ms=cs.queued_ms(call, 5 * reps),
+         device_ms=sum(by_name.values()), by_name=by_name,
+         device_events_a_call=cs.device_events_a_call(call, reps),
+         equals_plain=all(cs.same_bits(x, y) for x, y in zip(got, want)),
+         digest=digest(got), **extra)
+
+
+def k11_inputs(dev, B, n, *, seed):
+    """One K11 call's inputs of the routes' form: B rankings of n entries
+    (scores descending, the last eighth at −inf as a fused list's
+    duplicates leave them), unique ids, the rescore query's scores on
+    about half, the smoke's weights (qw 0.7, rw 1.3) and its window."""
+    import torch
+    rng = np.random.RandomState(seed)
+    vals = -np.sort(-rng.rand(B, n).astype(np.float32), axis=1)
+    vals[:, n - n // 8:] = -np.inf
+    ids = np.stack([rng.choice(1 << 22, n, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    sec = rng.rand(B, n).astype(np.float32)
+    matched = rng.rand(B, n) < 0.5
+    cs = smoke()
+    host = (vals, ids, sec, matched,
+            np.full(B, cs.RESCORE["qw"], np.float32),
+            np.full(B, cs.RESCORE["rw"], np.float32),
+            np.full(B, cs.RESCORE["window"], np.int32))
+    return [torch.from_numpy(x).to(dev) for x in host]
+
+
+def run_k11(rows, reps):
+    """K11 at the smoke's shapes (``k11_inputs``, mode total): the bool
+    rescore (16 queries, n = ``RESCORE_WT`` = 100, k = 100), the hybrid
+    rescore (windows of 100: n = 256, the fused list of two lists padded
+    to 128, k = 10) and the hybrid at windows of 300 (n = 1,024: past
+    ``K11_COUNT_MAX``, the sorting path, k = 10); each in the five modes
+    for equality."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import fused_query as fq
+    dev = torch.device("cuda")
+    for what, n, k in (("bool rescore", cs.RESCORE_WT, 100),
+                       ("hybrid rescore, windows 100 (n = 256)",
+                        2 * (1 << (cs.HY_WINDOW - 1).bit_length()), cs.K),
+                       ("hybrid rescore, windows 300 (n = 1,024)", 1024,
+                        cs.K)):
+        a = k11_inputs(dev, cs.BOOL_BATCH, n, seed=n)
+        same = all(cs.same_bits(x, y) for mode in fq.RESCORE_MODES
+                   for x, y in zip(
+                       fq.rescore_reorder(*a, mode=mode, k=k, pad_id=-1),
+                       fq.rescore_reorder_body(*a, mode=mode, k=k,
+                                               pad_id=-1)))
+        kw = dict(mode="total", k=k, pad_id=-1)
+        nb, nf = cs.k11_work(a, k)
+        timed_row(rows, "rescore_reorder", what,
+                  lambda a=a, kw=kw: fq.rescore_reorder(*a, **kw),
+                  lambda a=a, kw=kw: fq.rescore_reorder_body(*a, **kw),
+                  reps, B=cs.BOOL_BATCH, n=n, k=k,
+                  window=cs.RESCORE["window"], five_modes_equal_plain=same,
+                  counting_path=n <= getattr(fq, "K11_COUNT_MAX", 0),
+                  bound_ms=cs.bound(nb, nf)[0])
+
+
+def k20_call(ml, model):
+    """The call a model's inference makes: the pack's wrapper where the
+    tree has one, else ``_eval_trees`` over the node arrays."""
+    if hasattr(ml, "eval_tree_pack"):
+        return lambda X: ml.eval_tree_pack(X, model._pack, model._depth)
+    return lambda X: ml._eval_trees(X, *model._dev_arrays, model._depth)
+
+
+#: builds of csrc/tree_eval.cu with the batch block's warps along docs
+#: (K20_DOC_WARPS) or the walks a thread (K20_WALKS) changed, timed at (j)
+K20_VARIANTS = {
+    f"doc_warps{w}": [("#define K20_DOC_WARPS 1 ",
+                       f"#define K20_DOC_WARPS {w} ")] for w in (2, 4, 8)}
+K20_VARIANTS.update({
+    f"walks{w}": [("#define K20_WALKS 4 ", f"#define K20_WALKS {w} ")]
+    for w in (2, 8)})
+#: a build with every n sent to the batch shape (no few-docs shape),
+#: timed at (k) and driven there
+K20_FEW_VARIANTS = {"batch_only": [("#define K20_FEW_DOCS 8 ",
+                                    "#define K20_FEW_DOCS 0 ")]}
+
+
+_K20_LIBS = {}
+
+
+def k20_libs(names):
+    """The variant builds ``names`` of ``K20_VARIANTS`` and
+    ``K20_FEW_VARIANTS``, typed, each built once a process; None for one
+    whose edit target is not in the source."""
+    from elasticsearch_tpu_torch.kernels import build as kb
+    edits = {**K20_VARIANTS, **K20_FEW_VARIANTS}
+    for name in names:
+        if name not in _K20_LIBS:
+            lib = build_variant(str(kb.PKG_DIR.parent), name, edits[name],
+                                scratch_dir(), source="tree_eval")
+            if lib is not None:
+                typed_variant("tree_eval", lib)
+            _K20_LIBS[name] = lib
+    return {name: _K20_LIBS[name] for name in names}
+
+
+def k20_variants(call, reps, libs):
+    """Each build of ``libs`` on one recorded K20 call: its card ms (queued
+    events and ``torch.profiler``) beside the tree's build's, and whether
+    its leaf ids are the tree's."""
+    import torch
+    cs = smoke()
+    want = call()
+    out = {"tree": dict(queued_ms=cs.queued_ms(call, 5 * reps),
+                        device_ms=sum(cs.device_ms_by_name(
+                            call, reps).values()))}
+    for name, lib in libs.items():
+        if lib is None:
+            out[name] = "not measured (edit target missing)"
+            continue
+        with swapped_library("tree_eval", lib):
+            got = call()
+            torch.cuda.synchronize()
+            out[name] = dict(
+                queued_ms=cs.queued_ms(call, 5 * reps),
+                device_ms=sum(cs.device_ms_by_name(call, reps).values()),
+                same=bool(torch.equal(got, want)))
+    return out
+
+
+def run_k20(rows, reps, variants=False):
+    """K20 at the ML path's shapes: the smoke's 500-tree model (511 nodes,
+    depth 9, 32 features) at (j)'s call (1,024 docs) and (k)'s (one doc),
+    each with the bound; then both paths driven: (j) ``_infer`` of 1,024
+    docs a call (``ML_INFER_CALLS`` calls) and (k) the ``inference``
+    ingest processor a doc at a time (``ML_INGEST_DOCS``): docs/s and
+    p50, launches a call."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ingest.pipeline import (IngestDocument,
+                                                         Pipeline)
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.xpack import ml
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1234)
+    svc = ml.MlService(lambda index, body: {"hits": {"hits": []}},
+                       lambda index, lines: None, device=dev)
+    svc.put_trained_model("m", cs.ml_model(rng))
+    model = svc.models["m"]
+    T, N = model._arrays[0].shape
+    f = k20_call(ml, model)
+    docs = [cs.ml_docs(rng, cs.ML_INFER_DOCS)
+            for _ in range(cs.ML_INFER_CALLS + 1)]
+    for what, n in (("(j) _infer, a call", cs.ML_INFER_DOCS),
+                    ("(k) ingest, one doc", 1)):
+        X = torch.from_numpy(model._vectorize(docs[0][:n])).to(dev)
+        arrs = model._dev_arrays
+        n_split = int((arrs[0] >= 0).sum())
+        walk = cs.numpy_walk(X.cpu().numpy(),
+                             *[a.cpu().numpy() for a in arrs], model._depth)
+        if n == 1:          # the nodes one doc's walks read
+            nodes = model._depth * T
+            nbytes = 4 * X.shape[1] + 16 * nodes + 4 * T
+        else:
+            nbytes = 4 * n * X.shape[1] + 16 * n_split \
+                + 4 * (T * N - n_split) + 4 * T * n
+        timed_row(rows, "tree_eval", what, lambda X=X: f(X),
+                  lambda X=X: ml._eval_trees_plain(X, *arrs, model._depth),
+                  reps, T=T, N=N, n=n, depth=model._depth,
+                  equals_numpy_walk=bool(np.array_equal(
+                      f(X).cpu().numpy(), walk)),
+                  bound_ms=cs.bound(nbytes, T * n * model._depth)[0],
+                  variants=k20_variants(lambda X=X: f(X), reps, k20_libs(
+                      K20_VARIANTS if n > 1 else K20_FEW_VARIANTS))
+                  if variants else None)
+    svc.infer("m", {"docs": docs[0]})
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    lat = np.zeros(cs.ML_INFER_CALLS)
+    for i in range(cs.ML_INFER_CALLS):
+        t1 = time.perf_counter()
+        svc.infer("m", {"docs": docs[i + 1]})
+        lat[i] = time.perf_counter() - t1
+    emit(rows, kernel="ml_phase", what="(j) _infer",
+         **cs.latency_stats(lat, cs.ML_INFER_DOCS),
+         launches_a_call=kb.launches["tree_eval"] / cs.ML_INFER_CALLS)
+    ml.registry_bind(svc)
+    pipe = Pipeline("p", {"processors": [{"inference": {
+        "model_id": "m", "target_field": "ml.inference"}}]})
+    ing = cs.ml_docs(rng, cs.ML_INGEST_DOCS + 1)
+
+    def drive_k(what):
+        pipe.execute(IngestDocument("i", "w", dict(ing[0])))
+        torch.cuda.synchronize()
+        kb.reset_launches()
+        lat = np.zeros(cs.ML_INGEST_DOCS)
+        for i in range(cs.ML_INGEST_DOCS):
+            t1 = time.perf_counter()
+            pipe.execute(IngestDocument("i", str(i), dict(ing[i + 1])))
+            lat[i] = time.perf_counter() - t1
+        emit(rows, kernel="ml_phase", what=what, **cs.latency_stats(lat, 1),
+             launches_a_doc=kb.launches["tree_eval"] / cs.ML_INGEST_DOCS)
+
+    # three drives in a row: the spread within one process
+    for r in range(3):
+        drive_k(f"(k) ingest, a doc at a time, drive {r + 1}")
+    if variants:
+        # (k) with each few-docs variant in turns with this build, in one
+        # process, in the order this, variant, variant, this, twice
+        libs = {k: v for k, v in k20_libs(K20_FEW_VARIANTS).items() if v}
+        for name, lib in libs.items():
+            for r, order in enumerate(("ab", "ba", "ab", "ba")):
+                for who in order:
+                    if who == "a":
+                        drive_k(f"(k) ingest, this build, turn {r + 1}")
+                        continue
+                    with swapped_library("tree_eval", lib):
+                        drive_k(f"(k) ingest, {name}, turn {r + 1}")
+
+
+def run_k18(rows, reps):
+    """K18 on the 2^23-doc segment at mix (g)'s price range (i32 ranks)
+    and (h)'s keyword range (f32 ordinals), recorded from the searches:
+    CUDA-event mean, host time, device time, device events a call, the
+    bound (8 bytes a pair, a byte a doc) and its share, the library
+    yardstick (``scatter_reduce_`` amax after the compare) and whether the
+    mask is the plain version's."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import masks as masks_mod
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    tag, price = cs.segment_columns(cs.N_DOCS)
+    seg, mapper = cs.segment_index(corpus, tag, price, dev)
+    del corpus
+    searcher = ShardSearcher([seg], mapper)
+    p25, p75 = (float(x) for x in np.percentile(price, [25, 75]))
+    rec = []
+    with cs.recording(rec, ("range_mask",), (masks_mod,)):
+        searcher.search({"query": {"bool": {"filter": [{"range": {
+            "price": {"gte": p25, "lt": p75}}}]}}, "size": 10})
+        searcher.search({"query": {"range": {"tag": {
+            "gte": "tag010", "lt": "tag040"}}}, "size": 10})
+    for (_n, a, kw, _o), what in zip(rec, ("(g) price range, i32 ranks",
+                                          "(h) tag range, f32 ordinals")):
+        M = a[0].shape[0]
+        n_pad = kw["segment_pad"]
+        hit = (a[0] >= a[2]) & (a[0] <= a[3])
+        m = torch.zeros(n_pad + 1, dtype=torch.uint8, device=dev)
+        d = a[1].long()
+        lib_ms = cs.timed(lambda: m.scatter_reduce_(
+            0, d, hit.to(torch.uint8), "amax"), 5 * reps)
+        bms = cs.bound(8 * M + n_pad, 2 * M)[0]
+        timed_row(rows, "range_mask", what,
+                  lambda a=a, kw=kw: masks_mod.range_mask(*a, **kw),
+                  lambda a=a, kw=kw: masks_mod.range_mask_plain(*a, **kw),
+                  reps, pairs=M, n_pad=n_pad, bound_ms=bms,
+                  library_ms=lib_ms)
+    del seg, searcher
+    torch.cuda.empty_cache()
+
+
 def run_aggs_phase(rows):
     """Config #3's aggregation phase of ``chip_smoke.py`` (``run_aggs``)
     against ``--tree``'s package: the route's aggs/s, p50 and p99 (its
@@ -3460,9 +3755,10 @@ def main() -> int:
     p.add_argument("--tree", default=HERE)
     p.add_argument("--kernels",
                    default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22,k19,"
-                   "k7,k17,k5,k10",
+                   "k7,k17,k5,k10,k11,k20,k18",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
-                   "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10 to "
+                   "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10, k11, "
+                   "k20, k18 to "
                    "probe, and aggs, segment and ivf (chip_smoke.py's "
                    "aggregation, per-segment and IVF phases) and pruned "
                    "and hybrid (the pruned route and the hybrid path "
@@ -3520,6 +3816,12 @@ def main() -> int:
                opts.k7_ks and [int(k) for k in opts.k7_ks.split(",")])
     if "k17" in which:
         run_k17(rows, opts.reps)
+    if "k11" in which:
+        run_k11(rows, opts.reps)
+    if "k20" in which:
+        run_k20(rows, opts.reps, opts.variants)
+    if "k18" in which:
+        run_k18(rows, opts.reps)
     if which & {"k5", "k10", "pruned", "hybrid"}:
         run_k5_k10(rows, opts.reps, which, opts.variants)
     if "aggs" in which:

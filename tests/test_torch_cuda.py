@@ -19,7 +19,8 @@ from elasticsearch_tpu_torch.ops.blockmax import (blockmax_scan,
                                                   blockmax_scan_plain,
                                                   blockmax_scan_plan)
 from elasticsearch_tpu_torch.ops.fused_query import (
-    BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, K10_COUNT_MAX,
+    BOOL_SPARSE_TILE_SHIFT, BOOL_TILE_SHIFT, K10_COUNT_MAX, K11_COUNT_MAX,
+    RESCORE_MODES,
     bisect_exact_scores, bisect_exact_scores_plain, bool_bm25_topk,
     bool_bm25_topk_plain,
     bool_bm25_topk_plan, fuse_rank, fuse_rank_plain, rescore_reorder,
@@ -51,9 +52,9 @@ from elasticsearch_tpu_torch.xpack import ml as tml
 from torch_cases import (agg_pairs_case, assert_topk_close, bool_case,
                          build_segments, csr_case, dense_case, fusion_case,
                          full_tree_arrays, hit_ids, knn_tol, logreg_case,
-                         outlier_frame, pairs_case, query_mix, runs_case,
-                         sparse_case, topk_lists_case, topk_scores,
-                         tree_arrays_case)
+                         outlier_frame, pairs_case, query_mix,
+                         rescore_case, runs_case, sparse_case,
+                         topk_lists_case, topk_scores, tree_arrays_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -1419,6 +1420,25 @@ def test_k11_bitwise_equals_plain(cuda, mode, n):
         _same(got, want)
 
 
+@pytest.mark.parametrize("mode", RESCORE_MODES)
+@pytest.mark.parametrize("n", [1, 100, 200, K11_COUNT_MAX, K11_COUNT_MAX + 1,
+                               1024])
+def test_k11_counting_and_sorting_paths_bitwise(cuda, mode, n):
+    """K11 on both sides of its counting limit (n = 512 counts, 513 sorts)
+    and at the serving shapes (bool n = 100, hybrid 200, windows of 300:
+    1,024) equals its plain version bit for bit: ties, ±0 scores, −inf
+    holes in mid-ranking, an all −inf row, windows of 0 to past n, k
+    below the window, at n and past n; one launch a call."""
+    args = [_t(x, cuda) for x in rescore_case(n + 7, 9, n, mode)]
+    for k in sorted({1, 10, 100, n, n + 4}):
+        n0 = kb.launches["rescore_reorder"]
+        got = rescore_reorder(*args, mode=mode, k=k, pad_id=1 << 30)
+        assert kb.launches["rescore_reorder"] == n0 + 1
+        want = rescore_reorder_body(*args, mode=mode, k=k, pad_id=1 << 30)
+        torch.cuda.synchronize()
+        _same(got, want)
+
+
 @pytest.mark.parametrize("m,k,seg", [(100, 100, False), (64, 10, True),
                                      (15000, 10000, False)])
 def test_k3_sel_equals_plain_positions(cuda, m, k, seg):
@@ -2053,6 +2073,48 @@ def test_k20_equals_plain(cuda, case):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("case", [
+    dict(kind="full", T=500, depth=8, n=1, F=32),        # (k): one doc
+    dict(kind="full", T=500, depth=8, n=8, F=32),        # few docs' last n
+    dict(kind="full", T=500, depth=8, n=9, F=32),        # the batch's first
+    dict(kind="full", T=500, depth=8, n=1024, F=32),     # (j)
+    dict(kind="full", T=5, depth=12, n=40, F=16),        # N = 8191 > 2,457
+    dict(kind="full", T=3, depth=12, n=1, F=16),
+    dict(kind="edges", T=70, N=9, n=3, F=4),
+    dict(kind="edges", T=70, N=9, n=100, F=4),
+    dict(kind="edges", T=5, N=300, n=70, F=400),         # rows not staged
+    dict(kind="edges", T=33, N=17, n=6, F=2100)])        # rows not staged
+def test_k20_both_shapes_equal_plain(cuda, case):
+    """K20's few-docs shape (n <= 8: a block a tree staged in shared
+    memory, a thread a doc) and its batch shape (doc tiles, tree groups),
+    which also takes a few docs over trees too large to stage;
+    X rows staged and read from device memory, trees of up to 8,191
+    nodes, dleft of -1 and 2: the leaf ids of a pack built once equal the
+    plain version's, one launch a call."""
+    c = dict(case)
+    kind, depth = c.pop("kind"), c.pop("depth", 7)
+    if kind == "edges":
+        arrs = tree_arrays_case(40 + c["T"] + c["n"], **c)
+        arrs["dleft"] = np.random.RandomState(c["n"]).choice(
+            np.array([-1, 0, 1, 2], np.int32), arrs["dleft"].shape)
+    else:
+        arrs = full_tree_arrays(41, T=c["T"], depth=depth, F=c["F"],
+                                n=c["n"])
+        depth += 1
+    args = [_t(arrs[k], cuda) for k in TREE_KEYS]
+    pack = tml.TreePack(*args[1:], F=c["F"])
+    want = tml._eval_trees_plain(*args, depth)
+    for _ in range(2):
+        n0 = kb.launches["tree_eval"]
+        got = tml.eval_tree_pack(args[0], pack, depth)
+        assert kb.launches["tree_eval"] == n0 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    for d in (0, 1):
+        assert torch.equal(tml.eval_tree_pack(args[0], pack, d),
+                           tml._eval_trees_plain(*args, d))
+
+
 @pytest.mark.parametrize("n,f,kk,dups", [
     (2, 1, 1, 0), (3, 8, 2, 0), (200, 8, 5, 0), (200, 8, 199, 0),
     (1000, 8, 5, 30), (1000, 20, 16, 0), (3000, 3, 128, 0),
@@ -2174,9 +2236,8 @@ def test_ml_kernels_refuse_what_they_cannot_launch(cuda):
                        "got F = 5, N = 0, depth = 3"):
         tml._eval_trees(Xb, feats, feats.float(), feats, feats, feats, 3)
     with pytest.raises(RuntimeError, match="tree_eval: " + size_msg):
-        kb.launch("tree_eval", cuda, Xb.data_ptr(), 64, 5, ws.data_ptr(),
-                  ws.data_ptr(), ws.data_ptr(), ws.data_ptr(),
-                  ws.data_ptr(), 2, 0, 3, ws.data_ptr())
+        kb.launch("tree_eval", cuda, Xb.data_ptr(), 64, 5, ws.data_ptr(), 2,
+                  0, 3, ws.data_ptr())
     assert kb.launches == before
 
 

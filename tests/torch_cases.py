@@ -657,3 +657,35 @@ def logreg_case(seed, n, f, C, *, bad_labels=False):
         y[::17] = C + 1
         y[5::23] = -1
     return X, y
+
+
+def rescore_case(seed, B, n, mode):
+    """K11's inputs (vals, ids, secondary, matched, qw, rw, window) for B
+    rankings of n entries with what its counting path must keep: tied
+    combined scores (few score values), ±0 scores (+0.0 and −0.0 entries,
+    zero secondaries where the mode's zero sign is the IEEE sum's or
+    product's), −inf holes in the middle of a ranking, an all −inf row,
+    and windows of 0, 1, mid, n and past n; ids unique in a row."""
+    rng = np.random.RandomState(seed)
+    vals = -np.sort(-rng.choice(np.array(
+        [0.0, 0.5, 1.0, 1.5, 2.0, 4.0], np.float32), (B, n)), axis=1)
+    zero = vals == 0
+    vals[zero & (rng.rand(B, n) < 0.5)] = np.float32(-0.0)
+    for b in range(B):
+        if b % 4 == 2:          # holes in mid-ranking
+            vals[b, rng.rand(n) < 0.2] = -np.inf
+        elif b % 4 == 3:        # a -inf tail
+            vals[b, rng.randint(0, n + 1):] = -np.inf
+    vals[B - 1] = -np.inf
+    ids = np.stack([rng.choice(1 << 20, n, replace=False)
+                    for _ in range(B)]).astype(np.int32)
+    sec_set = [0.0, -0.0, 0.25, 1.0, 3.0] if mode in ("total", "multiply",
+                                                       "avg") else \
+        [0.25, 1.0, 3.0, -0.5]
+    sec = rng.choice(np.array(sec_set, np.float32), (B, n))
+    matched = rng.rand(B, n) < 0.6
+    qw = rng.choice(np.array([0.7, 1.0, 2.0, -1.0], np.float32), B)
+    rw = rng.choice(np.array([1.3, 0.5, 1.0, -2.0], np.float32), B)
+    wins = [0, 1, n // 2, n, n + 9, 5, max(n - 3, 0), 50]
+    window = np.array([wins[b % len(wins)] for b in range(B)], np.int32)
+    return vals, ids, sec, matched, qw, rw, window
