@@ -118,9 +118,11 @@ times its size). Phases, each fatal on failure:
     three masks, K12's counts and sums, K13's register max (equal to
     ``host_register_max``), K14's bucket counts and sums and K15; K12–K15
     against their plain versions (integers, picks, min and max bitwise;
-    f32 sums within 2^-22 of their |v| mass); the path's launches counted
-    alone; each kernel's time beside its bound, plain version and
-    library call;
+    f32 sums within 2^-22 of their |v| mass); K13 also where each of its
+    fallbacks runs (``k13_edge_checks``: a 0.1 % mask, a run with no
+    masked pair, ordinal V and past it, ranks at count − 1 of the last
+    run); the path's launches counted alone; each kernel's time beside
+    its bound, plain version and library call;
 12. the ML path (:func:`run_ml`, ``xpack/ml.py``) through ``MlService`` on
     the card, all from ``RandomState(1234)``: (j) ``_infer`` of a
     ``weighted_sum`` ensemble of 500 full trees of depth 8 (511 nodes) over
@@ -2760,6 +2762,7 @@ AGG_QS = (50.0, 95.0, 99.0)  # Hazen
 AGG_TIMED = 32               # timed aggs (one warm-up more)
 AGG_CHECKED = 4              # aggs held against the numpy reference
 AGG_OTHER = 3                # masks through the other kernels' calls
+AGG_SPARSE = 0.001           # K13's fallbacks: a mask this sparse
 #: the histogram over the fare column (lognormal(3, 1)): 573 buckets on
 #: the full-size run, 1,024 padded, under MAX_DEVICE_BUCKETS
 AGG_HIST_INTERVAL = 10.0
@@ -2809,6 +2812,131 @@ def agg_reference(mask_h, ords_doc, off, docs_s, vals_s, qs):
         hazen.append(np.percentile(run.astype(np.float64), qs,
                                    method="hazen"))
     return top, cnt[top], np.asarray(picked, np.float64), np.asarray(hazen)
+
+
+def k13_hi_searched(c, offsets, ordinals, lo, hi):
+    """How many pick entries' hi lies 32 or more entries after lo's
+    answer in c: past the 32 entries K13 reads first, so searched."""
+    import torch
+    o = ordinals.long().clamp(0, offsets.shape[0] - 1)
+    base = c[offsets[o].long()][:, None]
+    j_lo = torch.searchsorted(c, (base + lo + 1).to(torch.int32))
+    j_hi = torch.searchsorted(c, (base + hi + 1).to(torch.int32))
+    return int((j_hi >= j_lo + 32).sum())
+
+
+def k13_window_missed(c, offsets):
+    """How many runs with a masked pair have their last one before their
+    last 32 pairs: K13's register pass searches those."""
+    import torch
+    a, b = offsets[:-1].long(), offsets[1:].long()
+    st, en = c[a], c[b]
+    return int(((en > st) & (torch.searchsorted(c, en) <= b - 31)
+                & (b - 31 > a + 1)).sum())
+
+
+def k13_pick_bytes(c, offsets, vals, ordinals, lo, hi, frac):
+    """The bytes K13's pick must move at these inputs, each entry once:
+    the ordinals, ranks, fractions and results; the offsets and c at the
+    picked runs' ends; c on both sides of each answer j (c[j - 1] < t <=
+    c[j] shows that j is the lower bound of target t) and the value
+    picked at j - 1."""
+    import torch
+    V, n_c, M = offsets.shape[0] - 1, c.shape[0], vals.shape[0]
+    o = ordinals.long().clamp(0, V)
+    ends = torch.cat([o, o[o < V] + 1]).unique()
+    base = c[offsets[o].long()][:, None]
+    j = torch.searchsorted(c, torch.cat([base + lo + 1, base + hi + 1], 1)
+                           .to(torch.int32).contiguous()).reshape(-1)
+    near = torch.cat([j - 1, j])
+    c_read = torch.cat([offsets[ends].long(),
+                        near[(near >= 0) & (near < n_c)]]).unique()
+    picked = (j - 1).clamp(0, M - 1).unique()
+    n_in = ordinals.numel() + lo.numel() + hi.numel() + frac.numel()
+    return 4 * (n_in + lo.numel() + ends.numel() + c_read.numel()
+                + picked.numel())
+
+
+def k13_register_bytes(c, offsets, rhos):
+    """The bytes K13's register pass must move at these inputs, each entry
+    once: the offsets, c at every run's ends, c on both sides of the last
+    masked pair's answer j of each run that has one (c[j - 1] < c[b] <=
+    c[j]), the rho at j - 1 and the registers written."""
+    import torch
+    V, M = offsets.shape[0] - 1, rhos.shape[0]
+    a, b = offsets[:-1].long(), offsets[1:].long()
+    en = c[b]
+    live = en > c[a]
+    j = torch.searchsorted(c, en[live])
+    c_read = torch.cat([offsets.long(), j - 1, j]).unique()
+    picked = (j - 1).clamp(0, M - 1).unique()
+    return 4 * ((V + 1) + c_read.numel() + picked.numel() + V)
+
+
+def k13_edge_checks(off_d, docs_d, vals_d, hll, n_docs, n_pad):
+    """K13 bitwise against its plain versions, one launch a call, where
+    each of its fallbacks runs: an ``AGG_SPARSE`` mask over the route's
+    columns with run V // 2's docs masked out (no masked pair) and over
+    the HLL pairs. The pick takes every ordinal's Hazen ranks (hi's answer
+    mostly past the 32 entries after lo's), ordinals V and V + 7 (no run:
+    clamped to V) and ranks at count − 1 of run V − 1; the register pass
+    mostly misses the run's last 32 pairs. Returns how many entries and
+    runs took each path."""
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import aggs
+    dev = off_d.device
+    rng = np.random.default_rng(4321)
+    sparse = np.zeros(n_pad, bool)
+    sparse[:n_docs] = rng.random(n_docs, dtype=np.float32) < AGG_SPARSE
+    mask_s = torch.from_numpy(sparse).to(dev)
+    del sparse
+    off_h = off_d.cpu().numpy()
+    V = off_h.shape[0] - 1
+    empty = V // 2
+    mask_s[docs_d[off_h[empty]:off_h[empty + 1]].long()] = False
+    counts, c = aggs.masked_rank_prefix(off_d, docs_d, mask_s)
+    cnt = counts.cpu().numpy()
+    if cnt[empty] != 0:
+        fail(f"aggs: K13 edges: run {empty} has {cnt[empty]} masked pairs")
+    lo, hi, frac = aggs.hazen_ranks(cnt, AGG_QS)
+    n_last = int(cnt[V - 1])
+    edge_lo = np.array([[0, 1, 2], [0, 1, 2],
+                        [n_last - 1, max(n_last - 2, 0), 0]], np.int32)
+    edge_hi = np.array([[1, 2, 3], [1, 2, 3],
+                        [n_last - 1, max(n_last - 1, 0), min(1, n_last)]],
+                       np.int32)
+    ords = np.concatenate([np.arange(V), [V, V + 7, V - 1]]).astype(np.int32)
+    lo = np.concatenate([lo, edge_lo])
+    hi = np.concatenate([hi, edge_hi])
+    frac = np.concatenate([frac, np.full((3, lo.shape[1]), 0.375,
+                                         np.float32)])
+    args = (c, off_d, vals_d) + tuple(torch.from_numpy(x).to(dev)
+                                      for x in (ords, lo, hi, frac))
+    n0 = kb.launches["agg_rank_pick"]
+    got = aggs.rank_pick(*args)
+    if kb.launches["agg_rank_pick"] != n0 + 1:
+        fail("aggs: K13 (pick) took more than one launch")
+    if not same_bits(got, aggs.rank_pick_plain(*args)):
+        fail(f"aggs: K13 (pick) differs from its plain version at a "
+             f"{AGG_SPARSE:.1%} mask or an edge ordinal")
+    hi_searched = k13_hi_searched(c, off_d, *args[3:6])
+    h_off = hll["off_dev"]
+    hc = aggs.masked_rank_prefix(h_off, hll["docs_dev"], mask_s)[1]
+    n0 = kb.launches["agg_rank_pick"]
+    regs = aggs.register_max(hc, h_off, hll["rhos_dev"])
+    if kb.launches["agg_rank_pick"] != n0 + 1:
+        fail("aggs: K13 (registers) took more than one launch")
+    if not same_bits(regs, aggs.register_max_plain(hc, h_off,
+                                                   hll["rhos_dev"])):
+        fail(f"aggs: K13 (registers) differs from its plain version at a "
+             f"{AGG_SPARSE:.1%} mask")
+    missed = k13_window_missed(hc, h_off)
+    if hi_searched == 0 or missed == 0:
+        fail(f"aggs: K13 edges reached no fallback (hi {hi_searched}, "
+             f"registers {missed})")
+    return dict(pick=int(lo.size), empty=empty, hi_searched=hi_searched,
+                registers=h_off.shape[0] - 1, window_missed=missed)
 
 
 def agg_sum_tol(abs_mass):
@@ -3036,6 +3164,7 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
     if not same_bits(aggs.rank_pick(*k13_args),
                      aggs.rank_pick_plain(*k13_args)):
         fail("aggs: K13 (pick) differs from its plain version")
+    k13_edges = k13_edge_checks(off_d, docs_d, vals_d, hll, n_docs, n_pad)
     print(f"# aggs kernels == plain: K12 prefix/counts, K13 pick/registers, "
           f"K14 counts, K15 count/min/max bitwise (registers == "
           f"host_register_max); f32 sums within 2^-22 of their |v| mass: "
@@ -3043,11 +3172,18 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
           f"{errs['agg_bucket_reduce']:.3g}, K15 {errs['agg_metrics']:.3g} "
           f"(largest |kernel - plain|); launches on the path "
           f"{ {n: v for n, v in path.items() if v} }", flush=True)
+    print(f"# agg_rank_pick fallbacks == plain at a "
+          f"{AGG_SPARSE:.1%} mask: pick {k13_edges['pick']} entries "
+          f"(ordinal {k13_edges['empty']} with no masked pair, ordinals V "
+          f"and V + 7, ranks at count - 1 of run V - 1), "
+          f"{k13_edges['hi_searched']} of them hi past the 32-entry "
+          f"window; registers {k13_edges['registers']} runs, "
+          f"{k13_edges['window_missed']} past the run's last 32 pairs; "
+          f"one launch a call", flush=True)
 
     # ---- times -------------------------------------------------------------
     o = other[0]
     md = o["mask"]
-    log_c = int(np.ceil(np.log2(n_docs + 1))) + 1
 
     def lib_k12():
         cc = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
@@ -3099,10 +3235,9 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
          lambda: aggs.rank_pick(*k13_args),
          lambda: aggs.rank_pick_plain(*k13_args),
          lib_k13, "torch.searchsorted + gather",
-         # ordinals, offsets and bases, lo/hi/frac, the probes of two
-         # binary searches, two gathered values, the result
-         B * 12 + B * R * 12 + 2 * B * R * log_c * 4 + B * R * 12,
-         2 * B * R * log_c, {
+         # ordinals, lo/hi/frac, the runs' ends, c around each answer,
+         # the values picked, the result; a lerp an entry
+         k13_pick_bytes(*k13_args), 3 * B * R, {
              f"registers ({hll['m']}, K12 prefix first)": lambda:
              aggs.masked_register_max(hll["off_dev"], hll["docs_dev"],
                                       hll["rhos_dev"], md)}),
@@ -3172,35 +3307,51 @@ def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
         sums_library_call="torch.bincount(weights=) after the gather "
                           "(float atomics: not the same bits run to run)")
     # K13's register mode alone on the HLL prefix, beside its bound (the
-    # offsets, c at both ends of a run and a lower-bound search's probes,
-    # the rho and the register a run) and a library call computing the
-    # whole masked register max (scatter_reduce_ amax after the gather)
+    # offsets, c at the runs' ends and around each last masked pair, its
+    # rho and the registers), the library calls computing the
+    # same pass (searchsorted of the runs' ends, the gather, the where)
+    # and the whole masked register max (scatter_reduce_ amax after the
+    # gather, K12's part too)
     k13 = next(r for r in rows if r["name"] == "agg_rank_pick")
     hc = aggs.masked_rank_prefix(hll["off_dev"], hll["docs_dev"], md)[1]
     V = hll["off_dev"].shape[0] - 1
     n_real = hll["n_pairs"]
     reg_d = torch.from_numpy(hll["reg"].astype(np.int64)).to(dev)
     hd, hr = hll["docs_dev"][:n_real], hll["rhos_dev"][:n_real]
-    log_h = int(np.ceil(np.log2(hc.shape[0] + 1))) + 1
 
     def lib_regs():
         return torch.zeros(hll["m"], dtype=torch.int32, device=dev) \
             .scatter_reduce_(0, reg_d, torch.where(md[hd.long()], hr, 0),
                              "amax")
+    h_off = hll["off_dev"].long()
+    h_rhos = hll["rhos_dev"]
+
+    def lib_regs_pass():
+        st, en = hc[h_off[:-1]], hc[h_off[1:]]
+        idx = (torch.searchsorted(hc, en) - 1).clamp(0, h_rhos.shape[0] - 1)
+        return torch.where(en > st, h_rhos[idx], 0)
     k13.update(
         registers_ms=timed(lambda: aggs.register_max(hc, hll["off_dev"],
-                                                     hll["rhos_dev"]), reps),
-        registers_bound_ms=bound((V + 1) * 4 + V * (2 + log_h) * 4
-                                 + V * 8, 0)[0],
+                                                     h_rhos), reps),
+        registers_bound_bytes=k13_register_bytes(hc, hll["off_dev"], h_rhos),
         registers_bound_by="bytes",
-        registers_library_ms=timed(lib_regs, reps),
-        registers_library_call="scatter_reduce_ amax after the gather "
-                               "(the whole masked register max)")
+        registers_library_ms=timed(lib_regs_pass, reps),
+        registers_library_call="torch.searchsorted of the runs' ends + "
+                               "gather + where (the same pass)",
+        registers_masked_max_library_ms=timed(lib_regs, reps),
+        registers_masked_max_library_call="scatter_reduce_ amax after the "
+                                          "gather (the whole masked "
+                                          "register max, K12's part too)")
+    k13["registers_bound_ms"] = bound(k13["registers_bound_bytes"], 0)[0]
     print(f"# agg_rank_pick registers: {k13['registers_ms']:.4f} ms alone "
           f"({V} runs over the HLL prefix; bound "
-          f"{k13['registers_bound_ms']:.6f} ms by bytes), library "
+          f"{k13['registers_bound_ms']:.7f} ms by bytes, "
+          f"{k13['registers_bound_bytes']} bytes), library "
+          f"(searchsorted + gather + where, the same pass) "
+          f"{k13['registers_library_ms']:.4f} ms, the whole masked max "
           f"(scatter_reduce_ amax after the gather, K12's part too) "
-          f"{k13['registers_library_ms']:.4f} ms [{card}]", flush=True)
+          f"{k13['registers_masked_max_library_ms']:.4f} ms [{card}]",
+          flush=True)
     del hc, reg_d
     print(f"# agg_bucket_reduce sums: {k14['sums_ms']:.4f} ms (bound "
           f"{k14['sums_bound_ms']:.5f} ms by bytes: the counts' "

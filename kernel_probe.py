@@ -5,17 +5,18 @@ K4 (``blockmax_scan``), K3 (``topk_merge``), K21 (``knn_outlier``), K2
 (``dense_stream_topk``), K12 (``agg_masked_scan``), K14
 (``agg_bucket_reduce``), K22 (``logreg_train``), K19 (``segment_topk``),
 K7 (``ivf_scan``), K17 (``postings_match``), K5 (``bisect_exact_scores``),
-K10 (``fuse_rank``), K11 (``rescore_reorder``), K20 (``tree_eval``) and
-K18 (``range_mask``) on one card, at the inputs ``chip_smoke.py`` gives
-them on its main paths, of ``chip_smoke.py``'s aggregation, per-segment
-and IVF phases (``aggs``, ``segment``, ``ivf``), and of the pruned route
-and the hybrid path driven (``pruned``, ``hybrid``).
+K10 (``fuse_rank``), K11 (``rescore_reorder``), K20 (``tree_eval``), K18
+(``range_mask``) and K13 (``agg_rank_pick``) on one card, at the inputs
+``chip_smoke.py`` gives them on its main paths, of ``chip_smoke.py``'s
+aggregation, per-segment and IVF phases (``aggs``, ``segment``, ``ivf``),
+and of the pruned route and the hybrid path driven (``pruned``,
+``hybrid``).
 
     python3 kernel_probe.py [--tree DIR]
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
                                        k14,k22,k19,k7,k17,k5,k10,k11,
-                                       k20,k18,aggs,segment,ivf,pruned,
-                                       hybrid]
+                                       k20,k18,k13,aggs,segment,ivf,
+                                       pruned,hybrid]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -168,6 +169,17 @@ JSON lines and writes them to ``--out`` as well.
 - K18 at mix (g)'s price range and (h)'s tag range on the 2^23-doc
   segment: the same figures, the bound and the ``scatter_reduce_``
   yardstick.
+- K13 at its two real inputs, each under the route's 25 % mask and a
+  0.1 % mask (where its fallbacks run): (p) the route's pick (config #3's
+  columns, the top 10 ordinals' Hazen ranks at [50, 95, 99]) and (r) the
+  register pass over the HLL caches' K12 prefix (p = 14, 32,767 runs):
+  the same figures, the bound, the library call (``torch.searchsorted``
+  + gather) and the entries or runs that left the first look; the card
+  ms also with L2 emptied before each call (a 256 MiB write: c cold, as
+  after K12 writes a fresh one); ``--variants`` adds builds with 1, 8 or
+  32 pivots a lane a round in the pick's searches, or a register pass
+  with no window (``K13_VARIANTS``), each by queued events, warm and
+  cold, in turn with the tree's.
 - ``pruned``, ``hybrid``: the pruned route (mixes (a), (b)) and the hybrid
   path (rrf, and rescore at total) driven over the smoke's batches: q/s,
   p50, the stages, launches a dispatch, and device events and device ms
@@ -3659,6 +3671,175 @@ def run_k20(rows, reps, variants=False):
                         drive_k(f"(k) ingest, {name}, turn {r + 1}")
 
 
+#: builds of csrc/agg_rank_pick.cu whose pick searches read another
+#: count of pivots a lane a round: 1 (a 32-ary search), 8 (256-ary) and
+#: 32 (1,024-ary), in place of 4 (128-ary); and whose register pass has
+#: no window, only each thread's search inside its run ("confined")
+K13_VARIANTS = {f"lane_pivots{n}": [("#define K13_LANE_PIVOTS 4\n",
+                                     f"#define K13_LANE_PIVOTS {n}\n")]
+                for n in (1, 8, 32)}
+K13_VARIANTS["confined"] = [
+    ("  k13_window(c, a, b, lane, en, bal);\n", "  en = c[b];\n"),
+    ("  if (k == 0 && j > a + 1)\n    j = k13_thread_search(c, a + 1, j, en);\n",
+     "  j = k13_thread_search(c, a + 1, b, en);\n")]
+
+
+def cold_queued_ms(fn, reps, flush):
+    """Mean card ms of ``fn`` a call with L2 emptied before each call:
+    ``flush`` (a write of a buffer larger than L2) runs before every call
+    and CUDA events time each call alone, all queued behind a sleep kernel
+    (``chip_smoke.queued_ms``); None when the host took longer to enqueue
+    them than the card slept."""
+    import torch
+    flush()
+    fn()
+    torch.cuda.synchronize()
+    e0, s0 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+          for _ in range(reps)]
+    e0.record()
+    torch.cuda._sleep(50_000_000)
+    s0.record()
+    t0 = time.perf_counter()
+    for a, b in ev:
+        flush()
+        a.record()
+        fn()
+        b.record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host >= e0.elapsed_time(s0):
+        return None
+    return sum(a.elapsed_time(b) for a, b in ev) / reps
+
+
+def k13_register_inputs(dev, vals_s, docs_s):
+    """The HLL caches (p = 14: 32,767 runs, the offsets padded) of the
+    stand-in segment of config #3's columns, as ``chip_smoke.run_aggs``
+    builds them."""
+    import types
+    from elasticsearch_tpu_torch.ops import aggs
+    from elasticsearch_tpu_torch.utils.shapes import round_up_pow2
+    n = docs_s.shape[0]
+    vals_doc = np.empty(n, np.float32)
+    vals_doc[docs_s] = vals_s
+    seg = types.SimpleNamespace(
+        n_docs=n, n_pad=round_up_pow2(n), keyword_fields={},
+        numeric_fields={"fare": types.SimpleNamespace(
+            docs_host=np.arange(n, dtype=np.int32),
+            vals_host=vals_doc.astype(np.float64))})
+    return aggs.hll_sketch_pairs(seg, "fare", device=dev)
+
+
+def run_k13(rows, reps, tree, variants):
+    """K13 at its two real inputs, each under the route's 25 % mask and a
+    0.1 % one (where its fallbacks run): (p) the route's pick (config #3's
+    columns, the Hazen ranks of the top 10 ordinals at [50, 95, 99]) and
+    (r) the register pass over the HLL caches' K12 prefix. ``timed_row``'s
+    figures, the card ms with L2 emptied before each call
+    (``cold_queued_ms``), the bound (``chip_smoke.py``'s count), the
+    library call
+    (``torch.searchsorted`` + gather: the pick's, or the pass's with its
+    where), and how many entries or runs left the first look; with
+    ``variants`` each build of ``K13_VARIANTS`` by queued events in turn
+    with the tree's (tree, variant, tree, variant) and whether its outputs
+    are the tree's bits."""
+    cs = smoke()
+    import torch
+    from elasticsearch_tpu_torch.ops import aggs
+    dev = torch.device("cuda")
+    off_d, docs_d, vals_d, mask_d, off, docs_s, vals_s = \
+        k12_route_inputs(dev)
+    n, n_pad = cs.AGG_DOCS, mask_d.shape[0]
+    sparse = np.zeros(n_pad, bool)
+    sparse[:n] = np.random.default_rng(4321).random(n, dtype=np.float32) \
+        < cs.AGG_SPARSE
+    masks = (("25 % mask", mask_d),
+             ("0.1 % mask", torch.from_numpy(sparse).to(dev)))
+    del sparse
+    libs = {name: build_variant(tree, name, edits, scratch_dir(),
+                                source="agg_rank_pick")
+            for name, edits in K13_VARIANTS.items()} if variants else {}
+
+    l2_flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+
+    def flush():
+        l2_flush.fill_(7)
+
+    def row(what, call, plain, lib, nbytes, **extra):
+        out = call()
+        found = {}
+        for name, vlib in libs.items():
+            if vlib is None:
+                found[name] = "not measured (edit target missing)"
+                continue
+            warm, cold = [], []
+            for _turn in range(2):
+                warm.append(cs.queued_ms(call, 5 * reps))
+                cold.append(cold_queued_ms(call, 2 * reps, flush))
+                with swapped_library("agg_rank_pick", vlib):
+                    warm.append(cs.queued_ms(call, 5 * reps))
+                    cold.append(cold_queued_ms(call, 2 * reps, flush))
+                    same = cs.same_bits(call(), out)
+            found[name] = dict(queued_ms=warm[1::2],
+                               tree_queued_ms=warm[0::2],
+                               cold_queued_ms=cold[1::2],
+                               tree_cold_queued_ms=cold[0::2],
+                               equals_tree=same)
+        if found:
+            extra["variants"] = found
+        timed_row(rows, "agg_rank_pick", what, call, plain, reps,
+                  cold_queued_ms=cold_queued_ms(call, 2 * reps, flush),
+                  bound_ms=cs.bound(nbytes, 0)[0], bound_bytes=nbytes,
+                  library_ms=cs.timed(lib, 5 * reps), **extra)
+
+    for label, mask in masks:
+        counts, c = aggs.masked_rank_prefix(off_d, docs_d, mask)
+        top_counts, top = aggs.top_ordinals(counts, cs.AGG_TOP)
+        lo, hi, frac = aggs.hazen_ranks(top_counts, cs.AGG_QS)
+        args = (c, off_d, vals_d) + tuple(
+            torch.from_numpy(x).to(dev) for x in (top, lo, hi, frac))
+        B, R = lo.shape
+        base = c[off_d[args[3].long()].long()][:, None]
+
+        def lib_pick(args=args, base=base):
+            tgt = torch.cat([base + args[4] + 1, base + args[5] + 1], 1)
+            idx = torch.searchsorted(args[0], tgt.contiguous()) - 1
+            return args[2][idx.clamp(0, args[2].shape[0] - 1)]
+        row(f"(p) the route's pick, {label}: top {B} ordinals at "
+            f"{list(cs.AGG_QS)}, {n} pairs",
+            lambda args=args: aggs.rank_pick(*args),
+            lambda args=args: aggs.rank_pick_plain(*args), lib_pick,
+            cs.k13_pick_bytes(*args), B=B, R=R,
+            counts=top_counts.tolist(),
+            hi_past_window=cs.k13_hi_searched(c, off_d, *args[3:6]))
+        del counts, c, args, base
+    hll = k13_register_inputs(dev, vals_s, docs_s)
+    del off_d, docs_d, vals_d
+    h_off, h_rhos = hll["off_dev"], hll["rhos_dev"]
+    V = h_off.shape[0] - 1
+    a, b = h_off[:-1].long(), h_off[1:].long()
+    for label, mask in masks:
+        hc = aggs.masked_rank_prefix(h_off, hll["docs_dev"], mask)[1]
+        st, en = hc[a], hc[b]
+
+        def lib_regs(hc=hc, st=st, en=en):
+            idx = torch.searchsorted(hc, en) - 1
+            return torch.where(en > st,
+                               h_rhos[idx.clamp(0, h_rhos.shape[0] - 1)], 0)
+        row(f"(r) the register pass, {label}: {V} runs over the HLL "
+            f"prefix ({hll['n_pairs']} pairs)",
+            lambda hc=hc: aggs.register_max(hc, h_off, h_rhos),
+            lambda hc=hc: aggs.register_max_plain(hc, h_off, h_rhos),
+            lib_regs,
+            cs.k13_register_bytes(hc, h_off, h_rhos), runs=V,
+            real_runs=hll["m"], nonempty_runs=int((en > st).sum()),
+            window_missed=cs.k13_window_missed(hc, h_off))
+        del hc, st, en
+    del hll, masks, mask_d, l2_flush
+    torch.cuda.empty_cache()
+
+
 def run_k18(rows, reps):
     """K18 on the 2^23-doc segment at mix (g)'s price range (i32 ranks)
     and (h)'s keyword range (f32 ordinals), recorded from the searches:
@@ -3755,10 +3936,10 @@ def main() -> int:
     p.add_argument("--tree", default=HERE)
     p.add_argument("--kernels",
                    default="k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,k14,k22,k19,"
-                   "k7,k17,k5,k10,k11,k20,k18",
+                   "k7,k17,k5,k10,k11,k20,k18,k13",
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
                    "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10, k11, "
-                   "k20, k18 to "
+                   "k20, k18, k13 to "
                    "probe, and aggs, segment and ivf (chip_smoke.py's "
                    "aggregation, per-segment and IVF phases) and pruned "
                    "and hybrid (the pruned route and the hybrid path "
@@ -3822,6 +4003,8 @@ def main() -> int:
         run_k20(rows, opts.reps, opts.variants)
     if "k18" in which:
         run_k18(rows, opts.reps)
+    if "k13" in which:
+        run_k13(rows, opts.reps, tree, opts.variants)
     if which & {"k5", "k10", "pruned", "hybrid"}:
         run_k5_k10(rows, opts.reps, which, opts.variants)
     if "aggs" in which:

@@ -1659,6 +1659,69 @@ def test_k13_matches_plain(cuda, case, B, R):
     _same_bits((got,), (aggs.register_max_plain(pre, t["off"], rh),))
 
 
+#: K13's edges: runs of 0, 1, 31, 32, 33 and 1,025 pairs beside long ones,
+#: run 9 with every pair masked out, the offsets padded as the caches pad
+#: them (empty runs up to 2^5), at masks of 0.1 %, 25 % and 100 %: at 0.1 %
+#: hi's next masked pair and a register's last one mostly lie past the 32
+#: entries the kernel reads first
+K13_LENS = [0, 1, 31, 32, 33, 1025, 0, 70_000, 5, 40_000, 32, 1, 33]
+
+
+@pytest.mark.parametrize("density", [0.001, 0.25, 1.0])
+@pytest.mark.parametrize("wide", [False, True])
+def test_k13_edges_match_plain(cuda, density, wide):
+    rng = np.random.RandomState(int(density * 1000) + wide)
+    lens = np.asarray(K13_LENS)
+    off = np.full(32, lens.sum(), np.int32)
+    off[:lens.size + 1] = np.concatenate([[0], np.cumsum(lens)])
+    M, V, n_pad = int(lens.sum()), off.size - 1, 1 << 18
+    docs = rng.permutation(n_pad)[:M].astype(np.int32)
+    vals = rng.lognormal(3.0, 1.0, M).astype(np.float32)
+    rhos = rng.randint(1, 52, M).astype(np.int32)
+    for v in range(lens.size):
+        vals[off[v]:off[v + 1]].sort()
+        rhos[off[v]:off[v + 1]].sort()
+    mask = rng.rand(n_pad) < density
+    mask[docs[off[9]:off[10]]] = False
+    mask[docs[off[12]:off[13]:3]] = True
+    off_t, docs_t, mask_t = _t(off, cuda), _t(docs, cuda), _t(mask, cuda)
+    counts, pre = aggs.masked_rank_prefix(off_t, docs_t, mask_t)
+    cnt = counts.cpu().numpy()
+    assert cnt[9] == 0 and cnt[lens.size - 1] > 1
+    if wide:
+        # B·R past one block: any ordinal (clamped to [0, V]), ranks
+        # before, inside and past the run, hi at or after lo or before it
+        B, R = 300, 101
+        ords = rng.randint(-2, V + 3, B).astype(np.int32)
+        k = cnt[np.clip(ords, 0, V - 1)]
+        lo = np.stack([rng.randint(-1, max(x, 1) + 2, R) for x in k])
+        hi = lo + rng.choice([0, 1, 1, 1, 2, 40, -1], (B, R))
+    else:
+        # every run's Hazen ranks, ordinals V and past it, and the last
+        # run's ranks at count − 1
+        n_last = cnt[lens.size - 1]
+        ords = np.concatenate([np.arange(V), [V, V + 7, lens.size - 1]])
+        lo, hi, _f = aggs.hazen_ranks(cnt, (0.0, 50.0, 99.0))
+        lo = np.concatenate([lo, [[0, 1, 2], [0, 1, 2],
+                                  [n_last - 1, n_last - 2, 0]]])
+        hi = np.concatenate([hi, [[1, 2, 3], [1, 2, 3],
+                                  [n_last - 1, n_last - 1, 1]]])
+        B, R = lo.shape
+    frac = rng.rand(B, R).astype(np.float32)
+    args = (pre, off_t, _t(vals, cuda), _t(ords.astype(np.int32), cuda),
+            _t(lo.astype(np.int32), cuda), _t(hi.astype(np.int32), cuda),
+            _t(frac, cuda))
+    n0 = kb.launches["agg_rank_pick"]
+    got = aggs.rank_pick(*args)
+    assert kb.launches["agg_rank_pick"] == n0 + 1
+    _same_bits((got,), (aggs.rank_pick_plain(*args),))
+    rh = _t(rhos, cuda)
+    n0 = kb.launches["agg_rank_pick"]
+    got = aggs.register_max(pre, off_t, rh)
+    assert kb.launches["agg_rank_pick"] == n0 + 1
+    _same_bits((got,), (aggs.register_max_plain(pre, off_t, rh),))
+
+
 #: K14 also at pair counts that are not multiples of a 16-byte vector or
 #: of a warp's step (no padding), below one step, with every pair masked
 #: out, with docs past n_pad (the "wild" draws), and with more steps than

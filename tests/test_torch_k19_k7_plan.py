@@ -24,6 +24,7 @@ from elasticsearch_tpu_torch.ops.topk import H100_SHARED_OPTIN
 
 K19_SRC = (CSRC_DIR / "segment_topk.cu").read_text()
 K7_SRC = (CSRC_DIR / "ivf_scan.cu").read_text()
+K13_SRC = (CSRC_DIR / "agg_rank_pick.cu").read_text()
 K17_SRC = (CSRC_DIR / "postings_match.cu").read_text()
 
 
@@ -280,9 +281,9 @@ def test_k17_runs_number_the_valid_postings(starts, lengths, L, want):
 
 
 def test_probe_edits_find_their_targets():
-    """kernel_probe.py's K19 builds (the stamps, the variants) and K7's
-    stamps build edit the sources by text: each target occurs exactly
-    once."""
+    """kernel_probe.py's K19 builds (the stamps, the variants), K7's
+    stamps build and K13's variants edit the sources by text: each target
+    occurs exactly once."""
     path = Path(__file__).resolve().parent.parent / "kernel_probe.py"
     spec = importlib.util.spec_from_file_location("kernel_probe", path)
     kp = importlib.util.module_from_spec(spec)
@@ -294,3 +295,7 @@ def test_probe_edits_find_their_targets():
         assert K19_SRC.count(old) == 1, old
     for old, _new in kp.K7_STAMPS:
         assert K7_SRC.count(old) == 1, old
+    for edits in kp.K13_VARIANTS.values():
+        for old, new in edits:
+            assert K13_SRC.count(old) == 1, old
+            assert K13_SRC.replace(old, new) != K13_SRC
