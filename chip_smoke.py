@@ -14,7 +14,9 @@ benchmark's two kNN shapes; the one-dispatch hybrid (BM25 + kNN + RRF)
 at BEIR/NQ's size; config #3's terms + percentiles aggregation at the
 NYC-taxi rally track's size; and, between the headline and the pruned
 route, the per-segment search path (``ShardSearcher``) over the headline
-corpus as one segment; and, last, the ML path (``MlService``: trained-model
+corpus as one segment and the serving route (``ServingPlaneCache`` →
+micro-batcher → ``serve``) from 32 client threads on that segment; and,
+last, the ML path (``MlService``: trained-model
 inference, the ``inference`` ingest processor, outlier detection and
 classification over a frame of Kibana's flights sample schema at ten
 times its size). Phases, each fatal on failure:
@@ -50,7 +52,29 @@ times its size). Phases, each fatal on failure:
    plane (no dense tier) of the same corpus, q/s and p50/p99 per mix,
    K16–K19's times (K16's pre-pass and tile kernel apart, by
    ``torch.profiler``);
-6. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
+6. the serving route (:func:`run_serving`, config #1 as users reach it)
+   on phase 5's segment: ``ServingPlaneCache(device=cuda).plane_for``
+   builds the serving generation (dense and block-max tiers; its
+   seconds, bytes and accounting-breaker reservation printed), and 32
+   client threads send ``match`` bodies of four terms through
+   ``ShardSearcher(plane_provider=cache.plane_for).search`` at size 10,
+   2,048 requests a mix: (s1) terms ∝ df at Elasticsearch's default
+   ``track_total_hits: 10000`` (the pruned route where a batch has no
+   dense-tier term), (s2) the same with ``track_total_hits: true`` (the
+   eager tiered route, exact totals), (s3) uniform tail terms at 10000
+   (mostly pruned dispatches); requests/s, p50/p99/max a request,
+   dispatches and batch sizes, stage means, launches a dispatch by
+   kernel, each mix's launches counted alone, the garbage collector's
+   pauses in each window, the card's busy share under (s1)
+   (``torch.profiler``); the first pruned dispatch's K4 equal
+   and K5 bitwise to their plain versions and every recorded K3 call
+   bitwise; every dispatch replayed through ``serve`` alone on its batch
+   (values bitwise, hits, totals) and every response's hits its
+   dispatch's; three requests a mix against numpy (totals exact in
+   (s2)); then a 2^16-doc segment appended (seed 1235): served from the
+   delta tier with no rebuild, its host scan's ms a dispatch, three
+   requests against numpy BM25 over both segments at the frozen avgdl;
+7. the pruned route (:func:`run_pruned`): K4 equal and K5 bitwise to their
    plain versions, and K3 exact, on one batch of each traffic mix; each
    mix driven through ``serve`` with its launch counts zeroed before and
    read after (K4, K5 and K3 on every pruned dispatch, K1 iff a query was
@@ -62,7 +86,7 @@ times its size). Phases, each fatal on failure:
    version; K4's and K5's times, and K5's yardstick (``k5_yardstick``:
    ``torch.searchsorted`` over a shard's (run start, doc) keys, the
    gather, the products and the ordered sum; bitwise the plain version);
-7. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
+8. bool trees (:func:`run_bool`, config #2) through ``serve_bool`` on the
    pruned phase's plane, batches of 16 at k = 10 in two mixes: (c) one
    8-term should clause (``bench_bool_disjunction``'s draws), (d) must /
    should (3 terms) / filter / must_not: K9 bitwise and K3 exact against
@@ -76,7 +100,7 @@ times its size). Phases, each fatal on failure:
    each mix's launches counted alone; K9's and K11's times, K9's launch
    (its plan, blocks, blocks an SM) and, after every timing, its device
    time a dispatch over each mix's timed batches (``torch.profiler``);
-8. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
+9. the exact kNN route (:func:`run_knn_exact`) at ``bench.py:bench_knn``'s
    GloVe shape: 1.2M x 100 ``randn`` rows (seed 1234), one shard, cosine,
    k = 100, 32 timed batches of 16 through ``plane.serve``: K6 within the
    parity bar of its plain version and every K3 call of the step bitwise,
@@ -84,7 +108,7 @@ times its size). Phases, each fatal on failure:
    ``exists`` holes, every query of one batch against numpy (matmul +
    lexsort), the path's launches counted alone, K6's times, chunks and
    blocks an SM;
-9. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
+10. the IVF route (:func:`run_knn_ivf`) at ``bench.py:bench_knn_ivf``'s
    shape: 2^20 x 64 rows around 2048 centers (noise 0.35), nlist 1024,
    seed 7, queries perturbed corpus rows (noise 0.15), k = 10 at the
    tier's default nprobe and rerank, 24 timed batches through ``serve``:
@@ -94,7 +118,7 @@ times its size). Phases, each fatal on failure:
    and numpy's cluster assignments compared, the path's launches counted
    alone, K7's and K8's times, and K8's and its yardstick's device times
    (``torch.profiler``);
-10. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
+11. the hybrid (:func:`run_hybrid`, config #5): 2,681,468 passages (mean
    length 79) and as many 768-d ``standard_normal`` rows, one shard each,
    batches of 16 queries (9 sparse-tier terms in one should clause, a
    randn vector; RRF, rank constant 60, windows 100, k = 10) through
@@ -107,7 +131,7 @@ times its size). Phases, each fatal on failure:
    lexsort kNN top-100, their RRF by ``rrf_fuse_rows``); the path's
    launches counted alone; each kernel's time, K9's launch and its device
    time a dispatch over the timed batches;
-11. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
+12. aggregations (:func:`run_aggs`, config #3): 165,346,692 docs (Rally's
     ``nyc_taxis``), one pair a doc, 256 Zipf(1.1) ordinals, lognormal(3, 1)
     values, pairs sorted by (ordinal, value), a fresh 25 % mask a agg:
     33 aggs (one warm-up) through ``masked_rank_prefix`` (K12) →
@@ -123,7 +147,7 @@ times its size). Phases, each fatal on failure:
     masked pair, ordinal V and past it, ranks at count − 1 of the last
     run); the path's launches counted alone; each kernel's time beside
     its bound, plain version and library call;
-12. the ML path (:func:`run_ml`, ``xpack/ml.py``) through ``MlService`` on
+13. the ML path (:func:`run_ml`, ``xpack/ml.py``) through ``MlService`` on
     the card, all from ``RandomState(1234)``: (j) ``_infer`` of a
     ``weighted_sum`` ensemble of 500 full trees of depth 8 (511 nodes) over
     32 features (a fifth of the splits ``default_left: false``), 1,024
@@ -147,7 +171,7 @@ times its size). Phases, each fatal on failure:
     p50/p99, the analytics' wall split (frame load, standardise, kernel,
     tail, write), each kernel's time beside its bound, plain version and
     library call;
-13. a comment line with the redesigned kernels' times before their
+14. a comment line with the redesigned kernels' times before their
     redesign (from PERF.md's kernel table, not measured in this run),
     the ``kernels``
     JSON line, the whole run's seconds, the card line, and the final
@@ -212,33 +236,42 @@ def sample_queries(rng, corpus, n_batches, batch=BATCH, weighted=True):
             for _ in range(n_batches)]
 
 
-def exact_bm25(corpus, terms, k, *, and_=False, mask=None, avgdl=None):
+def exact_bm25(corpus, terms, k, *, and_=False, mask=None, avgdl=None,
+               extra=()):
     """Numpy term-at-a-time BM25 over the whole corpus (f32 impacts) at
     ``avgdl`` (by default the mean over all docs): (top k+1 docs by
     (score desc, doc asc), their scores, number of matching docs). A doc
     matches on any term (on every term with ``and_``) and only inside
-    ``mask``; docs that do not match score -inf."""
-    offsets, docs, tf = corpus["offsets"], corpus["docs"], corpus["tf"]
-    dl = corpus["doc_len"]
-    n_docs = dl.shape[0]
+    ``mask``; docs that do not match score -inf. ``extra``: further
+    corpora of the same index (an appended segment), their docs numbered
+    after the corpus's, the dfs and the doc count summed over all."""
+    parts = [corpus, *extra]
+    dls = [c["doc_len"] for c in parts]
+    n_docs = sum(dl.shape[0] for dl in dls)
     if avgdl is None:
-        avgdl = dl.mean()
-    df = corpus["df"]
-    scores = np.zeros(n_docs, np.float32)
-    cnt = np.zeros(n_docs, np.int32)
+        avgdl = np.concatenate(dls).mean()
     uniq = sorted(set(terms))
-    for t in uniq:
-        tid = int(t[1:])
-        st, en = offsets[tid], offsets[tid + 1]
-        if en == st:
-            continue
-        run_docs = docs[st:en]
-        run_tf = tf[st:en]
-        idf = np.log(1 + (n_docs - df[tid] + 0.5) / (df[tid] + 0.5))
-        w = terms.count(t)
-        norm = run_tf + K1 * (1 - B_BM25 + B_BM25 * dl[run_docs] / avgdl)
-        scores[run_docs] += w * idf * (K1 + 1) * run_tf / norm
-        cnt[run_docs] += 1
+    df = {t: sum(int(c["df"][int(t[1:])]) for c in parts) for t in uniq}
+    scores, cnt = [], []
+    for c, dl in zip(parts, dls):
+        offsets, docs, tf = c["offsets"], c["docs"], c["tf"]
+        sc = np.zeros(dl.shape[0], np.float32)
+        ct = np.zeros(dl.shape[0], np.int32)
+        for t in uniq:
+            tid = int(t[1:])
+            st, en = offsets[tid], offsets[tid + 1]
+            if en == st:
+                continue
+            run_docs = docs[st:en]
+            run_tf = tf[st:en]
+            idf = np.log(1 + (n_docs - df[t] + 0.5) / (df[t] + 0.5))
+            w = terms.count(t)
+            norm = run_tf + K1 * (1 - B_BM25 + B_BM25 * dl[run_docs] / avgdl)
+            sc[run_docs] += w * idf * (K1 + 1) * run_tf / norm
+            ct[run_docs] += 1
+        scores.append(sc)
+        cnt.append(ct)
+    scores, cnt = np.concatenate(scores), np.concatenate(cnt)
     hit = cnt >= (len(uniq) if and_ else 1)
     if mask is not None:
         hit &= mask
@@ -925,7 +958,7 @@ def prune_plane(dev, n_docs=PRUNE_DOCS):
 
 def run_pruned(card, *, n_docs=PRUNE_DOCS, n_batches=PRUNE_BATCHES,
                reps=20):
-    """The block-max pruned route end to end (phase 5). Returns the K4/K5
+    """The block-max pruned route end to end (phase 7). Returns the K4/K5
     rows of the ``kernels`` line, each pruned path's launch counts, K1 at
     the fallback shape, the largest errors, and the plane with its corpus
     (the bool phase serves the same plane)."""
@@ -1307,7 +1340,7 @@ def knn_inputs(dev, *, n, dim, B, similarity, seed):
 
 
 def run_knn_exact(card, *, reps=20):
-    """Phase 7: the exact kNN route at the GloVe shape through ``serve``.
+    """Phase 9: the exact kNN route at the GloVe shape through ``serve``.
     Returns the K6 row of the ``kernels`` line, the path's launch counts
     and K3's largest error."""
     import torch
@@ -1544,7 +1577,7 @@ def ivf_step_inputs(plane, qb, k=IVF_K):
 
 
 def run_knn_ivf(card, *, reps=20):
-    """Phase 8: the IVF route at ``bench_knn_ivf``'s shape through
+    """Phase 10: the IVF route at ``bench_knn_ivf``'s shape through
     ``serve``. Returns the K7 and K8 rows of the ``kernels`` line, the
     path's launch counts and K3's largest error."""
     import torch
@@ -2028,7 +2061,7 @@ def bool_traffic(corpus, n_batches=BOOL_BATCHES):
 
 
 def run_bool(card, plane, corpus, *, n_batches=BOOL_BATCHES, reps=20):
-    """Phase 6: bool trees (config #2) through ``serve_bool`` on the prune
+    """Phase 8: bool trees (config #2) through ``serve_bool`` on the prune
     phase's plane. Returns K9's row, K11's bool timing and the path's
     launch counts."""
     import torch
@@ -2413,7 +2446,7 @@ def k11_sort_path(tplane, kplane, fqs, el, p, reps, card):
 
 def run_hybrid(card, *, n_docs=HY_DOCS, dim=HY_DIM, n_batches=HY_BATCHES,
                reps=20):
-    """Phase 9: the one-dispatch hybrid (config #5) through
+    """Phase 11: the one-dispatch hybrid (config #5) through
     ``fused_search_device``. Returns the K10 and K11 rows and the timing
     of K9, K6 and K3 at this shape, and the path's launch counts."""
     import torch
@@ -2946,7 +2979,7 @@ def agg_sum_tol(abs_mass):
 
 
 def run_aggs(card, *, n_docs=AGG_DOCS, n_timed=AGG_TIMED, reps=10):
-    """Phase 10: aggregations (config #3) on the card. The terms +
+    """Phase 12: aggregations (config #3) on the card. The terms +
     percentiles route (K12 → top_ordinals → K13) over the bench's columns,
     and K12–K15 through the port's per-segment caches on a stand-in
     segment of the same columns. Returns the K12–K15 rows and the path's
@@ -3537,6 +3570,22 @@ def segment_columns(n_docs):
     return tag, price
 
 
+def body_field_state(corpus):
+    """A CSR corpus as the host state of a segment's ``body`` text field
+    (terms ``w{tid}``, which the standard analyzer keeps). Positions are
+    zero placeholders (no positional query runs)."""
+    P = corpus["docs"].shape[0]
+    dl = corpus["doc_len"]
+    return dict(
+        term_ids={f"w{t}": t for t in range(VOCAB)}, df=corpus["df"],
+        offsets=corpus["offsets"], docs_host=corpus["docs"],
+        tf_host=corpus["tf"], doc_len_host=dl, sum_dl=float(dl.sum()),
+        field_doc_count=int(np.count_nonzero(dl)),
+        total_term_freq=np.zeros(VOCAB, np.int64),
+        pos_offsets=np.zeros(P + 1, np.int64),
+        pos_flat=np.zeros(0, np.int32))
+
+
 def segment_index(corpus, tag, price, dev):
     """Config #1's CSR as the ``body`` field of one segment (terms
     ``w{tid}``, which the standard analyzer keeps), with the ``tag`` and
@@ -3545,16 +3594,7 @@ def segment_index(corpus, tag, price, dev):
     from elasticsearch_tpu_torch.index.mapping import MapperService
     from elasticsearch_tpu_torch.index.segment import segment_from_host_state
     n = corpus["doc_len"].shape[0]
-    P = corpus["docs"].shape[0]
-    dl = corpus["doc_len"]
-    body = dict(
-        term_ids={f"w{t}": t for t in range(VOCAB)}, df=corpus["df"],
-        offsets=corpus["offsets"], docs_host=corpus["docs"],
-        tf_host=corpus["tf"], doc_len_host=dl, sum_dl=float(dl.sum()),
-        field_doc_count=int(np.count_nonzero(dl)),
-        total_term_freq=np.zeros(VOCAB, np.int64),
-        pos_offsets=np.zeros(P + 1, np.int64),
-        pos_flat=np.zeros(0, np.int32))
+    body = body_field_state(corpus)
     df = np.bincount(tag, minlength=SEG_TAGS).astype(np.int32)
     offsets = np.zeros(SEG_TAGS + 1, np.int64)
     np.cumsum(df, out=offsets[1:])
@@ -3986,7 +4026,424 @@ def run_segment(card, corpus, *, n_timed=SEG_TIMED, reps=10):
     for c in counts.values():
         for k, v in c.items():
             path[k] += v
-    return rows, path
+    return rows, path, (seg, mapper)
+
+
+#: the serving route (config #1 through ``ShardSearcher`` with a
+#: ``ServingPlaneCache``): ``bench.py:bench_serving``'s 32 client threads
+SRV_CLIENTS = 32
+SRV_REQUESTS = 2048          # requests a mix (64 a client)
+SRV_WARM = 32                # untimed requests a mix first (one a client)
+SRV_PROFILED = 512           # requests of mix (s1) under torch.profiler
+SRV_DELTA_DOCS = 1 << 16     # the appended segment (seed 1235): 0.8 %
+SRV_DELTA_REQUESTS = 512
+SRV_KERNELS = ("blockmax_scan", "bisect_exact_scores", "topk_merge")
+
+
+def check_response(res, ref, offsets, exact_total, what):
+    """One response's top 10 against the numpy reference (``ref`` as
+    ``exact_bm25`` gives it): min(10, matches) hits, scores within
+    REF_RTOL, docs equal at separated ranks; the total exact when the
+    response says ``eq``, and never above the exact count."""
+    top, sc, n_match = ref
+    n = min(K, n_match)
+    if len(res.hits) != n:
+        fail(f"{what}: {len(res.hits)} hits, expected {n}")
+    got_d = np.asarray([offsets[h.seg_idx] + h.local_doc for h in res.hits])
+    got_s = np.asarray([h.score for h in res.hits])
+    check_topk(got_s[None], got_d[None], sc[None, :n], top[None, :n],
+               sc[n:n + 1], REF_RTOL, 0.0, what)
+    if res.total > n_match or (res.total_relation == "eq"
+                               and res.total != n_match):
+        fail(f"{what}: total {res.total} ({res.total_relation}), exact "
+             f"{n_match}")
+    if exact_total and (res.total, res.total_relation) != (n_match, "eq"):
+        fail(f"{what}: total {res.total} ({res.total_relation}) is not "
+             f"the exact {n_match}")
+
+
+def client_traffic(search, bodies, n_clients=SRV_CLIENTS):
+    """``bodies`` through ``search`` from ``n_clients`` threads, client c
+    sending bodies c, c + n_clients, ... one at a time: (host-clock
+    seconds a request, the responses in body order, wall seconds, each
+    request's start in seconds after the window's). The first error fails
+    the run."""
+    import threading
+    lat = np.zeros(len(bodies))
+    began = np.zeros(len(bodies))
+    out = [None] * len(bodies)
+    errors = []
+    start = threading.Barrier(n_clients + 1)
+
+    def client(c):
+        try:
+            start.wait()
+            for i in range(c, len(bodies), n_clients):
+                t1 = time.perf_counter()
+                out[i] = search(bodies[i])
+                lat[i] = time.perf_counter() - t1
+                began[i] = t1
+        except BaseException as e:   # noqa: BLE001 — failed below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"a serving request raised: {errors[0]!r}")
+    return lat, out, wall, began - t0
+
+
+@contextlib.contextmanager
+def gc_pauses(out):
+    """The garbage collector's pauses while the block runs, in seconds by
+    generation, into ``out`` (a full collection walks every container the
+    process holds, the segment's 2^23 doc ids among them, with the GIL
+    held)."""
+    import gc
+    start = [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            out.setdefault(info["generation"], []).append(
+                time.perf_counter() - start[0])
+
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def run_serving(card, corpus, seg, mapper, *, reps=10):
+    """Phase 6: config #1's text serving route as users reach it:
+    ``ShardSearcher.search`` with a ``ServingPlaneCache``'s ``plane_for``
+    as its ``plane_provider``, 32 client threads, the micro-batcher's
+    dispatches into ``DistributedSearchPlane.serve``. Returns the route's
+    launch counts and its numbers."""
+    import torch
+    from elasticsearch_tpu_torch.common.breakers import DEFAULT as breakers
+    from elasticsearch_tpu_torch.index.segment import segment_from_host_state
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops.blockmax import blockmax_scan_plain
+    from elasticsearch_tpu_torch.ops.fused_query import \
+        bisect_exact_scores_plain
+    from elasticsearch_tpu_torch.parallel import dist_search as ds_mod
+    from elasticsearch_tpu_torch.search.plane_route import ServingPlaneCache
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+
+    dev = torch.device("cuda")
+    n0 = seg.n_docs
+    acct = breakers.breaker("accounting")
+    used0 = acct.stats()["estimated_size_in_bytes"]
+
+    # ---- cold build: the breakers at their defaults, which a cache on the
+    # card widens by the card's memory ------------------------------------
+    cache = ServingPlaneCache(device=dev)
+    if acct.limit < torch.cuda.mem_get_info()[1]:
+        fail(f"serving: the accounting breaker's limit {acct.limit} B is "
+             f"below the card's memory")
+    t0 = time.perf_counter()
+    gen = cache.plane_for([seg], mapper, "body")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if gen is None or gen.base.blockmax is None or not gen.base.T_pad:
+        fail("serving: the cold build gave no generation with a block-max "
+             "and a dense tier")
+    plane = gen.base
+    reserved = acct.stats()["estimated_size_in_bytes"] - used0
+    out = dict(build_s=build_s, plane_bytes=plane.device_corpus_bytes(),
+               breaker_reserved_bytes=reserved,
+               blockmax_blocks=plane.blockmax.n_blocks,
+               dense_rows=plane.T_pad, avgdl=gen.avgdl)
+    print(f"# serving cold build: plane_for([_0]) {build_s:.1f} s, plane "
+          f"{out['plane_bytes'] / 2**30:.3f} GiB on {dev} (dense tier "
+          f"{plane.T_pad} rows, block-max tier {plane.blockmax.n_blocks} "
+          f"blocks of {plane.blockmax.block}), accounting breaker reserved "
+          f"{reserved} B of its {acct.limit} B limit, avgdl frozen at "
+          f"{gen.avgdl:.4f} [{card}]", flush=True)
+
+    # ---- traffic: four terms ∝ df (s1, s2) and uniform tail terms (s3) ---
+    rng = np.random.RandomState(4322)
+    n_all = SRV_WARM + SRV_REQUESTS
+    heavy = [[f"w{t[1:]}" for t in q]
+             for q in sample_queries(rng, corpus, 1, batch=n_all)[0]]
+    tail = [[f"w{t[1:]}" for t in q]
+            for q in sample_queries(rng, corpus, 1, batch=n_all,
+                                    weighted=False)[0]]
+
+    def body(terms, **kw):
+        return dict({"query": {"match": {"body": " ".join(terms)}},
+                     "size": K}, **kw)
+
+    # (s1), (s3): Elasticsearch's default bounded total tracking, under
+    # which the route prunes; (s2): exact totals (the searcher's own
+    # default), which serve eagerly
+    mixes = {"s1": [body(q, track_total_hits=10000) for q in heavy],
+             "s2": [body(q, track_total_hits=True) for q in heavy],
+             "s3": [body(q, track_total_hits=10000) for q in tail]}
+    bags = {"s1": heavy, "s2": heavy, "s3": tail}
+    searcher = ShardSearcher([seg], mapper,
+                             plane_provider=lambda s, f: cache.plane_for(
+                                 s, mapper, f), device=dev)
+    if searcher.search(mixes["s1"][0]).hits == []:
+        fail("serving: the first request found nothing")
+    batcher = gen._microbatcher
+
+    # every dispatch's batch and output, for the replay check
+    dispatched = []
+    serve_view = gen.serve_view
+
+    def recorded_view(queries, k=10, **kw):
+        res = serve_view(queries, k=k, **kw)
+        # the pruned step reports its block counts in the stages
+        st = kw.get("stages") or {}
+        pruned = "lex_blocks_total" in st
+        dispatched.append((list(queries), k, kw.get("prune"), res, pruned,
+                           st.get("unsafe", 0)))
+        return res
+
+    gen.serve_view = recorded_view
+    counts, stats, responses, calls = {}, {}, {}, []
+    for name, bodies in mixes.items():
+        b0 = batcher.stats_doc()
+        t_stage0 = dict(batcher.stage_totals_ms)
+        n_disp0 = len(dispatched)
+        kb.reset_launches()
+        rec = []
+        gcs = {}
+        with recording(rec, SRV_KERNELS, (ds_mod,)):
+            client_traffic(searcher.search, bodies[:SRV_WARM])
+            with gc_pauses(gcs):
+                lat, res, wall, began = client_traffic(searcher.search,
+                                                       bodies[SRV_WARM:])
+        torch.cuda.synchronize()
+        c = {k: v for k, v in kb.launches.items() if v}
+        b1 = batcher.stats_doc()
+        n_d = b1["dispatches"] - b0["dispatches"]
+        n_q = b1["queries"] - b0["queries"]
+        st = latency_stats(lat, 1)
+        st.update(
+            qps=len(bodies[SRV_WARM:]) / wall, wall_s=wall, dispatches=n_d,
+            mean_batch=n_q / max(n_d, 1), max_batch=batcher.max_seen_batch,
+            stage_mean_ms={s: (batcher.stage_totals_ms[s] - t_stage0[s])
+                           / max(n_q, 1) for s in batcher.stage_totals_ms},
+            stage_p50_ms={s: float(np.percentile(
+                list(batcher.stage_samples[s])[-n_q:], 50))
+                for s in batcher.stage_samples},
+            launches_per_dispatch={k: v / max(n_d, 1) for k, v in c.items()},
+            pruned_dispatches=sum(d[4] for d in dispatched[n_disp0:]),
+            # queries a pruned dispatch could not certify (re-served by
+            # the eager step inside the same dispatch)
+            unsafe_queries=sum(d[5] for d in dispatched[n_disp0:]),
+            # where the slowest 1 % of requests started in the window
+            slowest_start_s=float(np.median(
+                began[lat >= np.percentile(lat, 99)])),
+            # collections in the timed window: count, total and longest
+            # ms by generation
+            gc_pauses={g: dict(n=len(v), total_ms=1e3 * sum(v),
+                               max_ms=1e3 * max(v))
+                       for g, v in sorted(gcs.items())},
+            relations={r: sum(x.total_relation == r for x in res)
+                       for r in ("eq", "gte")})
+        counts[name], stats[name], responses[name] = c, st, res
+        calls.append((name, rec, dispatched[n_disp0:]))
+        print(f"# serving ({name}): {st['qps']:.1f} requests/s, p50 "
+              f"{st['p50_ms']:.3f} ms, p99 {st['p99_ms']:.3f} ms, max "
+              f"{st['max_ms']:.3f} ms over {st['requests']} requests from "
+              f"{SRV_CLIENTS} clients; {n_d} dispatches, mean batch "
+              f"{st['mean_batch']:.2f}, largest {st['max_batch']}; "
+              f"{st['pruned_dispatches']} pruned ({st['unsafe_queries']} "
+              f"queries re-served eagerly in them); totals "
+              f"{st['relations']}; the slowest 1 % started at a median "
+              f"{st['slowest_start_s']:.3f} s of the {wall:.3f} s window; "
+              f"garbage collections (generation: count, total / longest ms) "
+              + ", ".join(f"{g}: {v['n']}, {v['total_ms']:.1f} / "
+                          f"{v['max_ms']:.1f}"
+                          for g, v in st["gc_pauses"].items())
+              + f" [{card}]", flush=True)
+        print(f"# serving ({name}) stages (mean ms a request): " + ", ".join(
+            f"{s} {v:.3f}" for s, v in st["stage_mean_ms"].items())
+            + "; launches a dispatch " + json.dumps(
+                {k: round(v, 3) for k, v in
+                 st["launches_per_dispatch"].items()}), flush=True)
+    path = {k: 0 for k in kb.launches}
+    for c in counts.values():
+        for k, v in c.items():
+            path[k] += v
+    missing = [k for k in EAGER_KERNELS + PRUNED_KERNELS if not path[k]]
+    if missing:
+        fail(f"serving: {missing} never launched on the route: {path}")
+
+    # ---- the card's busy share under (s1) traffic ------------------------
+    busy, wall_ms, events = device_busy(
+        lambda i: client_traffic(searcher.search,
+                                 mixes["s1"][:SRV_PROFILED]), 0, 1)
+    stats["s1"]["profiled"] = dict(requests=SRV_PROFILED,
+                                   device_busy_ms=busy, wall_ms=wall_ms,
+                                   device_events=events)
+    print(f"# serving (s1): "
+          + ("busy share not measured" if busy is None else
+             f"{busy:.3f} ms busy over {SRV_PROFILED} requests, busy share "
+             f"{busy / wall_ms:.3f} of the profiled wall "
+             f"{wall_ms:.1f} ms, {events} device events")
+          + f" (torch.profiler) [{card}]", flush=True)
+    gen.serve_view = serve_view
+
+    # ---- the recorded K4, K5 and K3 calls --------------------------------
+    first_k4 = None
+    k3_err, n_k3 = 0.0, 0
+    for name, rec, _ in calls:
+        k3_err = max(k3_err, check_recorded_k3(rec, f"serving ({name})"))
+        n_k3 += len(of(rec, "topk_merge"))
+        if first_k4 is None and of(rec, "blockmax_scan"):
+            first_k4 = (name, of(rec, "blockmax_scan")[0],
+                        of(rec, "bisect_exact_scores")[0])
+    if first_k4 is None or not n_k3:
+        fail("serving: no K4 or K3 call recorded on the route")
+    name, (_n, args, kw, got), (_n5, a5, kw5, got5) = first_k4
+    kw = {k: v for k, v in kw.items() if k != "acc"}
+    t1 = time.perf_counter()
+    want = blockmax_scan_plain(*args, **kw)
+    k4_plain_s = time.perf_counter() - t1
+    for x, y in zip(got, want):
+        if not same_bits(x, y):
+            fail(f"serving ({name}): K4 blockmax_scan differs from its "
+                 f"plain version")
+    check_bitwise(got5, bisect_exact_scores_plain(*a5, **kw5),
+                  f"serving ({name}): K5 bisect_exact_scores")
+    print(f"# serving: the first pruned dispatch's K4 == plain (every "
+          f"output; plain {k4_plain_s:.1f} s) and K5 == plain (bitwise) in "
+          f"mix ({name}); {n_k3} recorded K3 calls == plain (bitwise)",
+          flush=True)
+
+    # ---- every dispatch replayed through serve alone; every response ----
+    t1 = time.perf_counter()
+    n_disp = 0
+    for name, _rec, disp in calls:
+        seen = {}
+        for queries, k, prune, (vals, hits, totals), _p, _u in disp:
+            v2, h2, t2 = plane.serve(queries, k=k, with_totals=True,
+                                     prune=prune)
+            for qi, q in enumerate(queries):
+                if not q:
+                    continue
+                if not np.array_equal(
+                        np.asarray(vals[qi], np.float32).view(np.int32),
+                        np.asarray(v2[qi], np.float32).view(np.int32)) \
+                        or hits[qi] != h2[qi] or totals[qi] != t2[qi]:
+                    fail(f"serving ({name}): a dispatch differs from serve "
+                         f"alone on its batch (query {qi})")
+                n_hit = min(K, len(hits[qi]))
+                seen.setdefault(tuple(q), []).append(
+                    ([(int(s), int(d)) for s, d in hits[qi][:n_hit]],
+                     np.asarray(vals[qi][:n_hit], np.float32).tobytes()))
+            n_disp += 1
+        for i, r in enumerate(responses[name]):
+            got = ([(h.seg_idx, h.local_doc) for h in r.hits],
+                   np.asarray([h.score for h in r.hits],
+                              np.float32).tobytes())
+            if got not in seen.get(tuple(bags[name][SRV_WARM + i]), []):
+                fail(f"serving ({name}) request {i}: its hits are not its "
+                     f"dispatch's")
+    print(f"# serving: {n_disp} dispatches equal serve() alone on their "
+          f"batches (values bitwise, hits, totals), and every response's "
+          f"hits and scores are its dispatch's "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    # ---- the numpy reference at the frozen avgdl ---------------------------
+    for name in mixes:
+        for i in range(REF_QUERIES):
+            terms = bags[name][SRV_WARM + i]
+            check_response(responses[name][i],
+                           exact_bm25(corpus, terms, K, avgdl=gen.avgdl),
+                           [0], name == "s2",
+                           f"serving ({name}) request {i}")
+    print(f"# serving: {REF_QUERIES} requests of each mix agree with the "
+          f"numpy exact reference (scores within {REF_RTOL:.0%}, docs at "
+          f"separated ranks; totals exact in (s2), at most the exact count "
+          f"and exact where eq in (s1), (s3))", flush=True)
+
+    # ---- delta: an appended segment, no rebuild ---------------------------
+    t1 = time.perf_counter()
+    dcorpus = synthetic_csr_corpus_fast(np.random.RandomState(1235),
+                                        SRV_DELTA_DOCS, VOCAB, AVG_DL,
+                                        zipf_s=1.2)
+    nd = SRV_DELTA_DOCS
+    seg1 = segment_from_host_state(dict(
+        seg_id="_1", n_docs=nd, doc_uids=[str(n0 + i) for i in range(nd)],
+        sources=[None] * nd, seq_nos=np.arange(n0, n0 + nd, dtype=np.int64),
+        text_fields={"body": body_field_state(dcorpus)}), device=dev)
+    segs = [seg, seg1]
+    rb0 = cache.rebuild_stats()
+    gen2 = cache.plane_for(segs, mapper, "body")
+    delta_pack_s = time.perf_counter() - t1
+    rb1 = cache.rebuild_stats()
+    if gen2 is not gen or gen.delta_docs() != nd or \
+            (rb1["cold"], rb1["threshold"], rb1["structure"]) != \
+            (rb0["cold"], rb0["threshold"], rb0["structure"]):
+        fail(f"serving delta: the append rebuilt or missed the delta: "
+             f"{rb0} -> {rb1}")
+    dsearcher = ShardSearcher(segs, mapper,
+                              plane_provider=lambda s, f: cache.plane_for(
+                                  s, mapper, f), device=dev)
+    b0 = batcher.stats_doc()
+    delta_ms0, n_dq0 = batcher.delta_ms, batcher.n_delta_queries
+    kb.reset_launches()
+    client_traffic(dsearcher.search, mixes["s1"][:SRV_WARM])
+    lat, dres, wall, _began = client_traffic(
+        dsearcher.search,
+        mixes["s1"][SRV_WARM:SRV_WARM + SRV_DELTA_REQUESTS])
+    torch.cuda.synchronize()
+    dcounts = {k: v for k, v in kb.launches.items() if v}
+    b1 = batcher.stats_doc()
+    n_d = b1["dispatches"] - b0["dispatches"]
+    st = latency_stats(lat, 1)
+    st.update(qps=SRV_DELTA_REQUESTS / wall, dispatches=n_d,
+              mean_batch=(b1["queries"] - b0["queries"]) / max(n_d, 1),
+              delta_ms_per_dispatch=(batcher.delta_ms - delta_ms0)
+              / max(n_d, 1),
+              delta_queries=batcher.n_delta_queries - n_dq0,
+              delta_pack_s=delta_pack_s,
+              launches_per_dispatch={k: v / max(n_d, 1)
+                                     for k, v in dcounts.items()})
+    stats["delta"] = st
+    if st["delta_queries"] < SRV_DELTA_REQUESTS:
+        fail("serving delta: requests served without the delta tier")
+    for k, v in dcounts.items():
+        path[k] += v
+    print(f"# serving delta (+{nd} docs, {nd / n0:.2%} of the base, under "
+          f"the {cache.REPACK_DELTA_FRACTION:.1%} repack threshold): no "
+          f"rebuild ({rb1}); delta pack {delta_pack_s:.2f} s; "
+          f"{st['qps']:.1f} requests/s, p50 {st['p50_ms']:.3f} ms, p99 "
+          f"{st['p99_ms']:.3f} ms; {n_d} dispatches, mean batch "
+          f"{st['mean_batch']:.2f}; delta scan "
+          f"{st['delta_ms_per_dispatch']:.3f} ms a dispatch (host) "
+          f"[{card}]", flush=True)
+    for i in range(REF_QUERIES):
+        terms = bags["s1"][SRV_WARM + i]
+        check_response(dres[i],
+                       exact_bm25(corpus, terms, K, avgdl=gen.avgdl,
+                                  extra=[dcorpus]), [0, n0], False,
+                       f"serving delta request {i}")
+    print(f"# serving delta: {REF_QUERIES} requests agree with numpy BM25 "
+          f"over both segments at the generation's frozen avgdl and the "
+          f"combined idf (scores within {REF_RTOL:.0%}, docs at separated "
+          f"ranks, totals at most exact)", flush=True)
+    cache.release()
+    print(f"# serving mixes: {json.dumps(dict(stats, build=out))}")
+    print(f"# peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return path, stats
 
 
 ML_TREES = 500
@@ -4171,7 +4628,7 @@ def k20_deep_model(svc, ml, kb, card):
 
 
 def run_ml(card, *, reps=10):
-    """Phase 12: the ML path (``xpack/ml.py``) with K20–K22: (j) ``_infer``
+    """Phase 13: the ML path (``xpack/ml.py``) with K20–K22: (j) ``_infer``
     on a 500-tree ensemble, (k) the ``inference`` ingest processor, (l)
     outlier detection and (m) classification (and regression) analytics
     over a flights-schema frame. Returns the kernels' rows and each path's
@@ -4615,10 +5072,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"# eager phases {time.perf_counter() - t0:.1f} s", flush=True)
     t1 = time.perf_counter()
-    seg_rows, seg_counts = run_segment(card, corpus)
-    del corpus
+    seg_rows, seg_counts, (seg, mapper) = run_segment(card, corpus)
     torch.cuda.empty_cache()
     print(f"# segment phase {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    srv_counts, _srv_stats = run_serving(card, corpus, seg, mapper)
+    del corpus, seg, mapper
+    torch.cuda.empty_cache()
+    print(f"# serving phase {time.perf_counter() - t1:.1f} s [{card}]",
+          flush=True)
     pruned_rows, pruned_counts, k1_fallback, errs, (pplane, pcorpus) = \
         run_pruned(card)
     kernels += pruned_rows
@@ -4669,7 +5131,8 @@ def main() -> int:
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
                        knn_ivf=ivf_counts, bool=bool_counts,
                        hybrid=hy_counts, aggs=agg_counts,
-                       segment=seg_counts, **ml_counts)
+                       segment=seg_counts, serving=srv_counts,
+                       **ml_counts)
     for kd in kernels:
         if kd["name"] == "topk_merge":
             kd["max_abs_err"] = max(kd["max_abs_err"], errs["k3_err"],

@@ -60,15 +60,21 @@ static size_t es_static_shared_bytes(Kernel kernel) {
   return attr.sharedSizeBytes;
 }
 
-// Sets a kernel's dynamic shared memory, or returns ES_ERR_SHARED when it
-// and the kernel's static shared memory exceed what a block may have.
+// Readies a launch of ``bytes`` of dynamic shared memory, or returns
+// ES_ERR_SHARED when they and the kernel's static shared memory exceed what
+// a block may have. The kernel's limit is opened to its whole room (the
+// card's opt-in bytes less its static ones), never set to one launch's
+// bytes: the attribute is the kernel's, shared by every host thread, and a
+// thread that set it lower between another's setting and launch would
+// make that launch fail (too many resources requested). The limit caps;
+// each launch's own bytes decide its occupancy.
 template <typename Kernel>
 static int es_set_shared(Kernel kernel, size_t bytes) {
-  if (bytes + es_static_shared_bytes(kernel) >
-      (size_t)es_max_shared_bytes())
-    return ES_ERR_SHARED;
+  const size_t room = (size_t)es_max_shared_bytes() -
+                      es_static_shared_bytes(kernel);
+  if (bytes > room) return ES_ERR_SHARED;
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)room);
 }
 
 // The text of a code a C entry returned.

@@ -44,8 +44,11 @@ KERNELS = ("sparse_candidates_topk", "dense_stream_topk", "topk_merge",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: launches per kernel since the last reset (main-path accounting)
+#: launches per kernel since the last reset (main-path accounting);
+#: updated under ``_count_lock`` (the serving route launches from two
+#: dispatcher threads)
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -241,8 +244,9 @@ _QUERIES = {
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
 
 
 def _nvcc() -> str:
@@ -361,4 +365,5 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: launch refused: "
                            f"{lib.es_error_string(err).decode()} ({err})")
-    launches[name] += 1
+    with _count_lock:
+        launches[name] += 1

@@ -34,6 +34,7 @@ scan, each list's cross-shard reduce, and their fusion (K10).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -66,6 +67,11 @@ LEX_THETA_WINDOW = 1024
 #: survivor (exact re-score) window factor: the pruned step keeps
 #: ``LEX_RERANK × k`` accumulator survivors
 LEX_RERANK = 8
+
+
+#: guards the planes' dispatch counters: the serving micro-batcher runs
+#: two dispatcher threads over one plane
+_COUNT_LOCK = threading.Lock()
 
 
 def total_value(t) -> int:
@@ -101,6 +107,7 @@ class BlockMaxTier:
         self._dev: Optional[dict] = None
         self._acc: Optional[torch.Tensor] = None
         self._acc_stream = None
+        self._acc_lock = threading.Lock()
 
     @classmethod
     def build(cls, shards: Sequence[dict], impacts_full: Sequence[np.ndarray],
@@ -271,23 +278,25 @@ class BlockMaxTier:
         if torch.device(device).type != "cuda":
             return None
         stream = torch.cuda.current_stream(device)
-        if self._acc is not None and stream != self._acc_stream:
-            raise RuntimeError(
-                "BlockMaxTier: the scan workspace belongs to another CUDA "
-                "stream; serve a plane from one stream")
-        if self._acc is None or self._acc.shape[0] < rows:
-            self._acc = None
-            self._acc = torch.zeros((rows, self.n_pad), dtype=torch.float32,
-                                    device=device)
-            self._acc_stream = stream
-        return self._acc
+        with self._acc_lock:
+            if self._acc is not None and stream != self._acc_stream:
+                raise RuntimeError(
+                    "BlockMaxTier: the scan workspace belongs to another "
+                    "CUDA stream; serve a plane from one stream")
+            if self._acc is None or self._acc.shape[0] < rows:
+                self._acc = None
+                self._acc = torch.zeros((rows, self.n_pad),
+                                        dtype=torch.float32, device=device)
+                self._acc_stream = stream
+            return self._acc
 
     def drop_workspace(self) -> None:
         """Discard the scan workspace (after a dispatch that failed part
         way may have left it dirty); the next dispatch makes a zeroed
         one."""
-        self._acc = None
-        self._acc_stream = None
+        with self._acc_lock:
+            self._acc = None
+            self._acc_stream = None
 
     def to_packed(self) -> dict:
         """The tier as :meth:`DistributedSearchPlane.export_packed` ships
@@ -893,7 +902,8 @@ class DistributedSearchPlane:
         step = tiered_bm25_step if prep["step"] == "tiered" \
             else bm25_topk_step
         out = step(**prep["args"], **kw)
-        self.n_dispatches += 1
+        with _COUNT_LOCK:
+            self.n_dispatches += 1
         return out
 
     def search(self, queries: Sequence[Sequence[str]], k: int = 10,
@@ -1027,7 +1037,8 @@ class DistributedSearchPlane:
         except BaseException:
             tier.drop_workspace()
             raise
-        self.n_dispatches += 1
+        with _COUNT_LOCK:
+            self.n_dispatches += 1
         return out
 
     def search_pruned(self, queries: Sequence[Sequence[str]], k: int = 10,
@@ -1280,7 +1291,8 @@ class DistributedSearchPlane:
         if stages is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t2 = time.perf_counter()
-        self.n_dispatches += 1
+        with _COUNT_LOCK:
+            self.n_dispatches += 1
         vals, gdocs, counts = (o.cpu().numpy() for o in out)
         hits = decode_hits(vals, gdocs, self.n_pad)
         if stages is not None:
@@ -1913,7 +1925,8 @@ class DistributedKnnPlane:
                        similarity=self.similarity, block=self.block)
         self._sync(stages)
         t2 = time.perf_counter()
-        self.n_dispatches += 1
+        with _COUNT_LOCK:
+            self.n_dispatches += 1
         vals = out[0].cpu().numpy()
         hits = decode_hits(vals, out[1].cpu().numpy(), self.n_pad)
         if stages is not None:
@@ -1979,7 +1992,8 @@ class DistributedKnnPlane:
                            r_cand=prep["r_cand"])
         self._sync(stages)
         t2 = time.perf_counter()
-        self.n_dispatches += 1
+        with _COUNT_LOCK:
+            self.n_dispatches += 1
         vals = out[0].cpu().numpy()
         hits = decode_hits(vals, out[1].cpu().numpy(), self.n_pad)
         if stages is not None:
@@ -2185,3 +2199,149 @@ def fused_search_device(text_plane: "DistributedSearchPlane",
         stages["docs_scanned"] = text_plane.n_docs_total \
             + knn_plane.n_docs_total
     return rows, totals, text_rows, knn_rows
+
+
+# ---------------------------------------------------------------------------
+# text delta tier (host numpy, as the reference runs it on every backend)
+# ---------------------------------------------------------------------------
+#
+# Under live indexing the serving route (``search/plane_route.py``) splits a
+# field into the packed BASE generation plus an append-only DELTA tier:
+# delta segments are scored eagerly per query by a CSR scatter-add and
+# merged into the base dispatch's top-k. The scorer keeps the kernel
+# path's exact tie order (score desc, global segment asc, doc asc), so
+# the merged ranking equals a full repack's.
+
+
+def tie_stable_topk_docs(scores: np.ndarray, kk: int) -> np.ndarray:
+    """Doc ids of the top-``kk`` positive scores in (score desc, doc
+    asc) order, with the k-th-boundary TIE resolved doc-ascending —
+    introselect alone keeps an arbitrary tie member, which breaks the
+    kernel paths' tie contract. Bounded: the boundary tie set is
+    reduced with a linear partition before any sort, so a corpus where
+    millions of docs share the k-th score costs O(N), not
+    O(N log N)."""
+    n = scores.shape[0]
+    if n > kk:
+        kth = -np.partition(-scores, kk - 1)[kk - 1]
+        if kth <= 0:
+            sel = np.flatnonzero(scores > 0)
+        else:
+            sel = np.flatnonzero(scores > kth)
+            need = kk - sel.size
+            if need > 0:
+                ties = np.flatnonzero(scores == kth)
+                if ties.size > need:
+                    # smallest `need` doc ids among the boundary ties
+                    ties = np.partition(ties, need - 1)[:need]
+                sel = np.concatenate([sel, ties])
+    else:
+        sel = np.flatnonzero(scores > 0)
+    order = np.lexsort((sel, -scores[sel]))[:kk]
+    return sel[order]
+
+
+def merge_topk_rows(base_rows, delta_rows, k: int):
+    """Merge two per-query candidate lists of ``(value, seg, doc)`` rows
+    into the global top-k with the plane's tie order (value desc, seg
+    asc, doc asc). Each side covers its own partition's top-k, so the
+    union's top-k is the exact global top-k."""
+    if not delta_rows:
+        return base_rows[:k]
+    if not base_rows:
+        return delta_rows[:k]
+    cat = list(base_rows) + list(delta_rows)
+    cat.sort(key=lambda r: (-r[0], r[1], r[2]))
+    return cat[:k]
+
+
+class EagerDeltaScorer:
+    """Append-only lexical delta tier: term-at-a-time scatter-add over
+    each delta segment's CSR with impacts precomputed ONCE at
+    construction.
+
+    ``shards``: one dict per delta segment with ``term_ids``, ``df``,
+    ``offsets``, ``docs``, ``tf``, ``doc_len`` (a field-less segment
+    passes empty postings but still contributes its doc count).
+    ``seg_positions``: each delta segment's index in the CURRENT
+    serving segment list — hits are emitted in that global space so the
+    merge with base hits preserves (segment, doc) tie order.
+    ``avgdl``: the owning generation's FROZEN length norm — the base
+    plane's impacts baked it at pack time, so the delta must score under
+    the same value or base and delta scores would live on different
+    scales (it refreshes at the next repack).
+
+    Host numpy: the arrays alias the segments' own host columns, and the
+    only allocation is the impacts column, O(delta postings). The bool
+    twin (``score_bool``) comes with the fused route's delta merge."""
+
+    def __init__(self, shards: Sequence[dict], seg_positions: Sequence[int],
+                 *, avgdl: float, k1: float = DEFAULT_K1,
+                 b: float = DEFAULT_B):
+        self.seg_positions = list(seg_positions)
+        self.avgdl = max(float(avgdl), 1e-9)
+        self.n_docs = 0
+        self._csr: List[dict] = []
+        for s in shards:
+            n = int(s["doc_len"].shape[0])
+            self.n_docs += n
+            self._csr.append(dict(
+                term_ids=s["term_ids"], df=s["df"], offsets=s["offsets"],
+                docs=s["docs"],
+                impacts=make_impacts(s["tf"], s["docs"], s["doc_len"],
+                                     self.avgdl, k1, b),
+                n_docs=n))
+
+    def df(self, term: str) -> int:
+        """Delta-tier document frequency of ``term`` — fed back into the
+        base dispatch as ``extra_df`` so both tiers share one idf."""
+        out = 0
+        for csr in self._csr:
+            tid = csr["term_ids"].get(term)
+            if tid is not None:
+                out += int(csr["df"][tid])
+        return out
+
+    def score(self, queries: Sequence[Sequence[str]], k: int, idf_of,
+              with_totals: bool = False):
+        """Score a query batch against the delta tier. ``idf_of(term)``
+        returns the COMBINED-stats idf (base + delta df over base + delta
+        docs) — the same value the base dispatch uses via ``extra_df``.
+        Returns (rows per query [(val, global_seg, doc)] sorted by the
+        merge order, totals per query)."""
+        rows_out: List[List[Tuple[float, int, int]]] = []
+        totals: List[int] = []
+        for terms in queries:
+            weights: Dict[str, float] = {}
+            for t in terms:
+                weights[t] = weights.get(t, 0.0) + 1.0
+            idfw_of = {t: idf_of(t) * w for t, w in weights.items()
+                       if idf_of(t) > 0.0}
+            rows: List[Tuple[float, int, int]] = []
+            total = 0
+            for gseg, csr in zip(self.seg_positions, self._csr):
+                scores = np.zeros(csr["n_docs"], np.float32)
+                matched = False
+                for t, idfw in idfw_of.items():
+                    tid = csr["term_ids"].get(t)
+                    if tid is None:
+                        continue
+                    st = int(csr["offsets"][tid])
+                    en = int(csr["offsets"][tid + 1])
+                    if en > st:
+                        scores[csr["docs"][st:en]] += \
+                            idfw * csr["impacts"][st:en]
+                        matched = True
+                if not matched:
+                    continue
+                if with_totals:
+                    total += int(np.count_nonzero(scores > 0))
+                kk = min(k, csr["n_docs"])
+                # tie-stable bounded cut: the k-th-boundary tie must
+                # resolve doc-ascending for delta-merge parity
+                sel = tie_stable_topk_docs(scores, kk)
+                rows.extend((float(scores[d]), gseg, int(d)) for d in sel)
+            rows.sort(key=lambda r: (-r[0], r[1], r[2]))
+            rows_out.append(rows[:k])
+            totals.append(total)
+        return rows_out, totals

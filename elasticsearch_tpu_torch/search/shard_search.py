@@ -9,10 +9,18 @@ segment's top window with K19 (``ops/topk.py``); the host merges the
 segments' candidates (score desc, segment asc, doc asc), pages them and
 fetches ``_source``.
 
+With a ``plane_provider`` (``ServingPlaneCache.plane_for``), an eligible
+bag-of-terms query (``search/plane_route.py``) takes the serving route
+instead: the micro-batcher (``search/microbatch.py``) coalesces it with
+concurrent requests into one ``DistributedSearchPlane.serve`` dispatch
+over the serving generation (packed base + delta tier), pruned by
+default and eager under ``track_total_hits: true`` or ``prune: false``.
+
 The bodies served: ``query``, ``size``, ``from``, ``min_score``,
-``track_total_hits`` (bool or int), score-only ``search_after`` and
-``_source``. Every other body key, and the serving-plane providers, raise
-an error that names the feature and the ROADMAP item that ports it.
+``track_total_hits`` (bool or int), score-only ``search_after``,
+``prune`` and ``_source``. Every other body key, and the kNN and fused
+providers, raise an error that names the feature and the ROADMAP item
+that ports it.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ from .query_dsl import MatchAllQuery, ShardContext, parse_query
 
 #: the body keys served
 BODY_KEYS = frozenset({"query", "size", "from", "min_score",
-                       "track_total_hits", "search_after", "_source"})
+                       "track_total_hits", "search_after", "prune",
+                       "_source"})
 
 #: body keys of the reference's shard search not ported yet: key ->
 #: (ROADMAP item, where the reference reads it)
@@ -51,7 +60,6 @@ NOT_PORTED = {
     "docvalue_fields": ("A6b", "search/shard_search.py:786"),
     "fields": ("A6b", "search/shard_search.py:787"),
     "highlight": ("A6b", "search/shard_search.py:788"),
-    "prune": ("A2a", "search/shard_search.py:394"),
 }
 
 
@@ -83,18 +91,19 @@ class ShardSearchResult:
 
 class ShardSearcher:
     """Executes one search request against one shard's segment list, on
-    ``device`` (``None`` means ``cuda``), which must be the segments'."""
+    ``device`` (``None`` means ``cuda``), which must be the segments'.
+    ``plane_provider(segments, field)`` returns the serving generation for
+    a text field, or None (the per-segment path serves)."""
 
     def __init__(self, segments: List[Segment], mapper: MapperService,
                  plane_provider=None, knn_plane_provider=None,
                  fused_provider=None, *, device=None):
-        for name, prov, item in (
-                ("plane_provider", plane_provider, "A2a"),
-                ("knn_plane_provider", knn_plane_provider, "A2b"),
-                ("fused_provider", fused_provider, "A2b")):
+        for name, prov in (("knn_plane_provider", knn_plane_provider),
+                           ("fused_provider", fused_provider)):
             if prov is not None:
-                raise _refuse(f"[{name}]", item,
+                raise _refuse(f"[{name}]", "A2b",
                               "search/shard_search.py:171")
+        self.plane_provider = plane_provider
         self.device = resolve_device(device)
         self.segments = [s for s in segments if s.n_docs > 0]
         for s in self.segments:
@@ -132,14 +141,48 @@ class ShardSearcher:
         min_score = body.get("min_score", min_score)
         track_total_hits = body.get("track_total_hits", track_total_hits)
         query_spec = body.get("query")
+        # block-max pruning knob (rank-safe WAND-as-a-scan on the plane
+        # route): absent → pruned only when totals are already
+        # approximate (Lucene disables WAND under exact total tracking);
+        # true → force pruned (totals become "gte" lower bounds under an
+        # early exit); false → force the eager scan
+        prune_opt = body.get("prune")
+        if prune_opt is not None and not isinstance(prune_opt, bool):
+            raise IllegalArgumentError(
+                f"[prune] must be a boolean, got [{prune_opt}]")
         query = parse_query(query_spec) if query_spec else MatchAllQuery()
         search_after = body.get("search_after")
         k = size + from_
         window = k
 
+        # --- plane route ----------------------------------------------------
+        # Eligible bag-of-terms queries run through the serving plane: one
+        # dispatch returns top-k AND totals. The provider hands back a
+        # serving GENERATION (packed base + append-only delta tier merged
+        # per dispatch — plane_route.py), or None both when the route is
+        # ineligible and while a structural change (merge/delete) has the
+        # base mid-repack — the per-segment path below serves the gap.
+        plane_route = None
+        if (self.plane_provider is not None and query_spec and window > 0
+                and min_score is None and search_after is None):
+            from .plane_route import body_eligible, extract_bag_of_terms
+            if body_eligible(body):
+                ext = extract_bag_of_terms(query_spec, self.mapper)
+                if ext is not None:
+                    plane = self.plane_provider(self.segments, ext[0])
+                    if plane is not None:
+                        plane_route = (plane, ext[1])
+
         # --- query phase (device) -----------------------------------------
         pending = []
-        for seg_idx, seg in enumerate(self.segments):
+        total = 0
+        candidates: List[Tuple[float, int, int]] = []
+        plane_total_gte = False
+        if plane_route is not None:
+            total, plane_total_gte, candidates = self._serve_plane(
+                plane_route, window, prune_opt, track_total_hits)
+        for seg_idx, seg in enumerate(
+                self.segments if plane_route is None else ()):
             scores, mask = self._segment_mask(query, seg)
             dev = seg.device
             if min_score is not None:
@@ -175,8 +218,6 @@ class ShardSearcher:
                 vals_dev, idx_dev = topk(scores, sel_mask)
             pending.append((seg_idx, count_dev, vals_dev, idx_dev))
 
-        total = 0
-        candidates: List[Tuple[float, int, int]] = []
         for seg_idx, count_dev, vals_dev, idx_dev in pending:
             if count_dev is not None:
                 total += int(count_dev)
@@ -218,6 +259,11 @@ class ShardSearcher:
                 track_total_hits, bool) and total > track_total_hits:
             total = track_total_hits
             total_relation = "gte"
+        elif plane_total_gte:
+            # block-max pruned dispatch early-exited: the skipped
+            # blocks' docs were never counted — the total is an honest
+            # lower bound (Lucene's WAND total semantics)
+            total_relation = "gte"
 
         # --- fetch phase ---------------------------------------------------
         source_spec = body.get("_source", True)
@@ -242,6 +288,45 @@ class ShardSearcher:
             hits.append(hit)
         return ShardSearchResult(total=total, total_relation=total_relation,
                                  hits=hits, max_score=max_score)
+
+    def _serve_plane(self, plane_route, window: int, prune_opt,
+                     track_total_hits):
+        """One request through the plane's micro-batcher: (total, whether
+        it is a lower bound, candidates [(score, segment, doc)])."""
+        from .microbatch import batched_search
+        plane, bag_terms = plane_route
+        serving_stages: dict = {}
+        serving_info: dict = {}
+        # prune resolution: an explicit body knob wins; the default
+        # prunes only when the request does not demand exact totals
+        # (track_total_hits true = Lucene's complete-collection mode,
+        # which disables WAND there too). An explicit prune=false on a
+        # tier-bearing plane is counted for the plane_serving health
+        # indicator.
+        if prune_opt is None:
+            prune_eff = False if track_total_hits is True else None
+        else:
+            prune_eff = prune_opt
+        if prune_opt is False and \
+                getattr(plane, "blockmax", None) is not None:
+            from ..common.telemetry import record_lex
+            record_lex(prune_off=True)
+        # view=self.segments: hit coordinates must decode against THIS
+        # searcher's snapshot even if a refresh mutates the generation's
+        # delta while the request sits in the queue
+        pvals, phits, ptotal = batched_search(
+            plane, bag_terms, k=max(window, 1), stages=serving_stages,
+            info=serving_info, view=self.segments, prune=prune_eff)
+        from ..parallel.dist_search import total_is_lower_bound, total_value
+        candidates = [(float(v), si, d) for v, (si, d) in zip(pvals, phits)]
+        # trace: the micro-batch dispatch as one leaf span under the
+        # ambient shard span (stage timings arrive after the fact)
+        from ..common import tracing as _tracing
+        _tracing.record_point(
+            "plane_dispatch", took_ms=sum(serving_stages.values()),
+            attrs={**{s: round(ms, 3) for s, ms in serving_stages.items()},
+                   **serving_info})
+        return total_value(ptotal), total_is_lower_bound(ptotal), candidates
 
     def count(self, body: Optional[dict] = None) -> int:
         body = body or {}

@@ -193,6 +193,10 @@ JSON lines and writes them to ``--out`` as well.
   ``dispatch_ms``, recall on stdout, and the K7 and K8 rows; about 15 s)
   against ``--tree``'s package, so two commits' end-to-end figures come
   from one call (not in the default list).
+- ``serving``: ``chip_smoke.run_serving`` (config #1's serving route from
+  32 client threads: requests/s, p50, p99, batches, stages and busy share
+  a mix, and the delta; about 4 minutes with its set-up) against
+  ``--tree``'s package (not in the default list).
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -3908,9 +3912,39 @@ def run_segment_phase(rows):
     corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
                                        zipf_s=1.2)
     corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
-    seg_rows, counts = cs.run_segment(card_info(), corpus)
+    seg_rows, counts, _index = cs.run_segment(card_info(), corpus)
     emit(rows, kernel="segment_phase", kernel_rows=seg_rows,
          launches=counts)
+
+
+def run_serving_phase(rows):
+    """The serving phase of ``chip_smoke.py`` (``run_serving``: config #1's
+    text serving route from 32 client threads, mixes (s1)–(s3) and the
+    delta, on the 2^23-doc segment) against ``--tree``'s package: each
+    mix's requests/s, p50, p99, batches, stages and busy share (its printed
+    lines and the row) and the route's launches."""
+    import torch
+    cs = smoke()
+    from elasticsearch_tpu_torch.common import breakers
+    from elasticsearch_tpu_torch.device import card_info
+    from elasticsearch_tpu_torch.utils.synth import synthetic_csr_corpus_fast
+    if not hasattr(breakers.BreakerService, "fit_device"):
+        # a tree whose cache leaves the breakers at the host's 1 GiB: give
+        # them the card's memory, as its own smoke did
+        total = torch.cuda.mem_get_info()[1]
+        for key in ("indices.breaker.total.limit",
+                    "indices.breaker.accounting.limit"):
+            breakers.DEFAULT.apply_setting(key, f"{total}b")
+    rng = np.random.RandomState(1234)
+    corpus = synthetic_csr_corpus_fast(rng, cs.N_DOCS, cs.VOCAB, cs.AVG_DL,
+                                       zipf_s=1.2)
+    corpus["term_ids"] = {f"t{t}": t for t in range(cs.VOCAB)}
+    tag, price = cs.segment_columns(cs.N_DOCS)
+    seg, mapper = cs.segment_index(corpus, tag, price, torch.device("cuda"))
+    path, stats = cs.run_serving(card_info(), corpus, seg, mapper)
+    emit(rows, kernel="serving_phase",
+         launches={k: v for k, v in path.items() if v},
+         stats=json.loads(json.dumps(stats, default=float)))
 
 
 def run_ivf_phase(rows):
@@ -3940,8 +3974,9 @@ def main() -> int:
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
                    "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10, k11, "
                    "k20, k18, k13 to "
-                   "probe, and aggs, segment and ivf (chip_smoke.py's "
-                   "aggregation, per-segment and IVF phases) and pruned "
+                   "probe, and aggs, segment, ivf and serving "
+                   "(chip_smoke.py's aggregation, per-segment, IVF and "
+                   "serving phases) and pruned "
                    "and hybrid (the pruned route and the hybrid path "
                    "driven, their device events a dispatch)")
     p.add_argument("--variants", action="store_true")
@@ -4013,6 +4048,8 @@ def main() -> int:
         run_segment_phase(rows)
     if "ivf" in which:
         run_ivf_phase(rows)
+    if "serving" in which:
+        run_serving_phase(rows)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

@@ -2391,3 +2391,124 @@ def test_ml_service_on_the_card_equals_the_cpu(cuda):
     sep = np.abs(pr - 0.5) > 1e-3
     assert [a for a, s in zip(cl[0], sep) if s] == \
         [b for b, s in zip(cl[1], sep) if s]
+
+
+# ---------------------------------------------------------------------------
+# the text serving route: ShardSearcher → ServingPlaneCache → micro-batcher
+# ---------------------------------------------------------------------------
+
+
+def _k1_call(cuda, B, k):
+    c = sparse_case(40 + B, S=2, B=B, Q=8, L=256)
+    args = [_t(c[n], cuda) for n in ("docs", "imps", "starts", "lengths",
+                                     "idfw")]
+    return lambda: sparse_candidates_topk(*args, n_pad=c["n_pad"], L=256,
+                                          k=k)
+
+
+def _k2_call(cuda, B, k):
+    d = dense_case(50 + B, S=2, B=B, Q=4, T=48, n_pad=8192, C=2048)
+    W, dense = _t(d["W"], cuda), _t(d["bits"], cuda).view(torch.bfloat16)
+    return lambda: dense_stream_topk(W, dense, k=k)
+
+
+@pytest.mark.parametrize("make", [_k1_call, _k2_call], ids=["k1", "k2"])
+def test_two_threads_launch_one_kernel_at_two_shapes(cuda, make):
+    """The serving route's two dispatcher threads launch one kernel at
+    shapes that need different shared memory: every launch runs and
+    gives the single-threaded bits (a kernel's shared-memory limit is
+    its own, not a launch's)."""
+    import threading
+    calls = [make(cuda, 2, 10), make(cuda, 20, 200)]
+    want = [[x.cpu() for x in f()] for f in calls]
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(200):
+                got = calls[i]()
+            for g, w in zip(got, want[i]):
+                assert torch.equal(g.cpu(), w)
+        except BaseException as e:   # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors
+
+
+def test_serving_route_on_card_matches_host(cuda, monkeypatch):
+    """16 client threads through ``ShardSearcher`` with a ``plane_for``
+    provider on the card: every response equals the host cache's answer
+    to the same body (scores bitwise, ids, totals and their relation),
+    the dispatches coalesce, and the pruned and tiered routes' kernels
+    all launch, from the batcher's two dispatcher threads."""
+    import threading
+
+    from elasticsearch_tpu_torch.search import microbatch as mb
+    from elasticsearch_tpu_torch.search.plane_route import \
+        ServingPlaneCache
+    monkeypatch.setenv("ES_TPU_SERVING_WARMUP", "0")
+    monkeypatch.setattr(mb.PlaneMicroBatcher, "IDLE_EXIT_S", 0.05)
+    words = [f"w{i}" for i in range(300)]
+    rng = np.random.RandomState(3)
+    p = 1.0 / np.arange(1, len(words) + 1) ** 1.1
+    docs = [" ".join(rng.choice(words, rng.randint(1, 12), p=p / p.sum()))
+            + (" head" if i % 3 else "") for i in range(9000)]
+    sides = {}
+    for key, dev in (("cuda", cuda), ("cpu", torch.device("cpu"))):
+        svc = MapperService({"properties": {"body": {"type": "text"}}})
+        b = SegmentBuilder("_0")
+        for i, d in enumerate(docs):
+            b.add(svc.parse_document(str(i), {"body": d}), seq_no=i)
+        cache = ServingPlaneCache(device=dev)
+        cache.lex_prune_min_docs = 1
+        seg = b.build(device=dev)
+        sides[key] = (cache, ShardSearcher(
+            [seg], svc, device=dev,
+            plane_provider=lambda s, f, c=cache, m=svc: c.plane_for(
+                s, m, f)))
+    # phase 1: sparse-tier terms only (pruned dispatches); phase 2: a
+    # dense-tier term in every query (tiered dispatches), half of them
+    # with exact totals
+    bodies = []
+    for i in range(96):
+        terms = list(rng.choice(words[50:], 3)) + (["head"] if i >= 48
+                                                   else [])
+        bodies.append({"query": {"match": {"body": " ".join(terms)}},
+                       "size": 10,
+                       "track_total_hits": True if i % 2 else 10000})
+    want = [sides["cpu"][1].search(b) for b in bodies]
+    cache, searcher = sides["cuda"]
+    searcher.search(bodies[0])
+    assert cache.generations()[0].T_pad > 0
+    kb.reset_launches()
+    got = [None] * len(bodies)
+
+    def client(c, lo, hi):
+        for i in range(lo + c, hi, 16):
+            got[i] = searcher.search(bodies[i])
+
+    for lo, hi in ((0, 48), (48, 96)):
+        threads = [threading.Thread(target=client, args=(c, lo, hi))
+                   for c in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    for w, g in zip(want, got):
+        assert [(h.doc_id, np.float32(h.score).view(np.int32))
+                for h in w.hits] == \
+            [(h.doc_id, np.float32(h.score).view(np.int32)) for h in g.hits]
+        assert (w.total, w.total_relation) == (g.total, g.total_relation)
+    st = cache.generations()[0]._microbatcher.stats_doc()
+    assert st["dispatches"] < len(bodies) + 1
+    if cuda.type == "cuda":
+        assert all(kb.launches[n] > 0 for n in (
+            "sparse_candidates_topk", "dense_stream_topk", "topk_merge",
+            "blockmax_scan", "bisect_exact_scores"))
+    for c, _ in sides.values():
+        c.release()

@@ -7,7 +7,9 @@ each body runs through each side's ``ShardSearcher.search`` (the
 reference without serving-plane providers, so its per-segment path) and
 ``count``. Hits (ids, segments, local docs, ``_source``, sort values,
 seq_no), scores (bitwise), totals and their relation, and max_score must
-be equal. Every body key and provider the port does not have yet raises.
+be equal. Every body key and provider the port does not have yet raises;
+a serving-plane provider that declines leaves the per-segment path
+serving (``tests/test_torch_plane_route.py`` drives the plane route).
 """
 
 import numpy as np
@@ -165,12 +167,18 @@ def test_other_body_keys_and_providers_raise(searchers):
     with pytest.raises(ElasticsearchError, match=r"query \[match_phrase\]"):
         port.search({"query": {"match_phrase": {"body": "w1 w2"}}})
     segs = port.segments
-    for kw, item in (("plane_provider", "A2a"),
-                     ("knn_plane_provider", "A2b"),
+    for kw, item in (("knn_plane_provider", "A2b"),
                      ("fused_provider", "A2b")):
         with pytest.raises(IllegalArgumentError, match=f"ROADMAP {item}"):
             ShardSearcher(segs, port.mapper, device="cpu",
                           **{kw: lambda *a: None})
+    # the text serving route is ported: a provider that declines (None)
+    # leaves the per-segment path serving
+    asked = []
+    served = ShardSearcher(segs, port.mapper, device="cpu",
+                           plane_provider=lambda s, f: asked.append(f))
+    _assert_same(port.search({"query": M1}), served.search({"query": M1}))
+    assert asked == ["body"]
 
 
 def test_searcher_defaults_to_cuda_and_runs_where_its_segments_lie(
