@@ -12,9 +12,10 @@ served through ``plane.serve`` in batches of 16 four-term queries; bool
 trees on that plane; the kNN plane's exact and IVF routes at the
 benchmark's two kNN shapes; the one-dispatch hybrid (BM25 + kNN + RRF)
 at BEIR/NQ's size; config #3's terms + percentiles aggregation at the
-NYC-taxi rally track's size; and, between the headline and the pruned
-route, the per-segment search path (``ShardSearcher``) over the headline
-corpus as one segment and the serving route (``ServingPlaneCache`` →
+NYC-taxi rally track's size, at the ops level and through
+``ShardSearcher`` (the aggregation route); and, between the headline
+and the pruned route, the per-segment search path (``ShardSearcher``)
+over the headline corpus as one segment and the serving route (``ServingPlaneCache`` →
 micro-batcher → ``serve``) from 32 client threads on that segment; and,
 last, the ML path (``MlService``: trained-model
 inference, the ``inference`` ingest processor, outlier detection and
@@ -147,6 +148,19 @@ times its size). Phases, each fatal on failure:
     masked pair, ordinal V and past it, ranks at count − 1 of the last
     run); the path's launches counted alone; each kernel's time beside
     its bound, plain version and library call;
+    then the aggregation route (:func:`run_aggroute`, config #3 as users
+    send it): one segment of the same size (``vendor_id``, ``total_amount``,
+    ``trip_distance``, ``dropoff_datetime``, seed 2015; the host bytes
+    reckoned first, n halved until they fit), requests one at a time
+    through ``ShardSearcher.search``, each ``size: 0`` with a fresh 25 %
+    ``range`` on dropoff: (t) terms + percentiles (K18, K12, the subs on
+    the host), (t0) terms (K18, K12), (h) a histogram (K18, K14), (d) a 1d
+    date_histogram (K18, K14), (c) an HLL cardinality (K18, K12, K13);
+    each mix's launches counted alone (its kernels only, K19 never), every
+    K12–K14 and K18 call of its first request equal to its plain version,
+    its first two requests against numpy, the query masks' bytes between
+    host and card on every request ((t) one n_pad download, the others
+    none); aggs/s, p50/p99/max and the busy share a mix;
 13. the ML path (:func:`run_ml`, ``xpack/ml.py``) through ``MlService`` on
     the card, all from ``RandomState(1234)``: (j) ``_infer`` of a
     ``weighted_sum`` ensemble of 500 full trees of depth 8 (511 nodes) over
@@ -3475,11 +3489,11 @@ def latency_stats(lat, n_req):
         requests=int(lat.size))
 
 
-def device_busy(call, first, n):
+def device_busy(call, first, n, outs=None):
     """(ms the card was busy, wall ms, device events) over requests
     first..first+n-1 of ``call`` under ``torch.profiler``: busy is the
     union of the device events' intervals, None when the profiler recorded
-    no device event."""
+    no device event. ``outs``, a list, gets the requests' results."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3488,7 +3502,9 @@ def device_busy(call, first, n):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(first, first + n):
-            call(i)
+            out = call(i)
+            if outs is not None:
+                outs.append(out)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end)
@@ -4446,6 +4462,428 @@ def run_serving(card, corpus, seg, mapper, *, reps=10):
     return path, stats
 
 
+#: the aggregation route (phase 12b): config #3 as users send it, one
+#: segment of AGG_DOCS docs through ShardSearcher.search
+AR_SEED = 2015
+AR_YEAR_MS = 1_420_070_400_000        # 2015-01-01T00:00:00Z
+AR_YEAR_S = 365 * 86_400
+AR_WINDOW = 0.25                      # a request's dropoff window: 25 %
+AR_TIMED = {"t0": 32, "t": 2, "h": 32, "d": 32, "c": 32}
+AR_CHECKED = 2                        # requests a mix against numpy
+AR_TAIL_MIN = 20                      # fewer timed requests: no p99
+#: requests a mix under torch.profiler after its timed ones; 0: its
+#: warm-up is the profiled request ((t) takes about 45 s a request)
+AR_PROFILED = {"t0": 8, "t": 0, "h": 8, "d": 8, "c": 8}
+#: the kernels each mix must launch, and only these
+AR_REQUIRED = {"t0": {"range_mask", "agg_masked_scan"},
+               "t": {"range_mask", "agg_masked_scan"},
+               "h": {"range_mask", "agg_bucket_reduce"},
+               "d": {"range_mask", "agg_bucket_reduce"},
+               "c": {"range_mask", "agg_masked_scan", "agg_rank_pick"}}
+#: the wrappers the route's calls go through, by their kernel entry
+AR_WRAPPERS = {"masked_scan": "agg_masked_scan",
+               "bucket_reduce": "agg_bucket_reduce",
+               "register_max": "agg_rank_pick", "range_mask": "range_mask"}
+
+
+def aggroute_bytes(n):
+    """Host bytes the route's segment holds, reckoned before it is built:
+    the doc ids as Python strings and their list, the segment's uid map
+    (hash table, entries, int objects), the sources list, seq_nos, the
+    keyword column (ordinals, docs, postings), three f64 columns with
+    their docs, and np.unique's sorted copy and inverse for each."""
+    ids = n * (49 + len(str(n))) + 8 * n
+    uid_map = int(1.5 * n) * (4 + 24) + 32 * n
+    cols = 8 * n + 4 * 3 * n + 3 * (8 + 4 + 8 + 8) * n
+    return ids + uid_map + 8 * n + cols
+
+
+def mem_available():
+    """MemAvailable of /proc/meminfo, bytes (None where unreadable)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def rss_bytes():
+    """The process's resident set (VmRSS of /proc/self/status)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def aggroute_index(n, dev):
+    """Config #3 as one segment: ``vendor_id`` (keyword, the 256 Zipf(1.1)
+    ordinals of :func:`agg_columns`), ``total_amount`` (double, their
+    lognormal(3, 1) values), ``trip_distance`` (double, lognormal(0.8,
+    0.9)) and ``dropoff_datetime`` (date, a second of 2015), one value a
+    doc, from ``AR_SEED``, built directly as a host state. Returns (the
+    segment, its mapper, the host columns)."""
+    from elasticsearch_tpu_torch.index.mapping import MapperService
+    from elasticsearch_tpu_torch.index.segment import segment_from_host_state
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(AR_SEED)
+    off, docs_s, vals_s = agg_columns(rng, n, AGG_V)
+    vendor = np.empty(n, np.uint8)
+    vendor[docs_s] = np.repeat(np.arange(AGG_V, dtype=np.uint8),
+                               np.diff(off))
+    amount = np.empty(n, np.float64)
+    amount[docs_s] = vals_s
+    del off, docs_s, vals_s
+    distance = rng.lognormal(0.8, 0.9, n)
+    dropoff = (AR_YEAR_MS + 1000 * rng.integers(0, AR_YEAR_S, n)) \
+        .astype(np.float64)
+    names = [f"v{o:03d}" for o in range(AGG_V)]
+    df = np.bincount(vendor, minlength=AGG_V).astype(np.int32)
+    offsets = np.zeros(AGG_V + 1, np.int64)
+    np.cumsum(df, out=offsets[1:])
+    docs = np.arange(n, dtype=np.int32)
+    kw = dict(ord_terms=names, term_ords={t: o for o, t in enumerate(names)},
+              df=df, offsets=offsets,
+              docs_host=np.argsort(vendor, kind="stable").astype(np.int32),
+              dv_ords_host=vendor.astype(np.int32), dv_docs_host=docs)
+    num = {name: dict(base=float(v.min()), vals_host=v, docs_host=docs)
+           for name, v in (("total_amount", amount),
+                           ("trip_distance", distance),
+                           ("dropoff_datetime", dropoff))}
+    t1 = time.perf_counter()
+    uids = list(map(str, range(n)))
+    t2 = time.perf_counter()
+    seg = segment_from_host_state(dict(
+        seg_id="_0", n_docs=n, doc_uids=uids,
+        sources=[None] * n, seq_nos=np.arange(n, dtype=np.int64),
+        keyword_fields={"vendor_id": kw}, numeric_fields=num), device=dev)
+    print(f"# aggroute build: columns {t1 - t0:.1f} s, doc ids "
+          f"{t2 - t1:.1f} s, the segment (uid map, np.unique of each "
+          f"numeric column, uploads) {time.perf_counter() - t2:.1f} s",
+          flush=True)
+    mapper = MapperService({"properties": {
+        "vendor_id": {"type": "keyword"},
+        "total_amount": {"type": "double"},
+        "trip_distance": {"type": "double"},
+        "dropoff_datetime": {"type": "date"}}})
+    cols = dict(vendor=vendor, amount=amount, distance=distance,
+                dropoff=dropoff)
+    return seg, mapper, cols
+
+
+def aggroute_window(i):
+    """Request i's dropoff window [lo, hi) in epoch ms: a random 25 % of
+    2015."""
+    r = np.random.RandomState(500 + i)
+    start = int(r.randint(0, int(AR_YEAR_S * (1 - AR_WINDOW))))
+    lo = AR_YEAR_MS + 1000 * start
+    return lo, lo + 1000 * int(AR_YEAR_S * AR_WINDOW)
+
+
+def aggroute_body(mix, i):
+    """Mix ``mix``'s request i: size 0, a fresh dropoff range filter."""
+    lo, hi = aggroute_window(i)
+    terms = {"terms": {"field": "vendor_id", "size": AGG_TOP}}
+    aggs = {
+        "t": {"vendors": dict(terms, aggs={"fare": {"percentiles": {
+            "field": "total_amount", "percents": [int(q) for q in AGG_QS]}}})},
+        "t0": {"vendors": terms},
+        "h": {"distance": {"histogram": {"field": "trip_distance",
+                                         "interval": 1}}},
+        "d": {"days": {"date_histogram": {"field": "dropoff_datetime",
+                                          "fixed_interval": "1d"}}},
+        "c": {"fares": {"cardinality": {"field": "total_amount"}}},
+    }[mix]
+    return {"size": 0, "aggs": aggs, "query": {"range": {
+        "dropoff_datetime": {"gte": lo, "lt": hi}}}}
+
+
+def aggroute_plain(name, args, kw):
+    """The plain version of a recorded route wrapper call."""
+    from elasticsearch_tpu_torch.ops import aggs
+    if name == "masked_scan":
+        out = aggs.masked_scan_plain(*args, **kw)
+        return out if isinstance(out, tuple) else (out,)
+    if name == "bucket_reduce":
+        return (aggs.bucket_reduce_plain(*args, **kw),)
+    if name == "register_max":
+        return (aggs.register_max_plain(*args, **kw),)
+    return segment_plain(name, args, kw)
+
+
+def check_histogram(res, keys_f64, what):
+    """A histogram's buckets against numpy: keys ascending, contiguous at
+    the interval, each count ``np.unique``'s (0 in the gaps)."""
+    uk, uc = np.unique(keys_f64, return_counts=True)
+    want = dict(zip(uk.tolist(), uc.tolist()))
+    got = res["buckets"]
+    keys = [b["key"] for b in got]
+    if keys[0] != uk[0] or keys[-1] != uk[-1] or \
+            any(b <= a for a, b in zip(keys, keys[1:])):
+        fail(f"{what}: keys {keys[:3]}..{keys[-3:]} against numpy's "
+             f"{uk[:3].tolist()}..{uk[-3:].tolist()}")
+    for b in got:
+        if b["doc_count"] != want.pop(b["key"], 0):
+            fail(f"{what}: bucket {b['key']} counts {b['doc_count']}")
+    if want:
+        fail(f"{what}: numpy's buckets {list(want)[:5]} missing")
+    return len(got)
+
+
+def check_aggroute(mix, res, i, cols, seg):
+    """Request i of ``mix`` against numpy over the host columns."""
+    from elasticsearch_tpu_torch.ops import aggs
+    lo, hi = aggroute_window(i)
+    m = (cols["dropoff"] >= lo) & (cols["dropoff"] < hi)
+    what = f"aggroute ({mix}) request {i}"
+    if res.total != int(m.sum()) or res.hits:
+        fail(f"{what}: total {res.total}, {len(res.hits)} hits; numpy "
+             f"{int(m.sum())}")
+    agg = res.aggregations
+    if mix in ("t", "t0"):
+        cnt = np.bincount(cols["vendor"][m], minlength=AGG_V)
+        # Elasticsearch's order: count desc, then the term ascending
+        top = sorted(range(AGG_V), key=lambda o: (-cnt[o], f"v{o:03d}"))
+        top = [o for o in top if cnt[o]][:AGG_TOP]
+        b = agg["vendors"]["buckets"]
+        if [x["key"] for x in b] != [f"v{o:03d}" for o in top] or \
+                [x["doc_count"] for x in b] != [int(cnt[o]) for o in top]:
+            fail(f"{what}: top terms {[(x['key'], x['doc_count']) for x in b]}"
+                 f" != numpy {[(o, int(cnt[o])) for o in top]}")
+        # the buckets the shard collected: every term without subs, the
+        # shard_size (size · 1.5 + 10) largest with them
+        kept = [o for o in sorted(range(AGG_V), key=lambda o: (
+            -cnt[o], f"v{o:03d}")) if cnt[o]]
+        if mix == "t":
+            kept = kept[: AGG_TOP * 3 // 2 + 10]
+        other = int(cnt[kept].sum()) - int(cnt[top].sum())
+        if agg["vendors"]["sum_other_doc_count"] != other:
+            fail(f"{what}: sum_other_doc_count "
+                 f"{agg['vendors']['sum_other_doc_count']} != {other}")
+        if mix == "t":
+            for x, o in zip(b, top):
+                vals = cols["amount"][m & (cols["vendor"] == o)]
+                want = np.percentile(vals, list(AGG_QS), method="hazen")
+                got = [x["fare"]["values"][f"{int(q)}"] for q in AGG_QS]
+                if got != want.tolist():
+                    fail(f"{what}: percentiles of {x['key']} {got} != "
+                         f"numpy's (Hazen) {want.tolist()}")
+    elif mix == "h":
+        check_histogram(agg["distance"], np.floor(cols["distance"][m]),
+                        what)
+    elif mix == "d":
+        day = 86_400_000.0
+        check_histogram(agg["days"], np.floor(cols["dropoff"][m] / day) * day,
+                        what)
+    else:
+        pairs = aggs.hll_sketch_pairs(seg, "total_amount", device=seg.device)
+        host = np.zeros(seg.n_pad, bool)
+        host[: seg.n_docs] = m
+        regs = aggs.host_register_max(pairs, host)
+        if agg["fares"]["value"] != aggs.hll_estimate(regs):
+            fail(f"{what}: cardinality {agg['fares']['value']} != the "
+                 f"estimate of host_register_max's registers "
+                 f"{aggs.hll_estimate(regs)}")
+        return regs
+    return None
+
+
+def run_aggroute(card, *, n_docs=AGG_DOCS):
+    """Phase 12b: the aggregation route (A6c), config #3 as users send it:
+    one segment of ``n_docs`` docs, requests one at a time through
+    ``ShardSearcher(segs, mapper).search(body)``, every body ``size: 0``
+    with a fresh 25 % ``range`` on ``dropoff_datetime``. Mixes: (t) terms
+    on vendor_id (size 10) with a percentiles sub on total_amount [50, 95,
+    99] (config #3's tree: K18, K12, then the subs on the host), (t0) the
+    terms alone (K18, K12), (h) a histogram of trip_distance at interval 1
+    (K18, K14), (d) a 1d fixed-interval date_histogram of dropoff_datetime
+    (K18, K14), (c) the cardinality of total_amount (HLL: K18, K12's
+    prefix, K13's registers). Each mix's launches counted alone (only its
+    kernels, K19 never), every K12–K14 and K18 call of its first request
+    against its plain version (exact), its first two requests against
+    numpy, the query masks' bytes between host and card on every request
+    ((t) one n_pad download, the others none). Returns the route's launch
+    counts and its stats."""
+    import gc
+
+    import torch
+    from elasticsearch_tpu_torch.kernels import build as kb
+    from elasticsearch_tpu_torch.ops import aggs as aggs_mod
+    from elasticsearch_tpu_torch.ops import masks as masks_mod
+    from elasticsearch_tpu_torch.search import aggregations
+    from elasticsearch_tpu_torch.search.shard_search import ShardSearcher
+
+    dev = torch.device("cuda")
+    # ---- memory first: halve n until the host can hold the segment -------
+    avail = mem_available()
+    n, halved = n_docs, 0
+    while avail is not None and aggroute_bytes(n) > 0.7 * avail:
+        n //= 2
+        halved += 1
+    avail_s = "unread" if avail is None else f"{avail / 2**30:.1f} GiB"
+    print(f"# aggroute: the segment reckoned at "
+          f"{aggroute_bytes(n) / 2**30:.1f} GiB of host memory for {n} docs "
+          f"(MemAvailable {avail_s})"
+          + (f"; cut from {n_docs} (halved {halved}x)" if halved else ""),
+          flush=True)
+    t0 = time.perf_counter()
+    seg, mapper, cols = aggroute_index(n, dev)
+    build_s = time.perf_counter() - t0
+    searcher = ShardSearcher([seg], mapper, device=dev)
+    gc.collect()
+    gc.freeze()
+    rss = rss_bytes()
+    seg_bytes = sum(t.nbytes for f in (*seg.keyword_fields.values(),
+                                       *seg.numeric_fields.values())
+                    for t in vars(f).values()
+                    if isinstance(t, torch.Tensor)) + seg.live_dev.nbytes
+    print(f"# aggroute (config #3 as one segment): {n} docs, n_pad "
+          f"{seg.n_pad}; vendor_id {AGG_V} Zipf({AGG_ZIPF}) ordinals, "
+          f"total_amount lognormal(3, 1), trip_distance lognormal(0.8, 0.9),"
+          f" dropoff_datetime a second of 2015; built in {build_s:.1f} s, "
+          f"{seg_bytes / 2**30:.3f} GiB on {dev}, process RSS "
+          f"{rss / 2**30:.1f} GiB after the build; gc.freeze() after it",
+          flush=True)
+
+    # ---- each mix alone: launches, times, the mask bytes -----------------
+    mixes = list(AR_REQUIRED)
+    counts, stats, results, recorded = {}, {}, {}, {}
+    for mix in mixes:
+        def call(i, _mix=mix):
+            return searcher.search(aggroute_body(_mix, i))
+        kb.reset_launches()
+        aggregations.mask_transfers(reset=True)
+        moves = []
+        rec = []
+        t1 = time.perf_counter()
+        with recording(rec, AR_WRAPPERS, (aggs_mod, masks_mod)):
+            outs = []                                # warm-up, recorded
+            if AR_PROFILED[mix]:
+                outs.append(call(0))
+            else:
+                prof = device_busy(call, 0, 1, outs)
+            first = outs[0]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t1
+        moves.append(aggregations.mask_transfers(reset=True))
+        lat, out = np.zeros(AR_TIMED[mix]), [first]
+        for i in range(1, AR_TIMED[mix] + 1):
+            ta = time.perf_counter()
+            out.append(call(i))
+            lat[i - 1] = time.perf_counter() - ta
+            moves.append(aggregations.mask_transfers(reset=True))
+        c = {k: v for k, v in kb.launches.items() if v}
+        n_req = AR_TIMED[mix] + 1
+        if set(c) != AR_REQUIRED[mix] or any(v != n_req for v in c.values()):
+            fail(f"aggroute ({mix}): launched {c} over {n_req} requests, "
+                 f"expected each of {sorted(AR_REQUIRED[mix])} once a "
+                 f"request and nothing else")
+        want_d2h = seg.n_pad if mix == "t" else 0
+        for i, mv in enumerate(moves):
+            if mv["d2h_bytes"] != want_d2h or mv["d2h"] != (mix == "t") or \
+                    mv["h2d"] or mv["h2d_bytes"]:
+                fail(f"aggroute ({mix}) request {i}: query masks moved "
+                     f"{mv}; expected {want_d2h} bytes down, none up")
+        counts[mix], results[mix], recorded[mix] = c, out, rec
+        st = latency_stats(lat, 1)
+        if lat.size < AR_TAIL_MIN:          # too few requests for a tail
+            st["p99_ms"] = None
+            st["min_ms"] = float(lat.min()) * 1e3
+        st["warm_s"] = warm_s
+        if not AR_PROFILED[mix]:
+            st["profiled"] = dict(requests=1, device_busy_ms=prof[0],
+                                  wall_ms=prof[1], device_events=prof[2],
+                                  warm_up=True)
+        st["launches_per_request"] = {k: v / n_req for k, v in c.items()}
+        st["mask_bytes_per_request"] = dict(d2h=want_d2h, h2d=0)
+        stats[mix] = st
+        tail = (f"min {st['min_ms']:.3f} ms, no p99"
+                if st["p99_ms"] is None else f"p99 {st['p99_ms']:.3f} ms")
+        print(f"# aggroute ({mix}): {st['qps']:.2f} aggs/s, p50 "
+              f"{st['p50_ms']:.3f} ms, {tail}, max "
+              f"{st['max_ms']:.3f} ms over {st['requests']} requests "
+              f"(warm-up {warm_s:.1f} s, caches built there); launches a "
+              f"request {st['launches_per_request']}; query-mask bytes a "
+              f"request: {want_d2h} down, 0 up [{card}]", flush=True)
+
+    # ---- where a request's time goes ---------------------------------------
+    for mix in mixes:
+        def call(i, _mix=mix):
+            return searcher.search(aggroute_body(_mix, i))
+        n_prof = AR_PROFILED[mix]
+        if n_prof:
+            busy, wall, events = device_busy(call, AR_TIMED[mix] + 1,
+                                             n_prof)
+            stats[mix]["profiled"] = dict(
+                requests=n_prof, device_busy_ms=busy, wall_ms=wall,
+                device_events=events)
+        else:
+            p = stats[mix]["profiled"]
+            busy, wall, events = (p["device_busy_ms"], p["wall_ms"],
+                                  p["device_events"])
+        n_prof = max(n_prof, 1)
+        share = "not measured" if busy is None else (
+            f"{busy:.3f} ms busy over {n_prof} requests"
+            f"{'' if AR_PROFILED[mix] else ' (its warm-up)'}, busy "
+            f"share {busy / wall:.4f} of the profiled wall; device "
+            f"events a request {events / n_prof:.1f}")
+        print(f"# aggroute ({mix}): {share} (torch.profiler) [{card}]",
+              flush=True)
+    uniq = seg.numeric_fields["dropoff_datetime"].uniq_vals
+    t1 = time.perf_counter()
+    for _ in range(5):
+        int(np.isnan(uniq).sum())
+    nan_ms = (time.perf_counter() - t1) / 5 * 1e3
+    stats["host"] = dict(range_nan_count_ms=nan_ms, build_s=build_s,
+                         rss_bytes=rss, n_docs=n,
+                         cut_from=n_docs if halved else None)
+    print(f"# aggroute host: the range's NaN count over the {uniq.size} "
+          f"distinct dropoff times {nan_ms:.3f} ms a request", flush=True)
+
+    # ---- each recorded kernel call against its plain version -------------
+    n_checked = {k: 0 for k in AR_WRAPPERS.values()}
+    for mix, rec in recorded.items():
+        for wrapper, args, kw, out_ in rec:
+            got = out_ if isinstance(out_, tuple) else (out_,)
+            check_bitwise(got, aggroute_plain(wrapper, args, kw),
+                          f"aggroute ({mix}): {AR_WRAPPERS[wrapper]}")
+            n_checked[AR_WRAPPERS[wrapper]] += 1
+    if not all(n_checked.values()):
+        fail(f"aggroute: a kernel was never checked: {n_checked}")
+    print(f"# aggroute kernels equal their plain versions on every call of "
+          f"each mix's first request: {n_checked} (exact)", flush=True)
+
+    # ---- the first requests against numpy ---------------------------------
+    for mix in mixes:
+        for i in range(AR_CHECKED):
+            regs = check_aggroute(mix, results[mix][i], i, cols, seg)
+            if regs is not None and i == 0:
+                dev_regs = [o for w, _a, _k, o in recorded[mix]
+                            if w == "register_max"]
+                if len(dev_regs) != 1 or not np.array_equal(
+                        dev_regs[0].cpu().numpy()[: regs.shape[0]], regs):
+                    fail("aggroute (c): the card's registers differ from "
+                         "host_register_max's")
+    print(f"# aggroute: {AR_CHECKED} requests of each mix agree with numpy "
+          f"(totals, counts and keys exact, the top {AGG_TOP} terms in "
+          f"Elasticsearch's order, percentiles equal to np.percentile "
+          f"(Hazen), the card's HLL registers equal to host_register_max's)",
+          flush=True)
+    path = {k: sum(c.get(k, 0) for c in counts.values())
+            for k in kb.launches}
+    del searcher, seg, results, recorded, cols
+    gc.unfreeze()
+    gc.collect()
+    print(f"# aggroute mixes: {json.dumps(stats, default=float)}")
+    return path, stats
+
+
 ML_TREES = 500
 ML_TREE_LEVELS = 8           # split levels: 511 nodes, the reference's depth 9
 ML_FEATURES = 32
@@ -5106,6 +5544,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"# aggs phase {time.perf_counter() - t1:.1f} s", flush=True)
     t1 = time.perf_counter()
+    aggroute_counts, _aggroute_stats = run_aggroute(card)
+    torch.cuda.empty_cache()
+    print(f"# aggroute phase {time.perf_counter() - t1:.1f} s [{card}]",
+          flush=True)
+    t1 = time.perf_counter()
     ml_rows, ml_counts = run_ml(card)
     torch.cuda.empty_cache()
     print(f"# ml phase {time.perf_counter() - t1:.1f} s [{card}]",
@@ -5131,6 +5574,7 @@ def main() -> int:
     path_counts = dict(pruned_counts, knn_exact=knn_counts,
                        knn_ivf=ivf_counts, bool=bool_counts,
                        hybrid=hy_counts, aggs=agg_counts,
+                       aggroute=aggroute_counts,
                        segment=seg_counts, serving=srv_counts,
                        **ml_counts)
     for kd in kernels:

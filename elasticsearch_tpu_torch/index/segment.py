@@ -199,11 +199,20 @@ class Segment:
         self.live = np.ones(n_docs, dtype=bool)     # host liveness (deletes)
         self._live_dev: Optional[torch.Tensor] = None
         self._fv_columns: Dict[str, np.ndarray] = {}
-        # hidden nested children never resolve by uid: a user doc whose id
-        # happens to collide with a synthetic child uid must win
-        self._uid_to_doc: Dict[str, int] = {
-            u: i for i, u in enumerate(doc_uids) if self.parent_mask[i]}
+        self._uid_map: Optional[Dict[str, int]] = None
         self._upload()
+
+    @property
+    def _uid_to_doc(self) -> Dict[str, int]:
+        """uid -> local doc, built at first use: a search or an
+        aggregation never reads it, and at 10^8 docs it takes minutes of
+        host time. Hidden nested children never resolve by uid: a user
+        doc whose id happens to collide with a synthetic child uid must
+        win."""
+        if self._uid_map is None:
+            self._uid_map = {u: i for i, u in enumerate(self.doc_uids)
+                             if self.parent_mask[i]}
+        return self._uid_map
 
     # -- device upload -------------------------------------------------------
 

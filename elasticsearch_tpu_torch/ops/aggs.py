@@ -719,7 +719,8 @@ def distinct_count(seg, field: str) -> int:
         if field in getattr(seg, "keyword_fields", {}):
             hit = len(seg.keyword_fields[field].ord_terms)
         else:
-            hit = int(np.unique(seg.numeric_fields[field].vals_host).size)
+            # a segment's field keeps np.unique(vals_host) as uniq_vals
+            hit = int(seg.numeric_fields[field].uniq_vals.size)
         cache[key] = hit
     return hit
 

@@ -1049,3 +1049,30 @@ _NOT_PORTED = {
     "rank_feature": "search/geo_queries.py:411",
     "pinned": "search/geo_queries.py:437",
 }
+
+
+# ---------------------------------------------------------------------------
+# join-field helpers (the ``children``/``parent`` aggregations read them;
+# the join queries themselves are ROADMAP A6b)
+# ---------------------------------------------------------------------------
+
+
+def _kw_values_by_doc(seg, field: str) -> Dict[int, str]:
+    """doc → first keyword value of ``field`` (join columns are
+    single-valued)."""
+    kf = seg.keyword_fields.get(field)
+    if kf is None:
+        return {}
+    out: Dict[int, str] = {}
+    for d, o in zip(kf.dv_docs_host.tolist(), kf.dv_ords_host.tolist()):
+        out.setdefault(int(d), kf.ord_terms[o])
+    return out
+
+
+def _join_field(ctx):
+    from ..index.mapping import JoinFieldType
+    mapper = getattr(ctx, "mapper", None)
+    for ft in (getattr(mapper, "_fields", {}) or {}).values():
+        if isinstance(ft, JoinFieldType):
+            return ft
+    return None

@@ -16,17 +16,24 @@ concurrent requests into one ``DistributedSearchPlane.serve`` dispatch
 over the serving generation (packed base + delta tier), pruned by
 default and eager under ``track_total_hits: true`` or ``prune: false``.
 
+With ``aggs`` (or ``aggregations``), the aggregation tree
+(``search/aggregations.py``) runs after the query phase over each
+segment's mask as the query left it, a tensor on the card: the device
+routes (K12–K14) read it there, and a host copy is made only when an
+aggregator's host branch asks for one. ``size: 0`` takes no top-k (K19
+is not launched). A body with aggs never takes the serving route.
+
 The bodies served: ``query``, ``size``, ``from``, ``min_score``,
 ``track_total_hits`` (bool or int), score-only ``search_after``,
-``prune`` and ``_source``. Every other body key, and the kNN and fused
-providers, raise an error that names the feature and the ROADMAP item
-that ports it.
+``prune``, ``_source`` and ``aggs``/``aggregations``. Every other body
+key, and the kNN and fused providers, raise an error that names the
+feature and the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,19 +43,19 @@ from ..device import resolve_device
 from ..index.mapping import MapperService
 from ..index.segment import Segment
 from ..ops.topk import get_topk_kernel
+from .aggregations import (AggregationContext, BucketAggregator, TopHitsAgg,
+                           parse_aggs, run_aggregations)
 from .fetch import filter_source
 from .query_dsl import MatchAllQuery, ShardContext, parse_query
 
 #: the body keys served
 BODY_KEYS = frozenset({"query", "size", "from", "min_score",
                        "track_total_hits", "search_after", "prune",
-                       "_source"})
+                       "_source", "aggs", "aggregations"})
 
 #: body keys of the reference's shard search not ported yet: key ->
 #: (ROADMAP item, where the reference reads it)
 NOT_PORTED = {
-    "aggs": ("A6c", "search/shard_search.py:399"),
-    "aggregations": ("A6c", "search/shard_search.py:399"),
     "knn": ("A6b", "search/shard_search.py:388"),
     "sort": ("A6b", "search/shard_search.py:401"),
     "rank": ("A6b", "search/shard_search.py:403"),
@@ -69,6 +76,15 @@ def _refuse(what: str, item: str, where: str) -> IllegalArgumentError:
         f"reference {where})")
 
 
+def _tree_needs_scores(aggs: dict) -> bool:
+    for a in aggs.values():
+        if isinstance(a, TopHitsAgg):
+            return True
+        if isinstance(a, BucketAggregator) and _tree_needs_scores(a.subs):
+            return True
+    return False
+
+
 @dataclass
 class ShardHit:
     doc_id: str
@@ -87,6 +103,7 @@ class ShardSearchResult:
     total_relation: str
     hits: List[ShardHit]
     max_score: Optional[float]
+    aggregations: Optional[Dict[str, Any]] = None
 
 
 class ShardSearcher:
@@ -151,6 +168,8 @@ class ShardSearcher:
             raise IllegalArgumentError(
                 f"[prune] must be a boolean, got [{prune_opt}]")
         query = parse_query(query_spec) if query_spec else MatchAllQuery()
+        aggs_spec = body.get("aggs") or body.get("aggregations")
+        aggs = parse_aggs(aggs_spec) if aggs_spec else None
         search_after = body.get("search_after")
         k = size + from_
         window = k
@@ -175,6 +194,7 @@ class ShardSearcher:
 
         # --- query phase (device) -----------------------------------------
         pending = []
+        agg_pending = []
         total = 0
         candidates: List[Tuple[float, int, int]] = []
         plane_total_gte = False
@@ -217,6 +237,8 @@ class ShardSearcher:
                 topk = get_topk_kernel(seg.n_pad, kk)
                 vals_dev, idx_dev = topk(scores, sel_mask)
             pending.append((seg_idx, count_dev, vals_dev, idx_dev))
+            if aggs is not None:
+                agg_pending.append((seg, mask, scores))
 
         for seg_idx, count_dev, vals_dev, idx_dev in pending:
             if count_dev is not None:
@@ -286,8 +308,21 @@ class ShardSearcher:
                     hit.ignored = [ign.ord_terms[o] for o in
                                    ign.dv_ords_host[lo_i:hi_i]]
             hits.append(hit)
+
+        agg_results = None
+        if aggs is not None:
+            # each segment's mask goes as the query left it, on the card;
+            # scores come to the host only for a tree with top_hits
+            seg_scores = ({seg.seg_id: sc.cpu().numpy()
+                           for seg, _, sc in agg_pending}
+                          if _tree_needs_scores(aggs) else {})
+            agg_ctx = AggregationContext(self.mapper, shard_ctx=self.ctx,
+                                         seg_scores=seg_scores)
+            agg_results = run_aggregations(
+                aggs, agg_ctx, [(seg, m) for seg, m, _ in agg_pending])
         return ShardSearchResult(total=total, total_relation=total_relation,
-                                 hits=hits, max_score=max_score)
+                                 hits=hits, max_score=max_score,
+                                 aggregations=agg_results)
 
     def _serve_plane(self, plane_route, window: int, prune_opt,
                      track_total_hits):

@@ -16,7 +16,7 @@ and of the pruned route and the hybrid path driven (``pruned``,
                             [--kernels k16,k6,k9,k8,k1,k4,k3,k21,k2,k12,
                                        k14,k22,k19,k7,k17,k5,k10,k11,
                                        k20,k18,k13,aggs,segment,ivf,
-                                       pruned,hybrid]
+                                       serving,aggroute,pruned,hybrid]
                             [--variants] [--out FILE]
 
 ``--tree`` imports ``elasticsearch_tpu_torch`` from DIR (default: this
@@ -197,6 +197,12 @@ JSON lines and writes them to ``--out`` as well.
   32 client threads: requests/s, p50, p99, batches, stages and busy share
   a mix, and the delta; about 4 minutes with its set-up) against
   ``--tree``'s package (not in the default list).
+- ``aggroute``: ``chip_smoke.run_aggroute`` (config #3's aggregation
+  route: mixes (t), (t0), (h), (d), (c) through ``ShardSearcher.search``
+  on one 165,346,692-doc segment; aggs/s, p50, p99, max, busy share and
+  query-mask bytes a mix; about 7 minutes with its set-up) against
+  ``--tree``'s package, reported as not measured where the tree refuses
+  ``aggs`` (not in the default list).
 - ``--variants``: the tree's ``csrc/knn_scan.cu`` copied to
   ``elasticsearch_tpu_torch/_build/probe/``, edited to leave out one part
   (the row loads, the dot products, or the list pushes and merges) or to
@@ -3947,6 +3953,26 @@ def run_serving_phase(rows):
          stats=json.loads(json.dumps(stats, default=float)))
 
 
+def run_aggroute_phase(rows):
+    """The aggregation route phase of ``chip_smoke.py`` (``run_aggroute``:
+    config #3's mixes through ``ShardSearcher.search`` on one
+    165,346,692-doc segment) against ``--tree``'s package: each mix's
+    aggs/s, p50, p99, max, busy share and mask bytes (its printed lines and
+    the row) and the route's launches. A package whose ``ShardSearcher``
+    refuses ``aggs`` is reported as not measured."""
+    cs = smoke()
+    from elasticsearch_tpu_torch.device import card_info
+    from elasticsearch_tpu_torch.search import shard_search
+    if "aggs" in getattr(shard_search, "NOT_PORTED", {}):
+        emit(rows, kernel="aggroute_phase",
+             not_measured="the tree's ShardSearcher refuses aggs")
+        return
+    path, stats = cs.run_aggroute(card_info())
+    emit(rows, kernel="aggroute_phase",
+         launches={k: v for k, v in path.items() if v},
+         stats=json.loads(json.dumps(stats, default=float)))
+
+
 def run_ivf_phase(rows):
     """The IVF phase of ``chip_smoke.py`` (``run_knn_ivf``: the route
     through ``serve`` at the IVF shape) against ``--tree``'s package: its
@@ -3974,9 +4000,9 @@ def main() -> int:
                    help="comma-separated: which of k16, k6, k9, k8, k1, k4, "
                    "k3, k21, k2, k12, k14, k22, k19, k7, k17, k5, k10, k11, "
                    "k20, k18, k13 to "
-                   "probe, and aggs, segment, ivf and serving "
-                   "(chip_smoke.py's aggregation, per-segment, IVF and "
-                   "serving phases) and pruned "
+                   "probe, and aggs, segment, ivf, serving and aggroute "
+                   "(chip_smoke.py's aggregation, per-segment, IVF, "
+                   "serving and aggregation route phases) and pruned "
                    "and hybrid (the pruned route and the hybrid path "
                    "driven, their device events a dispatch)")
     p.add_argument("--variants", action="store_true")
@@ -4050,6 +4076,8 @@ def main() -> int:
         run_ivf_phase(rows)
     if "serving" in which:
         run_serving_phase(rows)
+    if "aggroute" in which:
+        run_aggroute_phase(rows)
     emit(rows, total_s=time.perf_counter() - t0)
     if opts.out:
         with open(opts.out, "w") as f:

@@ -2512,3 +2512,67 @@ def test_serving_route_on_card_matches_host(cuda, monkeypatch):
             "blockmax_scan", "bisect_exact_scores"))
     for c, _ in sides.values():
         c.release()
+
+
+#: aggregation trees the card's route holds to the CPU's: each device route
+#: (terms K12, histogram and fixed date_histogram K14, HLL K12 + K13) with
+#: and without sub-aggregations, under a K16-scored query and a K18 filter
+AGG_BODIES = [
+    {"t": {"terms": {"field": "tag", "size": 3}, "aggs": {
+        "p": {"percentiles": {"field": "price", "percents": [50, 95, 99]}}}}},
+    {"t": {"terms": {"field": "tags"}},
+     "h": {"histogram": {"field": "qty", "interval": 5}},
+     "c": {"cardinality": {"field": "price", "precision_threshold": 1}}},
+    {"d": {"date_histogram": {"field": "ts", "fixed_interval": "7d"},
+           "aggs": {"s": {"sum": {"field": "price"}}}},
+     "f": {"filter": {"term": {"tag": "alpha"}}, "aggs": {
+         "t": {"terms": {"field": "tags"}}}}},
+]
+
+
+def _same_tree(a, b, path="aggregations"):
+    if isinstance(a, dict):
+        assert list(a) == list(b), path
+        for k in a:
+            _same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_tree(x, y, f"{path}[{i}]")
+    elif isinstance(a, float) and a != a:
+        assert b != b, path
+    else:
+        assert a == b, f"{path}: {a!r} != {b!r}"
+
+
+@pytest.mark.parametrize("query", [None, {"match": {"body": "w1 w2 hello"}},
+                                   {"range": {"price": {"gte": 1.5}}}])
+@pytest.mark.parametrize("body", range(len(AGG_BODIES)))
+def test_aggregation_route_on_card_equals_cpu(cuda, monkeypatch, query,
+                                              body):
+    """The aggregation route on the card (K12–K14 launched on the query's
+    own mask tensor) returns the CPU's tree, and moves query masks only
+    where a host branch reads them."""
+    from elasticsearch_tpu_torch.search import aggregations
+    monkeypatch.setattr(aggs, "DEVICE_MIN_PAIRS", 1)
+    trees, moves = [], []
+    for dev in ("cpu", cuda):
+        svc, segs = build_segments(MapperService, SegmentBuilder, 31,
+                                   sizes=(70, 45), deletes=((3, 10), (0,)),
+                                   device=dev)
+        searcher = ShardSearcher(segs, svc, device=dev)
+        req = {"size": 0, "aggs": AGG_BODIES[body]}
+        if query is not None:
+            req["query"] = query
+        kb.reset_launches()
+        aggregations.mask_transfers(reset=True)
+        trees.append(searcher.search(req).aggregations)
+        moves.append(aggregations.mask_transfers(reset=True))
+    _same_tree(*trees)
+    assert moves[0] == moves[1]
+    assert kb.launches["agg_masked_scan"] > 0
+    assert kb.launches["segment_topk"] == 0
+    if body == 1:
+        assert moves[1] == dict(d2h=0, d2h_bytes=0, h2d=0, h2d_bytes=0)
+        assert kb.launches["agg_bucket_reduce"] > 0 and \
+            kb.launches["agg_rank_pick"] > 0
